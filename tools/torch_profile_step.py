@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Where the time of one BeNeRF train step goes, for the PyTorch/CUDA port.
+
+    python3 tools/torch_profile_step.py [--iters 5] [--out FILE.json]
+
+Builds the tanabata config at full width on an in-memory random scene of
+1,000,000 events (as chip_smoke.py does), runs a few warm-up steps, then
+`--iters` steps under torch.profiler. Prints and writes (JSON, --out):
+  - the step's wall time (host clock, one host sync per step as in the
+    train loop, measured without the profiler), the device's busy time (sum
+    of kernel and copy times) and its idle share;
+  - device time per group: K1, K2's tile pass, K2's weight-gradient pass,
+    K2's partial-sum reduce, and every other kernel; launches per step;
+  - device time per kernel, largest first.
+Imports nothing of JAX or of the JAX package. Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+N_EVENTS = 1_000_000
+WARMUP = 3
+
+
+def _device_us(evt) -> float:
+    """Self device time of a profiler entry, in microseconds."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+# kernel name prefix -> group (csrc/fused_mlp_*.cu)
+GROUPS = (("fmlp::fwd_kernel", "K1"), ("fmlp::tile_kernel", "K2 tile pass"),
+          ("fmlp::wgrad_", "K2 weight-gradient pass"),
+          ("fmlp::reduce_kernel", "K2 reduce"))
+
+
+def _group(name: str) -> str:
+    for prefix, group in GROUPS:
+        if name.startswith(prefix):
+            return group
+    return "other kernels and copies"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        sys.exit("torch_profile_step: torch sees no CUDA device")
+    from benerf_tpu_torch.core.config import load_config
+    from benerf_tpu_torch.data import datasets
+    from benerf_tpu_torch.data import events as events_mod
+    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.train import loop, step as step_mod
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    fused_mlp.build()
+
+    cfg = load_config(str(REPO / "configs/benerf_blender/tanabata.txt"))
+    scene = datasets.random_scene(cfg, N_EVENTS, seed=0, device="cuda")
+    cap = events_mod.window_cap(scene.events.ts.cpu().numpy(),
+                                cfg.accumulate_time_length)
+    cfg = dataclasses.replace(cfg, event_window_cap=cap)
+    H, W = scene.image.shape[1:3]
+    K_rgb, K_evt, _, _, _ = loop.intrinsics(cfg)
+    batch = loop.make_batch(scene, cfg, K_rgb, K_evt, "cuda")
+    state = step_mod.init_state(cfg, cfg.seed, device="cuda")
+    step_fn = step_mod.make_train_step(cfg, H, W)
+    rays = (2 * cfg.sampling_event_rays + cfg.num_interpolated_pose
+            * (cfg.sampling_rgb_rays // cfg.num_interpolated_pose))
+
+    for _ in range(WARMUP):
+        state, metrics = step_fn(state, batch, cfg.seed)
+        metrics["loss"].item()
+
+    # unprofiled wall time per step, one host sync per step as in train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        state, metrics = step_fn(state, batch, cfg.seed)
+        metrics["loss"].item()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.iters):
+            state, metrics = step_fn(state, batch, cfg.seed)
+            metrics["loss"].item()
+    torch.cuda.synchronize()
+
+    # device work: kernels and copies, not the GPU spans of annotations
+    work = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and _device_us(e) > 0 and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
+    kernels = sorted(((e.key, e.count / args.iters,
+                       _device_us(e) / 1e3 / args.iters) for e in work),
+                     key=lambda k: -k[2])
+    groups = {}
+    for name, count, ms in kernels:
+        g = groups.setdefault(_group(name), {"ms_per_step": 0.0,
+                                             "launches_per_step": 0.0})
+        g["ms_per_step"] += ms
+        g["launches_per_step"] += count
+    busy_ms = sum(k[2] for k in kernels)
+    result = {
+        "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "iters": args.iters, "rays_per_iter": rays,
+        "wall_ms_per_step": wall_ms, "rays_per_sec": rays / wall_ms * 1e3,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "launches_per_step": sum(k[1] for k in kernels),
+        "groups": groups,
+        "kernels": [{"name": n, "launches_per_step": c, "ms_per_step": ms}
+                    for n, c, ms in kernels],
+    }
+    print(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print(f"wall {wall_ms:.2f} ms/step ({rays / wall_ms * 1e3:,.0f} rays/s), "
+          f"device busy {busy_ms:.2f} ms/step, idle share "
+          f"{result['device_idle_share']:.3f}, "
+          f"{result['launches_per_step']:.0f} launches/step")
+    for g, v in sorted(groups.items(), key=lambda kv: -kv[1]["ms_per_step"]):
+        print(f"  {g:28s} {v['ms_per_step']:9.3f} ms  "
+              f"x{v['launches_per_step']:.0f}")
+    for n, c, ms in kernels[:25]:
+        print(f"  {ms:9.3f} ms  x{c:<6.0f} {n[:100]}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps({k: v for k, v in result.items() if k != "kernels"}))
+
+
+if __name__ == "__main__":
+    main()
