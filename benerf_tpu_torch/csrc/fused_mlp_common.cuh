@@ -1,6 +1,7 @@
-// Device code shared by K1 (fused_mlp_fwd.cu) and K2 (fused_mlp_bwd.cu):
-// the packed weight layout, the in-block positional encoding, and the
-// register-blocked layer product both kernels are built from.
+// Device code shared by K1/K2 (fused_mlp_fwd.cu, fused_mlp_bwd.cu) and
+// K3/K4 (staged_mlp_fwd.cu, staged_mlp_bwd.cu): the packed weight layout,
+// the in-block positional encoding, and the register-blocked layer product
+// all four kernels are built from.
 //
 // Layout of a block's tile: TP = 64 points. Activations live in shared
 // memory feature-major, [feature][point], one row per feature with a row
@@ -47,12 +48,15 @@ constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 // (fan_in, fan_out) row-major orientation, matrices first so each starts
 // 16-byte aligned; the six matrices mm_acc reads (w0, wh, w5pe, wf, wfv,
 // wvpe) have interleaved columns (see mm_acc). Mirrored by ops/fused_mlp.py
-// `_layout`, checked against fused_mlp_layout() when the library loads.
+// `_layout`, checked against fused_mlp_layout() / staged_mlp_layout() when
+// the library loads. view_pe = false is the layout of K3/K4, whose views
+// layer adds a per-ray bias computed outside (vb = vpe @ w_pe + b): the
+// view-encoding weights wvpe and their bias bv are then empty.
 struct Offsets {
   int64_t w0, wh, w5pe, wf, wfv, wvpe, b, bf, bv, wa, ba, wrgb, brgb, total;
 };
 
-__host__ __device__ inline Offsets offsets(int C) {
+__host__ __device__ inline Offsets offsets(int C, bool view_pe = true) {
   Offsets o;
   o.w0 = 0;
   o.wh = o.w0 + PE_ROWS * WIDTH;
@@ -60,10 +64,10 @@ __host__ __device__ inline Offsets offsets(int C) {
   o.wf = o.w5pe + PE_ROWS * WIDTH;
   o.wfv = o.wf + WIDTH * WIDTH;
   o.wvpe = o.wfv + WIDTH * HEAD;
-  o.b = o.wvpe + VPE_ROWS * HEAD;
+  o.b = o.wvpe + (view_pe ? VPE_ROWS * HEAD : 0);
   o.bf = o.b + DEPTH * WIDTH;
   o.bv = o.bf + WIDTH;
-  o.wa = o.bv + HEAD;
+  o.wa = o.bv + (view_pe ? HEAD : 0);
   o.ba = o.wa + WIDTH;
   o.wrgb = o.ba + 1;
   o.brgb = o.wrgb + HEAD * C;
@@ -71,14 +75,14 @@ __host__ __device__ inline Offsets offsets(int C) {
   return o;
 }
 
-// Offsets into the transposed weight vector K2 uses for its data-gradient
-// products: matrix (I, O) stored as (O, I_pad), I padded to a multiple of 4,
-// columns interleaved.
+// Offsets into the transposed weight vector K2 and K4 use for their
+// data-gradient products: matrix (I, O) stored as (O, I_pad), I padded to a
+// multiple of 4, columns interleaved. view_pe as for `offsets`.
 struct TOffsets {
   int64_t whT, w0T, w5peT, wfT, wfvT, wvpeT, waT, wrgbT, total;
 };
 
-__host__ __device__ inline TOffsets toffsets(int C) {
+__host__ __device__ inline TOffsets toffsets(int C, bool view_pe = true) {
   TOffsets o;
   o.whT = 0;
   o.w0T = o.whT + (int64_t)(DEPTH - 1) * WIDTH * WIDTH;
@@ -86,7 +90,7 @@ __host__ __device__ inline TOffsets toffsets(int C) {
   o.wfT = o.w5peT + WIDTH * PE_PAD;
   o.wfvT = o.wfT + WIDTH * WIDTH;
   o.wvpeT = o.wfvT + HEAD * WIDTH;
-  o.waT = o.wvpeT + HEAD * VPE_PAD;
+  o.waT = o.wvpeT + (view_pe ? HEAD * VPE_PAD : 0);
   o.wrgbT = o.waT + WIDTH;
   o.total = o.wrgbT + HEAD * C;
   return o;
@@ -172,15 +176,16 @@ __device__ __forceinline__ void store_global(float* G, int64_t ld, int64_t col0,
 
 // Positional encodings of the block's points into PE (64 rows) and VPE
 // (32 rows), row order [x, sin(f0 x), cos(f0 x), sin(f1 x), ...] with
-// fk = 2^k, band rows times band[k] (BARF weights; all ones when off), pad
-// rows and points past n zero. pts (n, 3); vd (n / S, 3): a point's view
-// direction is its ray's.
+// fk = 2^k, band rows times band[k] (BARF weights; all ones when band is
+// null), pad rows and points past n zero. pts (n, 3); vd (n / S, 3): a
+// point's view direction is its ray's. With vd null only PE is written.
 __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
                                             const float* __restrict__ vd,
                                             int64_t n, int S,
                                             const float* __restrict__ band,
                                             int64_t p0, float* PE, float* VPE) {
-  for (int e = threadIdx.x; e < (PE_PAD + VPE_PAD) * TP; e += THREADS) {
+  const int all_rows = vd ? PE_PAD + VPE_PAD : PE_PAD;
+  for (int e = threadIdx.x; e < all_rows * TP; e += THREADS) {
     const int row = e / TP, c = e % TP;
     const int64_t p = p0 + c;
     const bool views = row >= PE_PAD;
@@ -194,7 +199,8 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
       } else {
         const int k = (r - 3) / 6, m = (r - 3) % 6;
         const float x = __ldg(src + (m % 3)) * (float)(1 << k);
-        v = (m < 3 ? sinf(x) : cosf(x)) * __ldg(band + (views ? L_PTS : 0) + k);
+        v = m < 3 ? sinf(x) : cosf(x);
+        if (band) v *= __ldg(band + (views ? L_PTS : 0) + k);
       }
     }
     (views ? VPE : PE)[r * LDA + c] = v;
@@ -274,6 +280,48 @@ __device__ __forceinline__ void views_layer(const float* __restrict__ P,
   __syncthreads();
   store_smem<4>(H, acc, og, pg);
   if (X) store_global<4>(X + (int64_t)x_hv * ldx, ldx, col0, acc, og, pg);
+}
+
+// K3/K4's views layer: hv = relu(wfv^T f + vb[ray]), with the per-ray view
+// bias vb (n / S, 128) = vpe @ w_pe + b computed outside the kernel. Reads
+// f from H, then overwrites rows 0..127 of H with hv (the caller
+// synchronizes before reading hv). Points past n read ray 0's bias; their
+// outputs are never written and their cotangent is zero.
+__device__ __forceinline__ void views_layer_vb(const float* __restrict__ P,
+                                               const Offsets& o, float* H,
+                                               const float* __restrict__ vb,
+                                               int64_t n, int S, int64_t p0,
+                                               float* X, int64_t ldx,
+                                               int x_hv) {
+  const int og = threadIdx.x % 32, pg = threadIdx.x / 32;
+  float acc[4][PT];
+  zero_acc(acc);
+  mm_acc<4>(acc, P + o.wfv, HEAD, WIDTH, H, og, pg);
+#pragma unroll
+  for (int j = 0; j < PT; ++j) {
+    const int64_t p = p0 + pg * PT + j;
+    const float* v = vb + (p < n ? p / S : 0) * HEAD + og;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k][j] = fmaxf(acc[k][j] + __ldg(v + 32 * k), 0.f);
+  }
+  __syncthreads();
+  store_smem<4>(H, acc, og, pg);
+  if (X) store_global<4>(X + (int64_t)x_hv * ldx, ldx, p0, acc, og, pg);
+}
+
+// raw head outputs: out[p][c_out] = bias + sum_i w[i * ldw + col] a[i][p]
+// (a = h7 for alpha, hv for rgb); 4 threads per point split the contraction
+__device__ __forceinline__ void head(const float* __restrict__ w, int ldw,
+                                     int col, int I, const float* a,
+                                     float bias, float* out, int64_t n,
+                                     int64_t p0, int C, int c_out) {
+  const int c = threadIdx.x / 4, part = threadIdx.x % 4;
+  float s = 0.f;
+  for (int i = part; i < I; i += 4) s = fmaf(__ldg(w + i * ldw + col), a[i * LDA + c], s);
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
+  const int64_t p = p0 + c;
+  if (part == 0 && p < n) out[p * (C + 1) + c_out] = s + bias;
 }
 
 }  // namespace fmlp

@@ -25,21 +25,6 @@
 
 namespace fmlp {
 
-// raw head outputs: out[p][c] for c < C from hv (rows 0..127 of `hv`),
-// out[p][C] from h7; 4 threads per point split the contraction
-__device__ __forceinline__ void head(const float* __restrict__ w, int ldw,
-                                     int col, int I, const float* a,
-                                     float bias, float* out, int64_t n,
-                                     int64_t p0, int C, int c_out) {
-  const int c = threadIdx.x / 4, part = threadIdx.x % 4;
-  float s = 0.f;
-  for (int i = part; i < I; i += 4) s = fmaf(__ldg(w + i * ldw + col), a[i * LDA + c], s);
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
-  const int64_t p = p0 + c;
-  if (part == 0 && p < n) out[p * (C + 1) + c_out] = s + bias;
-}
-
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 fwd_kernel(const float* __restrict__ pts, const float* __restrict__ vd,
            int64_t n, int S, const float* __restrict__ P,

@@ -11,18 +11,22 @@ Contract of `fused_nerf_mlp` (same as the JAX function): standard
 architecture, viewdirs on, L = 10 / 4 frequencies, optional BARF band
 weights; pts (R, S, 3), viewdirs (R, 3) -> raw (R, S, C+1).
   - CPU tensors take the plain PyTorch version, models/nerf.apply;
-  - CUDA float32 tensors launch the kernels; anything the kernels do not
-    take raises. There is no fallback from a CUDA tensor to the plain path.
+  - CUDA float32 tensors launch the kernels;
+  - anything outside the contract raises ValueError on either device;
+    ops/mlp.route sends only what the kernels take here.
+The build and load of every kernel library of the port (K1-K4) live here.
 
 Weights are packed into one flat vector (`_layout`), each matrix in its
-(fan_in, fan_out) orientation. The columns of the matrices the kernels'
-layer product reads are interleaved (`interleave`) so that the 8 (4, 2)
-outputs one thread owns, o = og + 32 k, sit side by side and load as
-float4s. The packing is differentiable (views and torch.cat), so the
-kernel's flat gradient, written in the same layout, flows back to each
-parameter. K2 also gets a transposed copy (`_tlayout`) for its
-data-gradient products. The BARF band weights get no gradient: they are
-step functions of the iteration counter.
+(fan_in, fan_out) orientation; the staged pair K3/K4 (ops/staged_mlp.py)
+uses the same layout without the view-encoding entries (view_pe=False).
+The columns of the matrices the kernels' layer product reads are
+interleaved (`interleave`) so that the 8 (4, 2) outputs one thread owns,
+o = og + 32 k, sit side by side and load as float4s. The packing is
+differentiable (views and torch.cat), so the kernel's flat gradient,
+written in the same layout, flows back to each parameter. K2 and K4 also
+get a transposed copy (`_tlayout`) for their data-gradient products. The
+BARF band weights get no gradient: they are step functions of the
+iteration counter.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -56,7 +61,7 @@ LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0}
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("fused_mlp_fwd", "fused_mlp_bwd")
+SOURCES = ("fused_mlp_fwd", "fused_mlp_bwd", "staged_mlp_fwd", "staged_mlp_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # build output of the last build (ptxas register / spill report), by source
@@ -65,27 +70,29 @@ BUILD_LOG: dict = {}
 _libs: dict = {}
 
 
-def _layout(C):
+def _layout(C, view_pe=True):
     """(name, shape) of the packed weight vector, in order (mirrors
     fmlp::Offsets in csrc/fused_mlp_common.cuh); `_INTERLEAVED` names hold
-    interleaved columns."""
+    interleaved columns. view_pe=False (K3/K4): the view-encoding weights
+    and their bias are empty; the per-ray view bias comes in instead."""
     return [
         ("w0", (63, WIDTH)), ("wh", (DEPTH - 1, WIDTH, WIDTH)),
         ("w5pe", (63, WIDTH)), ("wf", (WIDTH, WIDTH)), ("wfv", (WIDTH, HEAD)),
-        ("wvpe", (27, HEAD)), ("b", (DEPTH, WIDTH)), ("bf", (WIDTH,)),
-        ("bv", (HEAD,)), ("wa", (WIDTH, 1)), ("ba", (1,)),
-        ("wrgb", (HEAD, C)), ("brgb", (C,)),
+        ("wvpe", (27 if view_pe else 0, HEAD)), ("b", (DEPTH, WIDTH)),
+        ("bf", (WIDTH,)), ("bv", (HEAD if view_pe else 0,)), ("wa", (WIDTH, 1)),
+        ("ba", (1,)), ("wrgb", (HEAD, C)), ("brgb", (C,)),
     ]
 
 
-def _tlayout(C):
-    """(name, shape) of K2's transposed weight vector (fmlp::TOffsets):
-    matrix (I, O) stored (O, I padded to a multiple of 4), columns
-    interleaved."""
+def _tlayout(C, view_pe=True):
+    """(name, shape) of K2's / K4's transposed weight vector
+    (fmlp::TOffsets): matrix (I, O) stored (O, I padded to a multiple of 4),
+    columns interleaved."""
     return [
         ("whT", (DEPTH - 1, WIDTH, WIDTH)), ("w0T", (WIDTH, 64)),
         ("w5peT", (WIDTH, 64)), ("wfT", (WIDTH, WIDTH)), ("wfvT", (HEAD, WIDTH)),
-        ("wvpeT", (HEAD, 32)), ("waT", (1, WIDTH)), ("wrgbT", (C, HEAD)),
+        ("wvpeT", (HEAD, 32 if view_pe else 0)), ("waT", (1, WIDTH)),
+        ("wrgbT", (C, HEAD)),
     ]
 
 
@@ -125,26 +132,30 @@ def supports(params) -> bool:
         return False
 
 
-def pack_params(params):
-    """Parameter dict -> flat packed vector (differentiable)."""
+def pack_params(params, view_pe=True):
+    """Parameter dict -> flat packed vector (differentiable); view_pe as
+    for `_layout`."""
     p = params["pts"]
+    views = params["views"]
     parts = [
         interleave(p[0]["w"]),
         interleave(torch.stack([p[l]["w_h"] if l == SKIP_LAYER else p[l]["w"]
                                 for l in range(1, DEPTH)])),
         interleave(p[SKIP_LAYER]["w_pe"]), interleave(params["feature"]["w"]),
-        interleave(params["views"]["w_feat"]), interleave(params["views"]["w_pe"]),
+        interleave(views["w_feat"]),
+        *([interleave(views["w_pe"])] if view_pe else []),
         torch.stack([p[l]["b"] for l in range(DEPTH)]),
-        params["feature"]["b"], params["views"]["b"], params["alpha"]["w"],
-        params["alpha"]["b"], params["rgb"]["w"], params["rgb"]["b"],
+        params["feature"]["b"], *([views["b"]] if view_pe else []),
+        params["alpha"]["w"], params["alpha"]["b"], params["rgb"]["w"],
+        params["rgb"]["b"],
     ]
     return torch.cat([x.reshape(-1) for x in parts])
 
 
-def unpack(flat, C):
+def unpack(flat, C, view_pe=True):
     """Flat packed vector -> {name: tensor} per `_layout`, columns in their
     natural order."""
-    layout = _layout(C)
+    layout = _layout(C, view_pe)
     offs = _offsets(layout)
     out = {name: flat[offs[i]:offs[i + 1]].view(shape)
            for i, (name, shape) in enumerate(layout)}
@@ -152,15 +163,16 @@ def unpack(flat, C):
             for k, v in out.items()}
 
 
-def pack_transposed(packed, C):
-    """K2's transposed weight vector from the packed one (no gradient):
-    each matrix transposed, its rows zero-padded to a multiple of 4, its
-    columns interleaved."""
-    v = unpack(packed.detach(), C)
+def pack_transposed(packed, C, view_pe=True):
+    """K2's / K4's transposed weight vector from the packed one (no
+    gradient): each matrix transposed, its rows zero-padded to a multiple
+    of 4, its columns interleaved."""
+    v = unpack(packed.detach(), C, view_pe)
     parts = [
         v["wh"].transpose(1, 2), F.pad(v["w0"].t(), (0, 1)),
         F.pad(v["w5pe"].t(), (0, 1)), v["wf"].t(), v["wfv"].t(),
-        F.pad(v["wvpe"].t(), (0, 5)), v["wa"].t(), v["wrgb"].t(),
+        F.pad(v["wvpe"].t(), (0, 5 if view_pe else 0)), v["wa"].t(),
+        v["wrgb"].t(),
     ]
     return torch.cat([interleave(x).reshape(-1) for x in parts])
 
@@ -185,9 +197,23 @@ def _nvcc():
     return path
 
 
+def _source_files(name):
+    """csrc/{name}.cu and every csrc header it includes, directly or not."""
+    files, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f not in files:
+            files.append(f)
+            todo += [CSRC / h for h in
+                     re.findall(r'^#include "([^"]+)"', f.read_text(), re.M)]
+    return files
+
+
 def _target(name):
+    """The library's path, keyed by the flags and every file it is built
+    from, so an edit to any included header rebuilds it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "fused_mlp_common.cuh"):
+    for src in _source_files(name):
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
@@ -220,29 +246,49 @@ def build():
     return time.perf_counter() - t0
 
 
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# C functions of each library: name -> (argtypes, restype). Pointers and the
+# stream are c_void_p (a bare int would pass as a 32-bit int).
+_API = {
+    "fused_mlp_fwd": {
+        "fused_mlp_fwd": ([_P, _P, _I64, _I, _P, _P, _I, _P, _P], _I),
+        "fused_mlp_layout": ([_I, _P], None)},
+    "fused_mlp_bwd": {
+        "fused_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I64, _P, _P,
+                           _P, _P, _P, _I, _P, _P], _I),
+        "fused_mlp_bwd_scratch": ([_I64, _P], None),
+        "fused_mlp_tlayout": ([_I, _P], None)},
+    "staged_mlp_fwd": {
+        "staged_mlp_fwd": ([_P, _P, _I64, _I, _P, _I, _P, _P], _I),
+        "staged_mlp_layout": ([_I, _P], None)},
+    "staged_mlp_bwd": {
+        "staged_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P, _P,
+                            _P, _I, _P, _P], _I),
+        "staged_mlp_bwd_scratch": ([_I64, _I, _P], None),
+        "staged_mlp_tlayout": ([_I, _P], None)},
+}
+# the layout each library reports, checked against the Python one at load:
+# name -> (C function, layout function, view_pe)
+_LAYOUT_OF = {
+    "fused_mlp_fwd": ("fused_mlp_layout", _layout, True),
+    "fused_mlp_bwd": ("fused_mlp_tlayout", _tlayout, True),
+    "staged_mlp_fwd": ("staged_mlp_layout", _layout, False),
+    "staged_mlp_bwd": ("staged_mlp_tlayout", _tlayout, False),
+}
+
+
 def _lib(name):
+    """The loaded library of csrc/{name}.cu, built first if needed."""
     if name in _libs:
         return _libs[name]
     build()
     lib = ctypes.CDLL(str(_target(name)))
-    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    if name == "fused_mlp_fwd":
-        lib.fused_mlp_fwd.argtypes = [P, P, I64, I, P, P, I, P, P]
-        lib.fused_mlp_fwd.restype = I
-        lib.fused_mlp_layout.argtypes = [I, P]
-        lib.fused_mlp_layout.restype = None
-        for C in (1, 3):
-            _check_layout(lib.fused_mlp_layout, _layout(C), C)
-    else:
-        lib.fused_mlp_bwd.argtypes = [P, P, I64, I, P, P, P, P, I, I64, P, P,
-                                      P, P, P, I, P, P]
-        lib.fused_mlp_bwd.restype = I
-        lib.fused_mlp_bwd_scratch.argtypes = [I64, P]
-        lib.fused_mlp_bwd_scratch.restype = None
-        lib.fused_mlp_tlayout.argtypes = [I, P]
-        lib.fused_mlp_tlayout.restype = None
-        for C in (1, 3):
-            _check_layout(lib.fused_mlp_tlayout, _tlayout(C), C)
+    for fn, (argtypes, restype) in _API[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    fn, layout, view_pe = _LAYOUT_OF[name]
+    for C in (1, 3, 8):
+        _check_layout(getattr(lib, fn), layout(C, view_pe), C)
     _libs[name] = lib
     return lib
 
@@ -349,22 +395,18 @@ def fused_nerf_mlp(params, pts, viewdirs, *, num_freqs=10, num_freqs_views=4,
     """Drop-in replacement for models.nerf.apply (standard architecture,
     viewdirs on, optional BARF band weights). pts: (R, S, 3); viewdirs:
     (R, 3). On the CPU this is the plain version, nerf.apply."""
+    if (viewdirs is None or not supports(params)
+            or (num_freqs, num_freqs_views) != (L_PTS, L_VIEWS)):
+        raise ValueError(
+            "fused_nerf_mlp takes the 8x256 MLP with viewdirs, 27 view-"
+            f"encoding rows, C + 1 <= 8 and 10/4 frequencies (got "
+            f"{num_freqs}/{num_freqs_views}); ops/mlp.route picks the "
+            "implementation for anything else")
     if pts.device.type == "cpu":
         return nerf_mod.apply(params, pts, viewdirs, num_freqs=num_freqs,
                               num_freqs_views=num_freqs_views,
                               barf_weights=barf_weights,
                               barf_weights_views=barf_weights_views)
-    # the JAX package runs these on its staged kernel pair K3/K4
-    # (benerf_tpu/ops/pallas_mlp.py), not ported yet
-    if (num_freqs, num_freqs_views) != (L_PTS, L_VIEWS):
-        raise NotImplementedError(
-            f"{num_freqs}/{num_freqs_views} frequencies on the card: the fused "
-            "kernel takes 10/4; other counts need K3/K4, not ported yet")
-    if viewdirs is None or not supports(params):
-        raise NotImplementedError(
-            "non-standard MLP architecture on the card: the fused kernel "
-            "takes the 8x256 MLP with viewdirs; others need K3/K4, not "
-            "ported yet")
     R, S, _ = pts.shape
     C = params["rgb"]["w"].shape[1]
     packed = pack_params(params)

@@ -1,14 +1,18 @@
-"""MLP evaluation dispatcher: fused CUDA kernels on the card, plain PyTorch
-on the CPU.
+"""MLP evaluation dispatcher: the CUDA kernels on the card where the JAX
+package runs its Pallas kernels, plain PyTorch everywhere else.
 
-Port of benerf_tpu/ops/mlp.py without a mesh. Routes:
-  - a CUDA tensor on the standard architecture (10/4 frequencies, viewdirs
-    on, float32) goes to the fused kernels K1/K2 (ops/fused_mlp.py);
-  - a CPU tensor goes to models/nerf.apply;
-  - a CUDA tensor the fused kernel cannot take raises. The JAX package
-    falls back to its staged kernel K3/K4 there (benerf_tpu/ops/mlp.py);
-    that kernel is not ported yet, and the port never runs the plain
-    version on the card in its place.
+Port of benerf_tpu/ops/mlp.py without a mesh. On the card `route` decides,
+from shapes and flags alone and in the JAX package's order (its
+ops/mlp.py:67-82):
+  - "fused": K1/K2 (ops/fused_mlp.py), the standard architecture at 10/4
+    frequencies, BARF allowed;
+  - "staged": K3/K4 (ops/staged_mlp.py), the standard trunk with any view
+    encoding, BARF off;
+  - "plain": models/nerf.apply, every other architecture (other widths or
+    depths, no viewdirs, BARF with a view encoding other than 27 rows),
+    where the JAX package runs plain XLA too; counted in ROUTES["plain"].
+A CPU tensor always takes models/nerf.apply. A kernel that fails to build
+or launch raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -16,7 +20,22 @@ from __future__ import annotations
 import torch
 
 from benerf_tpu_torch.models import nerf as nerf_model
-from benerf_tpu_torch.ops import fused_mlp
+from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+
+# card calls that took the plain route (the kernels count their launches)
+ROUTES = {"plain": 0}
+
+
+def route(params, viewdirs, num_freqs, num_freqs_views, barf_on) -> str:
+    """"fused", "staged" or "plain": the implementation of the MLP on the
+    card, as benerf_tpu/ops/mlp.py picks its kernel."""
+    if viewdirs is None:
+        return "plain"
+    if fused_mlp.supports(params) and (num_freqs, num_freqs_views) == (10, 4):
+        return "fused"
+    if not barf_on and staged_mlp.supports(params):
+        return "staged"
+    return "plain"
 
 
 def mlp_forward(
@@ -32,16 +51,25 @@ def mlp_forward(
 ):
     """Evaluate the NeRF MLP on (R, S, 3) points. See models.nerf.apply."""
     if pts.device.type == "cuda":
-        if compute_dtype != "float32":
+        which = route(params, viewdirs, num_freqs, num_freqs_views,
+                      barf_weights is not None or barf_weights_views is not None)
+        if which != "plain" and compute_dtype != "float32":
             raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} on the card: the fused "
-                "kernels are fp32 only; the bf16 mode comes with their "
-                "tensor-core version")
-        return fused_mlp.fused_nerf_mlp(
-            params, pts, viewdirs, num_freqs=num_freqs,
-            num_freqs_views=num_freqs_views, barf_weights=barf_weights,
-            barf_weights_views=barf_weights_views,
-        )
+                f"compute_dtype={compute_dtype!r} on the card: the kernels "
+                "are fp32 only; the bf16 mode comes with their tensor-core "
+                "version")
+        if which == "fused":
+            return fused_mlp.fused_nerf_mlp(
+                params, pts, viewdirs, num_freqs=num_freqs,
+                num_freqs_views=num_freqs_views, barf_weights=barf_weights,
+                barf_weights_views=barf_weights_views,
+            )
+        if which == "staged":
+            return staged_mlp.staged_nerf_mlp(
+                params, pts, viewdirs, num_freqs=num_freqs,
+                num_freqs_views=num_freqs_views,
+            )
+        ROUTES["plain"] += 1
     cd = None if compute_dtype == "float32" else torch.bfloat16
     return nerf_model.apply(
         params, pts, viewdirs,

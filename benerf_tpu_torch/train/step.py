@@ -15,6 +15,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from benerf_tpu_torch import resolve_device
 from benerf_tpu_torch.core import rng as rng_mod
 from benerf_tpu_torch.data import events as events_mod
 from benerf_tpu_torch.geometry import spline as spline_mod
@@ -45,10 +46,17 @@ class TrainState(NamedTuple):
 
 
 def build_params(cfg, seed: int = 0, init_knots=None, init_transform=None,
-                 device="cpu"):
+                 device=None):
     """All trainable collections (reference Model.build_network): knots ~
     U(0, 0.01), transform = 0, NeRF MLPs Xavier/zero, CRFs Xavier with zero
-    (rgb) / one (event) biases. Every leaf requires grad."""
+    (rgb) / one (event) biases. Every leaf requires grad. device: "cuda"
+    unless given; with no device and no card this raises.
+
+    As in the JAX package, the NeRF MLPs take the default encoding widths
+    (63 / 27 rows) whatever cfg.multires / multires_views say; a caller
+    with other encodings builds its MLPs with nerf.init_params and passes
+    them to init_state."""
+    device = resolve_device(device)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     params = {
@@ -78,9 +86,11 @@ def build_params(cfg, seed: int = 0, init_knots=None, init_transform=None,
     return params
 
 
-def init_state(cfg, seed: int = 0, device="cpu", params=None, **kw) -> TrainState:
-    params = params if params is not None else build_params(
-        cfg, seed, device=device, **kw)
+def init_state(cfg, seed: int = 0, device=None, params=None, **kw) -> TrainState:
+    """The state at step 0: the caller's `params`, or build_params' on
+    `device` (see there)."""
+    if params is None:
+        params = build_params(cfg, seed, device=device, **kw)
     return TrainState(params, optim_mod.build_optimizer(cfg, params), 0)
 
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1/K2 on the card, against the plain PyTorch
-version (models/nerf.apply). CUDA kernels have no CPU mode: every test here
+"""The port's CUDA kernels K1/K2 and K3/K4 on the card, against the plain
+PyTorch version (models/nerf.apply), and the MLP dispatcher's card routes. CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX; skip it there):
@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from benerf_tpu_torch.models import bridge, embedder, nerf
-from benerf_tpu_torch.ops import fused_mlp
+from benerf_tpu_torch.ops import fused_mlp, staged_mlp
 from benerf_tpu_torch.ops import mlp as mlp_ops
 
 pytestmark = pytest.mark.cuda
@@ -29,10 +29,11 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _inputs(R, S, C, barf, seed=0, width=256):
+def _inputs(R, S, C, barf, seed=0, width=256, views_ch=27):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    params = nerf.init_params(g, width=width, channels=C, device="cuda")
+    params = nerf.init_params(g, width=width, channels=C,
+                              input_ch_views=views_ch, device="cuda")
     params = bridge.tree_map(lambda t: t + 0.05 * torch.rand(
         t.shape, generator=g, device="cuda") if t.ndim == 1 else t, params)
     pts = torch.rand((R, S, 3), generator=g, device="cuda") * 2 - 1
@@ -82,13 +83,55 @@ def test_weight_gradients_do_not_depend_on_the_split_count(card):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
 
 
+@pytest.mark.parametrize("C", [1, 3, 8])
+def test_staged_kernels_match_plain_at_a_ragged_size(card, C):
+    """K3/K4 with a view encoding of L = 6 at 3 x 37 points: a ray's
+    samples straddle tiles and the last tile is ragged."""
+    params, pts, vd, _ = _inputs(3, 37, C, False, seed=C, views_ch=39)
+    leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
+    x, v = pts.requires_grad_(True), vd.requires_grad_(True)
+    before = dict(staged_mlp.LAUNCHES)
+    out_k = staged_mlp.staged_nerf_mlp(params, x, v, num_freqs_views=6)
+    grads_k = torch.autograd.grad(torch.sin(out_k).sum(), leaves + [x, v])
+    assert staged_mlp.LAUNCHES["staged_mlp_fwd"] == before["staged_mlp_fwd"] + 1
+    assert staged_mlp.LAUNCHES["staged_mlp_bwd"] == before["staged_mlp_bwd"] + 1
+    out_p = nerf.apply(params, x, v, num_freqs_views=6)
+    grads_p = torch.autograd.grad(torch.sin(out_p).sum(), leaves + [x, v])
+    scale = max(out_p.abs().max().item(), 1.0)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=2e-4 * scale)
+    for a, b in zip(grads_k, grads_p):
+        scale = max(b.abs().max().item(), 1.0)
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * scale)
+    assert grads_k[-2][-1].abs().sum() > 0  # the ragged tile's points
+
+
+def test_staged_weight_gradients_do_not_depend_on_the_split_count(card):
+    params, pts, vd, _ = _inputs(40, 64, 3, False, seed=1, views_ch=39)
+    leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
+
+    def grads(splits):
+        out = staged_mlp.staged_nerf_mlp(params, pts, vd, num_freqs_views=6,
+                                         splits=splits)
+        return torch.autograd.grad(torch.sin(out).sum(), leaves)
+
+    for a, b in zip(grads(1), grads(13)):
+        scale = max(b.abs().max().item(), 1.0)
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
 def test_card_path_raises_where_the_kernel_does_not_apply(card):
-    """No quiet fallback to the plain version on the card."""
+    """A kernel route or the plain route where the JAX package has no
+    kernel; bf16 on a kernel route and an encoding that does not match w0
+    raise."""
     params, pts, vd, _ = _inputs(2, 8, 3, False)
     with pytest.raises(NotImplementedError):
         mlp_ops.mlp_forward(params, pts, vd, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         mlp_ops.mlp_forward(params, pts, vd, num_freqs=6)
     narrow, pts, vd, _ = _inputs(2, 8, 3, False, width=64)
-    with pytest.raises(NotImplementedError):
-        mlp_ops.mlp_forward(narrow, pts, vd)
+    kernels = dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES)
+    plain = mlp_ops.ROUTES["plain"]
+    out = mlp_ops.mlp_forward(narrow, pts, vd)
+    assert out.shape == (2, 8, 4)
+    assert mlp_ops.ROUTES["plain"] == plain + 1
+    assert dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES) == kernels

@@ -210,7 +210,7 @@ def _golden_inputs(g, case, cfg, dtype):
         return bridge.params_from_numpy(_np_tree(
             torch_compat.nerf_params_from_state_dict(sd)))
 
-    params = tstep.build_params(cfg)
+    params = tstep.build_params(cfg, device="cpu")
     params = {k: bridge.tree_map(lambda t: t.detach().to(dtype), v)
               for k, v in params.items()}
     params["nerf"], params["nerf_fine"] = nerf("nerf"), nerf("nerf_fine")
@@ -332,7 +332,7 @@ def test_learning_rates_match_optax_schedules():
     jcfg = dataclasses.replace(
         gg.build_cfg("crf_gray"), optimize_nerf=True, optimize_pose=True,
         optimize_trans=True, pose_lrate_warmup=5, lrate_decay=1)
-    params = tstep.build_params(_port_cfg(jcfg))
+    params = tstep.build_params(_port_cfg(jcfg), device="cpu")
     opt = toptim.build_optimizer(_port_cfg(jcfg), params)
     assert [g["name"] for g in opt.param_groups] == list(toptim.GROUPS)
     expect = {

@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Where the time of one BeNeRF train step goes, for the PyTorch/CUDA port.
 
-    python3 tools/torch_profile_step.py [--iters 5] [--out FILE.json]
+    python3 tools/torch_profile_step.py [--iters 5] [--multires-views L]
+                                        [--out FILE.json]
 
 Builds the tanabata config at full width on an in-memory random scene of
-1,000,000 events (as chip_smoke.py does), runs a few warm-up steps, then
+1,000,000 events (as chip_smoke.py does); with --multires-views L other
+than 4, both NeRF MLPs are built with a view encoding of 3 + 6 L rows (the
+path of the staged kernels K3/K4, as chip_smoke.py phase 5). Runs a few
+warm-up steps, then
 `--iters` steps under torch.profiler. Prints and writes (JSON, --out):
   - the step's wall time (host clock, one host sync per step as in the
     train loop, measured without the profiler), the device's busy time (sum
     of kernel and copy times) and its idle share;
-  - device time per group: K1, K2's tile pass, K2's weight-gradient pass,
-    K2's partial-sum reduce, and every other kernel; launches per step;
+  - device time per group: K1 or K3, K2's or K4's tile pass, their
+    weight-gradient pass and partial-sum reduce, and every other kernel;
+    launches per step;
   - device time per kernel, largest first.
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
@@ -40,10 +45,12 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# kernel name prefix -> group (csrc/fused_mlp_*.cu)
+# kernel name prefix -> group (csrc/*_mlp_*.cu)
 GROUPS = (("fmlp::fwd_kernel", "K1"), ("fmlp::tile_kernel", "K2 tile pass"),
-          ("fmlp::wgrad_", "K2 weight-gradient pass"),
-          ("fmlp::reduce_kernel", "K2 reduce"))
+          ("fmlp::staged_fwd_kernel", "K3"),
+          ("fmlp::staged_tile_kernel", "K4 tile pass"),
+          ("fmlp::wgrad_", "K2/K4 weight-gradient pass"),
+          ("fmlp::reduce_kernel", "K2/K4 reduce"))
 
 
 def _group(name: str) -> str:
@@ -56,6 +63,7 @@ def _group(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--multires-views", type=int, default=4)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -67,6 +75,7 @@ def main():
     from benerf_tpu_torch.core.config import load_config
     from benerf_tpu_torch.data import datasets
     from benerf_tpu_torch.data import events as events_mod
+    from benerf_tpu_torch.models import bridge, nerf
     from benerf_tpu_torch.ops import fused_mlp
     from benerf_tpu_torch.train import loop, step as step_mod
 
@@ -79,11 +88,21 @@ def main():
     scene = datasets.random_scene(cfg, N_EVENTS, seed=0, device="cuda")
     cap = events_mod.window_cap(scene.events.ts.cpu().numpy(),
                                 cfg.accumulate_time_length)
-    cfg = dataclasses.replace(cfg, event_window_cap=cap)
+    cfg = dataclasses.replace(cfg, event_window_cap=cap,
+                              multires_views=args.multires_views)
     H, W = scene.image.shape[1:3]
     K_rgb, K_evt, _, _, _ = loop.intrinsics(cfg)
     batch = loop.make_batch(scene, cfg, K_rgb, K_evt, "cuda")
-    state = step_mod.init_state(cfg, cfg.seed, device="cuda")
+    params = step_mod.build_params(cfg, cfg.seed, device="cuda")
+    if cfg.multires_views != 4:  # build_params keeps 27 rows, as in JAX
+        g = torch.Generator(device="cuda")
+        g.manual_seed(cfg.seed + 1)
+        for name in ("nerf", "nerf_fine"):
+            params[name] = bridge.tree_map(
+                lambda t: t.requires_grad_(True),
+                nerf.init_params(g, input_ch_views=3 + 6 * cfg.multires_views,
+                                 channels=cfg.channels, device="cuda"))
+    state = step_mod.init_state(cfg, cfg.seed, device="cuda", params=params)
     step_fn = step_mod.make_train_step(cfg, H, W)
     rays = (2 * cfg.sampling_event_rays + cfg.num_interpolated_pose
             * (cfg.sampling_rgb_rays // cfg.num_interpolated_pose))
@@ -123,7 +142,8 @@ def main():
     busy_ms = sum(k[2] for k in kernels)
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "iters": args.iters, "rays_per_iter": rays,
+        "iters": args.iters, "multires_views": cfg.multires_views,
+        "rays_per_iter": rays,
         "wall_ms_per_step": wall_ms, "rays_per_sec": rays / wall_ms * 1e3,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
