@@ -1,10 +1,12 @@
 // Device code shared by the backward kernels K2 (fused_mlp_bwd.cu) and K4
 // (staged_mlp_bwd.cu): helpers of the tile pass, and pass (b), the weight
 // gradients as deterministic split-K products over a feature-major scratch
-// of activations X and pre-activation gradients D (see fused_mlp_bwd.cu).
+// of activations X and pre-activation gradients D (see fused_mlp_bwd.cu),
+// the matrix products on the tensor cores for both kernels.
 #pragma once
 
 #include "fused_mlp_common.cuh"
+#include "mma_layer.cuh"
 
 namespace fmlp {
 
@@ -25,29 +27,32 @@ __device__ __forceinline__ void relu_mask_global(float (&acc)[OT][PT],
   }
 }
 
-// copy `rows` shared-memory rows to the feature-major global scratch
+// copy `rows` shared-memory rows (stride LD) to the feature-major global
+// scratch
+template <int LD = LDA>
 __device__ __forceinline__ void copy_rows(const float* src, int rows, float* G,
                                           int64_t ld, int64_t col0) {
   for (int e = threadIdx.x; e < rows * TP; e += THREADS) {
     const int r = e / TP, c = e % TP;
-    G[(int64_t)r * ld + col0 + c] = src[r * LDA + c];
+    G[(int64_t)r * ld + col0 + c] = src[r * LD + c];
   }
 }
 
 // VJP of the encoding for one point: d_enc rows (weighted by band; all ones
-// when band is null) back to the 3 input coordinates
+// when band is null) back to the 3 input coordinates; denc row stride LD
+template <int LD = LDA>
 __device__ __forceinline__ void encode_bwd(const float* denc, int c, int L,
                                            const float* __restrict__ band,
                                            const float* x3, float* dx) {
   for (int m = 0; m < 3; ++m) {
     const float x = __ldg(x3 + m);
-    float s = denc[m * LDA + c];
+    float s = denc[m * LD + c];
     for (int k = 0; k < L; ++k) {
       const float f = (float)(1 << k);
       const float b = x * f;
       const float w = band ? __ldg(band + k) : 1.f;
-      const float ds = denc[(3 + 6 * k + m) * LDA + c] * w;
-      const float dc = denc[(6 + 6 * k + m) * LDA + c] * w;
+      const float ds = denc[(3 + 6 * k + m) * LD + c] * w;
+      const float dc = denc[(6 + 6 * k + m) * LD + c] * w;
       s += f * (cosf(b) * ds - sinf(b) * dc);
     }
     dx[m] = s;
@@ -57,33 +62,32 @@ __device__ __forceinline__ void encode_bwd(const float* denc, int c, int L,
 // ---- pass (b): weight gradients as split-K products ----------------------
 //
 // dW[i][o] = sum_p X[x_row0 + i][p] * D[d_row0 + o][p] over the points p of
-// one chunk z, written to part[z][out_off + i * O + o]. Both operands are
-// feature-major, so the contraction runs along contiguous memory.
+// one chunk z, written to part[z][out_off + i * O + col(o)]. Both operands
+// are feature-major, so the contraction runs along contiguous memory.
 
-constexpr int GT = 128;    // output tile of the product kernel (I and O)
-constexpr int GK = 16;     // points per shared-memory stage
+using tc::GT;
 constexpr int MAX_JOBS = 16;
 
+// ilv = 1: the packed matrix has interleaved columns (K3/K4's layout),
+// column o at (o % 32) * (O / 32) + o / 32; 0: natural order (K1/K2's)
 struct GemmJob {
   int x_row0, I, d_row0, O, tiles_o, tile0;
   int64_t out_off;
+  int ilv;
 };
 struct GemmJobs {
   int count;
   GemmJob j[MAX_JOBS];
 };
 
-// One block per (128x128 output tile of any job, chunk). 256 threads, each
-// an 8x8 register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns
-// likewise with tx, so a warp's shared-memory reads are broadcasts (X) or
-// 16 consecutive float4 (D). Stages of GK points are double-buffered
-// through registers: one barrier per stage.
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+// One block per (128x128 output tile of any job, chunk), on the tensor
+// cores (mma_layer.cuh gemm_tile: both operands staged by cp.async).
+template <tc::Mode MODE>
+__global__ void __launch_bounds__(THREADS, 1)
 wgrad_gemm_kernel(const float* __restrict__ X, const float* __restrict__ D,
                   int64_t ld, int64_t chunk, float* __restrict__ part,
                   int64_t Ptot, const GemmJobs jobs) {
-  __shared__ __align__(16) float Xs[2][GK][GT + 4];
-  __shared__ __align__(16) float Ds[2][GK][GT + 4];
+  extern __shared__ float4 gsmem4[];
   int q = 0;
   while (q + 1 < jobs.count && (int)blockIdx.x >= jobs.j[q + 1].tile0) ++q;
   const GemmJob J = jobs.j[q];
@@ -91,80 +95,29 @@ wgrad_gemm_kernel(const float* __restrict__ X, const float* __restrict__ D,
   const int i0 = (t / J.tiles_o) * GT, o0 = (t % J.tiles_o) * GT;
   const int64_t k_begin = (int64_t)blockIdx.y * chunk;
   const int64_t k_end = k_begin + chunk < ld ? k_begin + chunk : ld;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  float4 xr[2], dr[2];
-  auto load = [&](int64_t k) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = threadIdx.x + h * THREADS;  // 512 float4 per operand
-      const int r = e >> 2, c4 = e & 3;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      xr[h] = (i0 + r < J.I) ? __ldg(reinterpret_cast<const float4*>(
-                  X + (int64_t)(J.x_row0 + i0 + r) * ld + k) + c4) : z;
-      dr[h] = (o0 + r < J.O) ? __ldg(reinterpret_cast<const float4*>(
-                  D + (int64_t)(J.d_row0 + o0 + r) * ld + k) + c4) : z;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = threadIdx.x + h * THREADS;
-      const int r = e >> 2, c = 4 * (e & 3);
-      Xs[buf][c][r] = xr[h].x; Xs[buf][c + 1][r] = xr[h].y;
-      Xs[buf][c + 2][r] = xr[h].z; Xs[buf][c + 3][r] = xr[h].w;
-      Ds[buf][c][r] = dr[h].x; Ds[buf][c + 1][r] = dr[h].y;
-      Ds[buf][c + 2][r] = dr[h].z; Ds[buf][c + 3][r] = dr[h].w;
-    }
-  };
+  float acc[4][4][4];
+  tc::zero(acc);
+  tc::gemm_tile<MODE>(acc, X + (int64_t)(J.x_row0 + i0) * ld, J.I - i0,
+                      D + (int64_t)(J.d_row0 + o0) * ld, J.O - o0, ld, k_begin,
+                      k_end, reinterpret_cast<float*>(gsmem4));
 
-  float acc[8][8];
-#pragma unroll
-  for (int a = 0; a < 8; ++a)
-#pragma unroll
-    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
-
-  if (k_begin < k_end) {
-    load(k_begin);
-    store(0);
-  }
-  __syncthreads();
-  int buf = 0;
-  for (int64_t k = k_begin; k < k_end; k += GK) {
-    const bool more = k + GK < k_end;
-    if (more) load(k + GK);
-#pragma unroll
-    for (int c = 0; c < GK; ++c) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&Xs[buf][c][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&Xs[buf][c][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Ds[buf][c][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Ds[buf][c][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-    if (more) store(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  // every product's matrix has interleaved columns in the packed layout:
-  // column o at (o % 32) * (O / 32) + o / 32
   float* dst = part + (int64_t)blockIdx.y * Ptot + J.out_off;
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  const int g = lane / 4, tq = lane % 4;
   const int ot = J.O / 32;
 #pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const int i = i0 + (a < 4 ? ty * 4 + a : 64 + ty * 4 + a - 4);
-    if (i >= J.I) continue;
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int b = 0; b < 8; ++b) {
-      const int o = o0 + (b < 4 ? tx * 4 + b : 64 + tx * 4 + b - 4);
-      if (o < J.O) dst[(int64_t)i * J.O + (o % 32) * ot + o / 32] = acc[a][b];
-    }
-  }
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + (wid % 2) * 64 + mt * 16 + g + (r >= 2 ? 8 : 0);
+        const int o = o0 + (wid / 2) * 32 + nt * 8 + 2 * tq + (r & 1);
+        if (i < J.I && o < J.O)
+          dst[(int64_t)i * J.O + (J.ilv ? (o % 32) * ot + o / 32 : o)] =
+              acc[mt][nt][r];
+      }
 }
 
 struct ThinJob {
@@ -245,16 +198,28 @@ inline int gemm_tiles(const GemmJobs& g) {
 }
 
 // Pass (b): every weight gradient dP (Ptot floats, packed layout) from the
-// scratch X, D (row stride n_pad) through `splits` partials `part`.
+// scratch X, D (row stride n_pad) through `splits` partials `part`; the
+// matrix products in `mode` (tc::TF32X3 or tc::BF16), the thin jobs fp32.
 // Returns the first launch error.
 inline int weight_gradients(const float* X, const float* D, int64_t n_pad,
                             int splits, int64_t Ptot, const GemmJobs& gj,
                             const ThinJobs& tj, float* part, float* dP,
-                            cudaStream_t stream) {
+                            int mode, cudaStream_t stream) {
   int64_t chunk = (n_pad + splits - 1) / splits;
-  chunk = (chunk + GK - 1) / GK * GK;
-  wgrad_gemm_kernel<<<dim3(gemm_tiles(gj), splits), THREADS, 0, stream>>>(
-      X, D, n_pad, chunk, part, Ptot, gj);
+  chunk = (chunk + tc::GKS - 1) / tc::GKS * tc::GKS;
+  const dim3 grid(gemm_tiles(gj), splits);
+  const int smem = (int)tc::GEMM_SMEM_BYTES;
+  if (mode == tc::TF32X3) {
+    cudaFuncSetAttribute(wgrad_gemm_kernel<tc::TF32X3>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    wgrad_gemm_kernel<tc::TF32X3><<<grid, THREADS, smem, stream>>>(
+        X, D, n_pad, chunk, part, Ptot, gj);
+  } else {
+    cudaFuncSetAttribute(wgrad_gemm_kernel<tc::BF16>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    wgrad_gemm_kernel<tc::BF16><<<grid, THREADS, smem, stream>>>(
+        X, D, n_pad, chunk, part, Ptot, gj);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int thin_blocks = (tj.total * 32 + THREADS - 1) / THREADS;

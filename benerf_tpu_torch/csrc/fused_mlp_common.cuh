@@ -1,13 +1,15 @@
 // Device code shared by K1/K2 (fused_mlp_fwd.cu, fused_mlp_bwd.cu) and
 // K3/K4 (staged_mlp_fwd.cu, staged_mlp_bwd.cu): the packed weight layout,
-// the in-block positional encoding, and the register-blocked layer product
-// all four kernels are built from.
+// the in-block positional encoding and the heads, templated on the row
+// stride of the tile (K1/K2 use mma_layer.cuh's), and the register-blocked
+// CUDA-core layer product of K3/K4 (K1/K2 run theirs on the tensor cores,
+// mma_layer.cuh).
 //
-// Layout of a block's tile: TP = 64 points. Activations live in shared
+// K3/K4's layout of a block's tile: TP = 64 points. Activations live in shared
 // memory feature-major, [feature][point], one row per feature with a row
 // stride of LDA = TP + 4 floats, in ONE buffer H: a layer keeps its outputs
 // in registers until every thread has read its inputs (a barrier), then
-// overwrites them, so a block needs 97,920 B and two blocks fit on an SM.
+// overwrites them, so a K3 block needs 87,040 B and two fit on an SM.
 // A layer product out[o][p] = sum_i W[i][o] * a[i][p] is computed by 256
 // threads: thread t owns outputs o = og + 32*k (og = t % 32, k < OT) for
 // points pg*8 .. pg*8+7 (pg = t / 32). A warp therefore reads one
@@ -35,19 +37,15 @@ constexpr int G_PAD = 8;       // cotangent rows (C + 1 <= 8)
 constexpr int TP = 64;         // points per block
 constexpr int LDA = TP + 4;    // shared-memory row stride (floats)
 constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 2;  // __launch_bounds__ of K1, K2's passes
+constexpr int BLOCKS_PER_SM = 2;  // __launch_bounds__ of K3, K4's tile pass
 constexpr int PT = 8;          // points per thread in a layer product
 constexpr int BANDS = L_PTS + L_VIEWS;
 
-// shared memory of one block: H (256 rows), PE (64), VPE (32), G (8);
-// 97,920 bytes
-constexpr int SMEM_FLOATS = (WIDTH + PE_PAD + VPE_PAD + G_PAD) * LDA;
-constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
-
 // Offsets (floats) into the packed weight vector: every matrix in its
 // (fan_in, fan_out) row-major orientation, matrices first so each starts
-// 16-byte aligned; the six matrices mm_acc reads (w0, wh, w5pe, wf, wfv,
-// wvpe) have interleaved columns (see mm_acc). Mirrored by ops/fused_mlp.py
+// 16-byte aligned; in K3/K4's packing the six matrices mm_acc reads (w0,
+// wh, w5pe, wf, wfv, wvpe) have interleaved columns (see mm_acc), in
+// K1/K2's they keep their natural order. Mirrored by ops/fused_mlp.py
 // `_layout`, checked against fused_mlp_layout() / staged_mlp_layout() when
 // the library loads. view_pe = false is the layout of K3/K4, whose views
 // layer adds a per-ray bias computed outside (vb = vpe @ w_pe + b): the
@@ -75,8 +73,8 @@ __host__ __device__ inline Offsets offsets(int C, bool view_pe = true) {
   return o;
 }
 
-// Offsets into the transposed weight vector K2 and K4 use for their
-// data-gradient products: matrix (I, O) stored as (O, I_pad), I padded to a
+// Offsets into the transposed weight vector K4 uses for its data-gradient
+// products: matrix (I, O) stored as (O, I_pad), I padded to a
 // multiple of 4, columns interleaved. view_pe as for `offsets`.
 struct TOffsets {
   int64_t whT, w0T, w5peT, wfT, wfvT, wvpeT, waT, wrgbT, total;
@@ -105,12 +103,9 @@ __device__ __forceinline__ void zero_acc(float (&acc)[OT][PT]) {
 }
 
 // Input rows of a layer product unrolled together (weight loads in
-// flight). 16 measured fastest on an H100 (tools/torch_unroll_sweep.py,
-// PERF.md), though it makes K1 spill 32 B at 128 registers.
-#ifndef FMLP_UNROLL
-#define FMLP_UNROLL 16
-#endif
-constexpr int MM_UNROLL = FMLP_UNROLL;
+// flight). 16 measured fastest on an H100 (PERF.md), though it makes K3
+// spill 24 B at 128 registers.
+constexpr int MM_UNROLL = 16;
 
 // acc[k][j] += sum_{i < I} W[i][og + 32 k] * a[i * LDA + pg * PT + j]
 // W in global memory (L2-resident) with interleaved columns: W[i][og + 32 k]
@@ -179,6 +174,8 @@ __device__ __forceinline__ void store_global(float* G, int64_t ld, int64_t col0,
 // fk = 2^k, band rows times band[k] (BARF weights; all ones when band is
 // null), pad rows and points past n zero. pts (n, 3); vd (n / S, 3): a
 // point's view direction is its ray's. With vd null only PE is written.
+// LD: the row stride of PE and VPE (K1/K2 use the tensor-core layout's).
+template <int LD = LDA>
 __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
                                             const float* __restrict__ vd,
                                             int64_t n, int S,
@@ -203,7 +200,7 @@ __device__ __forceinline__ void encode_tile(const float* __restrict__ pts,
         if (band) v *= __ldg(band + (views ? L_PTS : 0) + k);
       }
     }
-    (views ? VPE : PE)[r * LDA + c] = v;
+    (views ? VPE : PE)[r * LD + c] = v;
   }
 }
 
@@ -259,29 +256,6 @@ __device__ __forceinline__ void feature_layer(const float* __restrict__ P,
   if (X) store_global<8>(X + (int64_t)x_f * ldx, ldx, col0, acc, og, pg);
 }
 
-// hv = relu(wfv^T f + wvpe^T vpe + bv): reads f from H, then overwrites
-// rows 0..127 of H with hv (the caller synchronizes before reading hv)
-__device__ __forceinline__ void views_layer(const float* __restrict__ P,
-                                            const Offsets& o, float* H,
-                                            const float* VPE, float* X,
-                                            int64_t ldx, int x_hv,
-                                            int64_t col0) {
-  const int og = threadIdx.x % 32, pg = threadIdx.x / 32;
-  float acc[4][PT];
-  zero_acc(acc);
-  mm_acc<4>(acc, P + o.wfv, HEAD, WIDTH, H, og, pg);
-  mm_acc<4>(acc, P + o.wvpe, HEAD, VPE_ROWS, VPE, og, pg);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float bias = __ldg(P + o.bv + og + 32 * k);
-#pragma unroll
-    for (int j = 0; j < PT; ++j) acc[k][j] = fmaxf(acc[k][j] + bias, 0.f);
-  }
-  __syncthreads();
-  store_smem<4>(H, acc, og, pg);
-  if (X) store_global<4>(X + (int64_t)x_hv * ldx, ldx, col0, acc, og, pg);
-}
-
 // K3/K4's views layer: hv = relu(wfv^T f + vb[ray]), with the per-ray view
 // bias vb (n / S, 128) = vpe @ w_pe + b computed outside the kernel. Reads
 // f from H, then overwrites rows 0..127 of H with hv (the caller
@@ -310,14 +284,16 @@ __device__ __forceinline__ void views_layer_vb(const float* __restrict__ P,
 }
 
 // raw head outputs: out[p][c_out] = bias + sum_i w[i * ldw + col] a[i][p]
-// (a = h7 for alpha, hv for rgb); 4 threads per point split the contraction
+// (a = h7 for alpha, hv for rgb, row stride LD); 4 threads per point split
+// the contraction
+template <int LD = LDA>
 __device__ __forceinline__ void head(const float* __restrict__ w, int ldw,
                                      int col, int I, const float* a,
                                      float bias, float* out, int64_t n,
                                      int64_t p0, int C, int c_out) {
   const int c = threadIdx.x / 4, part = threadIdx.x % 4;
   float s = 0.f;
-  for (int i = part; i < I; i += 4) s = fmaf(__ldg(w + i * ldw + col), a[i * LDA + c], s);
+  for (int i = part; i < I; i += 4) s = fmaf(__ldg(w + i * ldw + col), a[i * LD + c], s);
   s += __shfl_xor_sync(0xffffffffu, s, 1);
   s += __shfl_xor_sync(0xffffffffu, s, 2);
   const int64_t p = p0 + c;

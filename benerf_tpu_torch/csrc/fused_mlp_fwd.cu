@@ -7,46 +7,51 @@
 // Bound on an H100: operations. One point costs 1,186,816 FLOP of matrix
 // products and moves 28 bytes in and 16 bytes out (pts, its ray's viewdir,
 // C+1 outputs; the 2.4 MB of weights are read once per call and stay in the
-// 50 MB L2), so a call is bound by the fp32 CUDA-core rate by two orders of
-// magnitude over HBM bandwidth.
+// 50 MB L2). On the tensor cores that is 7.2 us per 1,000 points in TF32X3
+// (three TF32 products at 495 TFLOP/s) and 1.2 us in BF16 (989 TFLOP/s),
+// still far above the 13 ns of HBM traffic.
 //
 // Design: the TPU kernel pins all weights and (256, 1024) activation slabs
 // in VMEM; a Hopper block has 227 KB of shared memory, so here a block owns
-// a 64-point tile, keeps that tile's activations in shared memory (one
-// 256-row buffer plus the encodings, 97,920 bytes: two blocks per SM) and
-// streams every weight matrix from L2 layer by layer. Encodings are
-// computed in the block; nothing but the inputs and the (n, C+1) result
-// touches HBM. Each thread keeps an 8x8 register tile of outputs so each
-// weight and activation load feeds 8 FMAs. fp32 throughout (no TF32, no
-// tensor cores). Points past n (the ragged last tile) are encoded as zeros
-// and not written.
+// a 64-point tile, keeps that tile's activations in shared memory and
+// streams the weights through a ring of three cp.async stages
+// (mma_layer.cuh; one block of 8 warps per SM). Every layer product runs on mma.sync: TF32X3
+// (compute_dtype "float32", fp32-level accuracy from three TF32 products)
+// or BF16 (compute_dtype "bfloat16", the JAX kernel's bf16 mode). Encodings
+// are computed in the block; nothing but the inputs and the (n, C+1) result
+// touches HBM. The 1- and C-column heads are fp32 on CUDA cores. Points
+// past n (the ragged last tile) are encoded as zeros and not written.
 
-#include "fused_mlp_common.cuh"
+#include "fused_mlp_tc.cuh"
 
 namespace fmlp {
 
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+constexpr size_t FWD_SMEM_BYTES =
+    TC_FWD_ROWS * tc::LDA * sizeof(float) + tc::STAGES_BYTES;  // 211,968
+
+template <tc::Mode MODE>
+__global__ void __launch_bounds__(tc::THREADS, 1)
 fwd_kernel(const float* __restrict__ pts, const float* __restrict__ vd,
            int64_t n, int S, const float* __restrict__ P,
            const float* __restrict__ band, int C, float* __restrict__ out) {
   extern __shared__ float4 smem4[];
   float* H = reinterpret_cast<float*>(smem4);
-  float* PE = H + WIDTH * LDA;
-  float* VPE = PE + PE_PAD * LDA;
+  float* PE = H + WIDTH * tc::LDA;
+  float* VPE = PE + PE_PAD * tc::LDA;
+  tc::Pipe pipe{VPE + VPE_PAD * tc::LDA, 0};
   const Offsets o = offsets(C);
   const int64_t p0 = (int64_t)blockIdx.x * TP;
 
-  encode_tile(pts, vd, n, S, band, p0, PE, VPE);
-  __syncthreads();
-  trunk_forward(P, o, PE, H, nullptr, 0, 0, 0);  // h7 in H
-  // the alpha head reads h7 before feature_layer's barrier lets f overwrite it
-  head(P + o.wa, 1, 0, WIDTH, H, __ldg(P + o.ba), out, n, p0, C, C);
-  feature_layer(P, o, H, nullptr, 0, 0, 0);      // f in H
-  __syncthreads();
-  views_layer(P, o, H, VPE, nullptr, 0, 0, 0);   // hv in H rows 0..127
-  __syncthreads();
+  pipe.start(fwd_src(P + o.w0, PE_ROWS, WIDTH));  // in flight while encoding
+  encode_tile<tc::LDA>(pts, vd, n, S, band, p0, PE, VPE);
+  auto alpha = [&](const float* h7) {
+    head<tc::LDA>(P + o.wa, 1, 0, WIDTH, h7, __ldg(P + o.ba), out, n, p0, C, C);
+  };
+  forward_tc<MODE>(P, o, PE, VPE, H, pipe, nullptr, alpha, nullptr);
+  __syncthreads();  // hv in H rows 0..127
   for (int c = 0; c < C; ++c)
-    head(P + o.wrgb, C, c, HEAD, H, __ldg(P + o.brgb + c), out, n, p0, C, c);
+    head<tc::LDA>(P + o.wrgb, C, c, HEAD, H, __ldg(P + o.brgb + c), out, n, p0,
+                  C, c);
 }
 
 }  // namespace fmlp
@@ -62,16 +67,24 @@ void fused_mlp_layout(int C, int64_t* out) {
   for (int i = 0; i < 14; ++i) out[i] = v[i];
 }
 
-// pts (n, 3), vd (n / S, 3), packed weights P, band (14,) -> out (n, C+1)
+// pts (n, 3), vd (n / S, 3), packed weights P (natural column order), band
+// (14,) -> out (n, C+1); mode: 0 TF32X3, 1 BF16
 int fused_mlp_fwd(const float* pts, const float* vd, int64_t n, int S,
                   const float* P, const float* band, int C, float* out,
-                  cudaStream_t stream) {
-  cudaFuncSetAttribute(fmlp::fwd_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)fmlp::SMEM_BYTES);
+                  int mode, cudaStream_t stream) {
   const int64_t blocks = (n + fmlp::TP - 1) / fmlp::TP;
-  fmlp::fwd_kernel<<<(unsigned)blocks, fmlp::THREADS, fmlp::SMEM_BYTES, stream>>>(
-      pts, vd, n, S, P, band, C, out);
+  const int smem = (int)fmlp::FWD_SMEM_BYTES;
+  if (mode == tc::TF32X3) {
+    cudaFuncSetAttribute(fmlp::fwd_kernel<tc::TF32X3>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fmlp::fwd_kernel<tc::TF32X3><<<(unsigned)blocks, tc::THREADS, smem, stream>>>(
+        pts, vd, n, S, P, band, C, out);
+  } else {
+    cudaFuncSetAttribute(fmlp::fwd_kernel<tc::BF16>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fmlp::fwd_kernel<tc::BF16><<<(unsigned)blocks, tc::THREADS, smem, stream>>>(
+        pts, vd, n, S, P, band, C, out);
+  }
   return (int)cudaGetLastError();
 }
 

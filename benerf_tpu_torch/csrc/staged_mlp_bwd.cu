@@ -24,13 +24,15 @@
 //      gradient anyway), and the wrapper sums them over each ray's S
 //      samples, which may straddle tiles.
 //  (b) `weight_gradients` (fused_mlp_bwd_common.cuh): every weight gradient
-//      as a split-K product over fixed point chunks and an in-order sum of
-//      the partials. The TPU kernel adds each grid step's tile into one
+//      as a split-K product over fixed point chunks (K2's tensor-core pass
+//      in TF32X3 mode, writing K4's interleaved columns) and an in-order
+//      sum of the partials. The TPU kernel adds each grid step's tile into one
 //      VMEM output in grid order; Hopper blocks run concurrently, so no
 //      block adds into another's result and no atomics are used: split
 //      count changes the result only by the rounding of a reordered sum.
 // Padded points carry a zero cotangent, so they add nothing to any sum and
-// the last partial tile's gradients are kept. fp32 throughout.
+// the last partial tile's gradients are kept. The tile pass is fp32 on
+// CUDA cores.
 
 #include "fused_mlp_bwd_common.cuh"
 
@@ -175,17 +177,17 @@ inline void make_staged_jobs(int C, GemmJobs* g, ThinJobs* t) {
   const Offsets o = offsets(C, false);
   const int64_t WW = (int64_t)WIDTH * WIDTH;
   *g = GemmJobs{11, {
-      {SX_PE, PE_ROWS, SD_PRE, WIDTH, 0, 0, o.w0},
-      {SX_H + 0 * WIDTH, WIDTH, SD_PRE + 1 * WIDTH, WIDTH, 0, 0, o.wh + 0 * WW},
-      {SX_H + 1 * WIDTH, WIDTH, SD_PRE + 2 * WIDTH, WIDTH, 0, 0, o.wh + 1 * WW},
-      {SX_H + 2 * WIDTH, WIDTH, SD_PRE + 3 * WIDTH, WIDTH, 0, 0, o.wh + 2 * WW},
-      {SX_H + 3 * WIDTH, WIDTH, SD_PRE + 4 * WIDTH, WIDTH, 0, 0, o.wh + 3 * WW},
-      {SX_H + 4 * WIDTH, WIDTH, SD_PRE + 5 * WIDTH, WIDTH, 0, 0, o.wh + 4 * WW},
-      {SX_H + 5 * WIDTH, WIDTH, SD_PRE + 6 * WIDTH, WIDTH, 0, 0, o.wh + 5 * WW},
-      {SX_H + 6 * WIDTH, WIDTH, SD_PRE + 7 * WIDTH, WIDTH, 0, 0, o.wh + 6 * WW},
-      {SX_PE, PE_ROWS, SD_PRE + SKIP * WIDTH, WIDTH, 0, 0, o.w5pe},
-      {SX_H + (DEPTH - 1) * WIDTH, WIDTH, SD_F, WIDTH, 0, 0, o.wf},
-      {SX_F, WIDTH, SD_HV, HEAD, 0, 0, o.wfv},
+      {SX_PE, PE_ROWS, SD_PRE, WIDTH, 0, 0, o.w0, 1},
+      {SX_H + 0 * WIDTH, WIDTH, SD_PRE + 1 * WIDTH, WIDTH, 0, 0, o.wh + 0 * WW, 1},
+      {SX_H + 1 * WIDTH, WIDTH, SD_PRE + 2 * WIDTH, WIDTH, 0, 0, o.wh + 1 * WW, 1},
+      {SX_H + 2 * WIDTH, WIDTH, SD_PRE + 3 * WIDTH, WIDTH, 0, 0, o.wh + 2 * WW, 1},
+      {SX_H + 3 * WIDTH, WIDTH, SD_PRE + 4 * WIDTH, WIDTH, 0, 0, o.wh + 3 * WW, 1},
+      {SX_H + 4 * WIDTH, WIDTH, SD_PRE + 5 * WIDTH, WIDTH, 0, 0, o.wh + 4 * WW, 1},
+      {SX_H + 5 * WIDTH, WIDTH, SD_PRE + 6 * WIDTH, WIDTH, 0, 0, o.wh + 5 * WW, 1},
+      {SX_H + 6 * WIDTH, WIDTH, SD_PRE + 7 * WIDTH, WIDTH, 0, 0, o.wh + 6 * WW, 1},
+      {SX_PE, PE_ROWS, SD_PRE + SKIP * WIDTH, WIDTH, 0, 0, o.w5pe, 1},
+      {SX_H + (DEPTH - 1) * WIDTH, WIDTH, SD_F, WIDTH, 0, 0, o.wf, 1},
+      {SX_F, WIDTH, SD_HV, HEAD, 0, 0, o.wfv, 1},
   }};
   *t = ThinJobs{5, 0, {
       {-1, 1, SD_PRE, DEPTH * WIDTH + WIDTH, 0, o.b},  // b, bf
@@ -241,7 +243,7 @@ int staged_mlp_bwd(const float* pts, const float* vb, int64_t n, int S,
   fmlp::make_staged_jobs(C, &gj, &tj);
   return fmlp::weight_gradients(X, D, n_pad, splits,
                                 fmlp::offsets(C, false).total, gj, tj, part,
-                                dP, stream);
+                                dP, tc::TF32X3, stream);
 }
 
 }  // extern "C"

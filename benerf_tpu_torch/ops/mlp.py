@@ -5,9 +5,11 @@ Port of benerf_tpu/ops/mlp.py without a mesh. On the card `route` decides,
 from shapes and flags alone and in the JAX package's order (its
 ops/mlp.py:67-82):
   - "fused": K1/K2 (ops/fused_mlp.py), the standard architecture at 10/4
-    frequencies, BARF allowed;
+    frequencies, BARF allowed, compute_dtype "float32" or "bfloat16";
   - "staged": K3/K4 (ops/staged_mlp.py), the standard trunk with any view
-    encoding, BARF off;
+    encoding, BARF off, fp32 only: compute_dtype "bfloat16" raises
+    NotImplementedError there until K3/K4 move onto the tensor cores
+    (ROADMAP Queue 1);
   - "plain": models/nerf.apply, every other architecture (other widths or
     depths, no viewdirs, BARF with a view encoding other than 27 rows),
     where the JAX package runs plain XLA too; counted in ROUTES["plain"].
@@ -53,18 +55,20 @@ def mlp_forward(
     if pts.device.type == "cuda":
         which = route(params, viewdirs, num_freqs, num_freqs_views,
                       barf_weights is not None or barf_weights_views is not None)
-        if which != "plain" and compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r} on the card: the kernels "
-                "are fp32 only; the bf16 mode comes with their tensor-core "
-                "version")
         if which == "fused":
             return fused_mlp.fused_nerf_mlp(
                 params, pts, viewdirs, num_freqs=num_freqs,
                 num_freqs_views=num_freqs_views, barf_weights=barf_weights,
                 barf_weights_views=barf_weights_views,
+                compute_dtype=compute_dtype,
             )
         if which == "staged":
+            if compute_dtype != "float32":
+                raise NotImplementedError(
+                    f"compute_dtype={compute_dtype!r} on the staged route: "
+                    "K3/K4 are fp32 on CUDA cores; their bf16 mode comes "
+                    "with their move onto the tensor cores (ROADMAP Queue 1 "
+                    "item 1)")
             return staged_mlp.staged_nerf_mlp(
                 params, pts, viewdirs, num_freqs=num_freqs,
                 num_freqs_views=num_freqs_views,

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1/K2 and K3/K4 on the card, against the plain
-PyTorch version (models/nerf.apply), and the MLP dispatcher's card routes. CUDA kernels have no CPU mode: every test here
+"""The port's CUDA kernels K1/K2 (both modes) and K3/K4 on the card, against
+the plain PyTorch version (models/nerf.apply), and the MLP dispatcher's
+card routes. CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX; skip it there):
@@ -48,11 +49,13 @@ def _inputs(R, S, C, barf, seed=0, width=256, views_ch=27):
     return params, pts, vd, kw
 
 
-@pytest.mark.parametrize("C,barf", [(1, True), (3, False)])
-def test_kernels_match_plain_at_a_ragged_size(card, C, barf):
-    """3 x 37 = 111 points leave a ragged last tile: its outputs and its
-    gradients must not be dropped."""
-    params, pts, vd, kw = _inputs(3, 37, C, barf)
+@pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
+@pytest.mark.parametrize("C,barf", [(1, True), (3, False), (7, True)])
+def test_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
+    """K1/K2 in fp32 mode (TF32X3). 3 x 37 = 111 points leave a ragged last
+    tile: its outputs and its gradients must not be dropped; 5 x 64 fills
+    five tiles. C = 7 is the widest K1/K2 take (C + 1 <= 8)."""
+    params, pts, vd, kw = _inputs(R, S, C, barf)
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
     x, v = pts.requires_grad_(True), vd.requires_grad_(True)
     before = dict(fused_mlp.LAUNCHES)
@@ -70,7 +73,47 @@ def test_kernels_match_plain_at_a_ragged_size(card, C, barf):
     assert grads_k[-2][-1].abs().sum() > 0  # the ragged tile's points
 
 
-def test_weight_gradients_do_not_depend_on_the_split_count(card):
+def _grads(fn, params, x, v, **kw):
+    leaves = [t.detach().requires_grad_(True) for t in bridge.tree_leaves(params)]
+    p = bridge.tree_unflatten(params, leaves)
+    xg, vg = x.detach().requires_grad_(True), v.detach().requires_grad_(True)
+    return torch.autograd.grad(torch.sin(fn(p, xg, vg, **kw)).sum(), leaves + [xg, vg])
+
+
+def _dist(got, want):
+    """Worst max|a - b| / max(|b|, 1) over gradient pairs."""
+    return max(float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1.0)
+               for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
+@pytest.mark.parametrize("C,barf", [(1, True), (3, False), (7, True)])
+def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
+    """K1/K2 in bf16 mode: the forward within test_bfloat16_mode's 2e-2 x
+    scale of nerf.apply with bf16 operands; gradients finite, and no
+    farther from a float64 run than twice the plain bf16 version's
+    distance (chip_smoke.py's BF16_GRAD_FACTOR)."""
+    params, pts, vd, kw = _inputs(R, S, C, barf)
+    before = dict(fused_mlp.LAUNCHES)
+    with torch.no_grad():
+        out_k = fused_mlp.fused_nerf_mlp(params, pts, vd, compute_dtype="bfloat16", **kw)
+        out_p = nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16, **kw)
+    scale = max(out_p.abs().max().item(), 1.0)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=2e-2 * scale)
+    gk = _grads(fused_mlp.fused_nerf_mlp, params, pts, vd, compute_dtype="bfloat16", **kw)
+    assert fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"] == before["fused_mlp_fwd_bf16"] + 2
+    assert fused_mlp.LAUNCHES["fused_mlp_bwd_bf16"] == before["fused_mlp_bwd_bf16"] + 1
+    assert fused_mlp.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"]
+    gp = _grads(nerf.apply, params, pts, vd, compute_dtype=torch.bfloat16, **kw)
+    g64 = _grads(nerf.apply, bridge.tree_map(lambda t: t.double(), params),
+                 pts.double(), vd.double(), **{k: t.double() for k, t in kw.items()})
+    assert all(bool(torch.isfinite(g).all()) for g in gk)
+    assert _dist(gk[:-2], g64[:-2]) <= 2.0 * _dist(gp[:-2], g64[:-2])
+    assert gk[-2][-1].abs().sum() > 0  # the last tile's points
+
+
+@pytest.mark.parametrize("a,b", [(1, 13), (7, 32)])
+def test_weight_gradients_do_not_depend_on_the_split_count(card, a, b):
     params, pts, vd, _ = _inputs(40, 64, 3, False, seed=1)
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
 
@@ -78,9 +121,9 @@ def test_weight_gradients_do_not_depend_on_the_split_count(card):
         out = fused_mlp.fused_nerf_mlp(params, pts, vd, splits=splits)
         return torch.autograd.grad(torch.sin(out).sum(), leaves)
 
-    for a, b in zip(grads(1), grads(13)):
-        scale = max(b.abs().max().item(), 1.0)
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+    for x, y in zip(grads(a), grads(b)):
+        scale = max(y.abs().max().item(), 1.0)
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-5 * scale)
 
 
 @pytest.mark.parametrize("C", [1, 3, 8])
@@ -121,11 +164,18 @@ def test_staged_weight_gradients_do_not_depend_on_the_split_count(card):
 
 def test_card_path_raises_where_the_kernel_does_not_apply(card):
     """A kernel route or the plain route where the JAX package has no
-    kernel; bf16 on a kernel route and an encoding that does not match w0
-    raise."""
+    kernel; bf16 runs K1/K2 in their bf16 mode on the fused route and raises
+    on the staged one; an encoding that does not match w0 raises."""
     params, pts, vd, _ = _inputs(2, 8, 3, False)
-    with pytest.raises(NotImplementedError):
-        mlp_ops.mlp_forward(params, pts, vd, compute_dtype="bfloat16")
+    before = fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"]
+    out = mlp_ops.mlp_forward(params, pts, vd, compute_dtype="bfloat16")
+    assert fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"] == before + 1
+    torch.testing.assert_close(
+        out, nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16), rtol=0,
+        atol=2e-2 * max(out.abs().max().item(), 1.0))
+    l6, _, _, _ = _inputs(2, 8, 3, False, views_ch=39)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        mlp_ops.mlp_forward(l6, pts, vd, num_freqs_views=6, compute_dtype="bfloat16")
     with pytest.raises(ValueError):
         mlp_ops.mlp_forward(params, pts, vd, num_freqs=6)
     narrow, pts, vd, _ = _inputs(2, 8, 3, False, width=64)

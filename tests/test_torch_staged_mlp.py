@@ -112,14 +112,58 @@ def test_staged_forward_matches_jax(views_ch, C, S, interpret_mode):
     np.testing.assert_allclose(got, k3, rtol=0, atol=FWD_ATOL)
 
 
+# A ReLU input within fp32 rounding of 0 takes its side by the order of the
+# sums before it, and its point's gradient then differs by design. Measured
+# at 13 x 192 points (views_ch 39): fp32 ReLU inputs deviate from float64 by
+# up to 7.5e-7, and one views-layer input of -6.25e-8 in float64 comes out
+# +2.05e-8 in fp32 in both the port's and JAX's plain nerf.apply (their d
+# pts sit 2.4321e-2 x scale from float64 to 1e-8 of each other, w0 3.2e-4),
+# while the JAX kernel's summation order keeps it negative (5.8e-7). The
+# gradient test therefore draws its points away from such ties.
+RELU_TIE = 1e-5
+
+
+def _min_relu_input(params, pts, vd, Lv):
+    """Per point, the smallest |ReLU input| of nerf.apply in float64
+    (trunk and views layer)."""
+    p = bridge.tree_map(lambda t: t.double(), bridge.params_from_numpy(params))
+    x = torch.as_tensor(pts, dtype=torch.float64).reshape(-1, 3)
+    pe = temb.positional_encoding(x, 10)
+    h, mins = pe, []
+    for layer in p["pts"]:
+        t = (pe @ layer["w_pe"] + h @ layer["w_h"] if "w_pe" in layer
+             else h @ layer["w"]) + layer["b"]
+        mins.append(t.abs().min(dim=1).values)
+        h = torch.relu(t)
+    f = h @ p["feature"]["w"] + p["feature"]["b"]
+    vpe = temb.positional_encoding(torch.as_tensor(vd, dtype=torch.float64), Lv)
+    t = (f @ p["views"]["w_feat"] + p["views"]["b"]
+         + (vpe @ p["views"]["w_pe"]).repeat_interleave(pts.shape[1], dim=0))
+    mins.append(t.abs().min(dim=1).values)
+    return torch.stack(mins).min(dim=0).values.numpy().reshape(pts.shape[:2])
+
+
+def _away_from_relu_ties(params, pts, vd, Lv, seed):
+    """pts with every point whose float64 ReLU inputs come within RELU_TIE
+    of 0 drawn again."""
+    rng = np.random.default_rng(seed)
+    pts = pts.copy()
+    for _ in range(20):
+        tie = _min_relu_input(params, pts, vd, Lv) < RELU_TIE
+        if not tie.any():
+            return pts
+        pts[tie] = rng.uniform(-1.0, 1.0, (int(tie.sum()), 3)).astype(np.float32)
+    raise AssertionError("could not draw points away from ReLU ties")
+
+
 @pytest.mark.parametrize("views_ch,C,S", [(39, 3, 192), (15, 8, 64)])
 def test_staged_gradients_match_jax(views_ch, C, S, interpret_mode):
-    """Against the JAX kernel and against the same function in float64.
-    JAX's plain nerf.apply is no gradient reference at 13 x 192 points: on
-    XLA:CPU its fp32 gradients sit up to 3.2e-4 x scale (w0) and 2.4e-2
-    (d pts) from float64, where the port and the JAX kernel sit within
-    1.2e-6; at 13 x 64 it is held to the bound too."""
+    """Against the JAX kernel and against the same function in float64, on
+    points away from ReLU ties (RELU_TIE). JAX's plain nerf.apply is held to
+    the bound at 13 x 64; at 13 x 192 its fp32 gradients on XLA:CPU sat up
+    to 3.2e-4 x scale (w0) and 2.4e-2 (d pts) from float64 at a tie."""
     params, pts, vd, Lv = _inputs(13, S, C, views_ch, seed=S)
+    pts = _away_from_relu_ties(params, pts, vd, Lv, seed=S + 1)
     got = _port_grads(staged_mlp.staged_nerf_mlp, params, pts, vd, Lv)
     _assert_grads_close(got, _jax_grads(pallas_mlp.fused_nerf_mlp, params,
                                         pts, vd, Lv))

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Time the fused MLP kernels of two trees of this repository on one card.
+"""Time the MLP kernels of two trees of this repository on one card.
 
     python3 tools/torch_kernel_ab.py PARENT_DIR [CHANGE_DIR]
 
 PARENT_DIR and CHANGE_DIR (default: this repository) are checkouts, e.g.
 `git archive <commit> | tar -x -C PARENT_DIR`. Each tree builds its own
-kernels and runs chip_smoke.time_kernels in a process of its own, in the
-order parent, change, change, parent, at the training path's n = 195,520
-and 391,040. Prints one JSON line per run and the median per side:
-K1, the plain forward, K2, the plain forward + backward (ms, CUDA events).
+kernels and runs chip_smoke.time_kernels and time_staged_kernels in a
+process of its own, in the order parent, change, change, parent, at the
+training path's n = 195,520 and 391,040. Prints one JSON line per run and
+the median per side (ms, CUDA events): K1 and K2 in fp32 mode (k1, k2),
+in bf16 mode where the tree has it (k1_bf16, k2_bf16), K3 and K4, and the
+plain versions (plain_*).
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
 
@@ -19,16 +21,24 @@ import sys
 from pathlib import Path
 
 RUN = r"""
-import json, sys
+import inspect, json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from benerf_tpu_torch.ops import fused_mlp
 torch.backends.cuda.matmul.allow_tf32 = False
 fused_mlp.build()
-print(json.dumps({str(cs.RAYS * S): dict(zip(("k1", "plain_fwd", "k2", "plain_fwd_bwd"),
-                                             cs.time_kernels(torch, S)))
-                  for S in (64, 128)}))
+modes = "compute_dtype" in inspect.signature(cs.time_kernels).parameters
+res = {}
+for S in (64, 128):  # what both trees have first, in the same order
+    r = dict(zip(("k3", "plain_fwd_l6", "k4", "plain_fwd_bwd_l6"),
+                 cs.time_staged_kernels(torch, S)))
+    r.update(zip(("k1", "plain_fwd", "k2", "plain_fwd_bwd"), cs.time_kernels(torch, S)))
+    if modes:
+        r.update(zip(("k1_bf16", "plain_fwd_bf16", "k2_bf16", "plain_fwd_bwd_bf16"),
+                     cs.time_kernels(torch, S, compute_dtype="bfloat16")))
+    res[str(cs.RAYS * S)] = r
+print(json.dumps(res))
 """
 
 

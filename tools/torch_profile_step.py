@@ -2,12 +2,14 @@
 """Where the time of one BeNeRF train step goes, for the PyTorch/CUDA port.
 
     python3 tools/torch_profile_step.py [--iters 5] [--multires-views L]
+                                        [--compute-dtype bfloat16]
                                         [--out FILE.json]
 
 Builds the tanabata config at full width on an in-memory random scene of
 1,000,000 events (as chip_smoke.py does); with --multires-views L other
 than 4, both NeRF MLPs are built with a view encoding of 3 + 6 L rows (the
-path of the staged kernels K3/K4, as chip_smoke.py phase 5). Runs a few
+path of the staged kernels K3/K4, as chip_smoke.py phase 6); with
+--compute-dtype bfloat16 the MLPs run K1/K2 in their bf16 mode. Runs a few
 warm-up steps, then
 `--iters` steps under torch.profiler. Prints and writes (JSON, --out):
   - the step's wall time (host clock, one host sync per step as in the
@@ -54,6 +56,7 @@ GROUPS = (("fmlp::fwd_kernel", "K1"), ("fmlp::tile_kernel", "K2 tile pass"),
 
 
 def _group(name: str) -> str:
+    name = name.removeprefix("void ")  # templated kernels name their return type
     for prefix, group in GROUPS:
         if name.startswith(prefix):
             return group
@@ -64,6 +67,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--multires-views", type=int, default=4)
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
@@ -89,7 +94,8 @@ def main():
     cap = events_mod.window_cap(scene.events.ts.cpu().numpy(),
                                 cfg.accumulate_time_length)
     cfg = dataclasses.replace(cfg, event_window_cap=cap,
-                              multires_views=args.multires_views)
+                              multires_views=args.multires_views,
+                              compute_dtype=args.compute_dtype)
     H, W = scene.image.shape[1:3]
     K_rgb, K_evt, _, _, _ = loop.intrinsics(cfg)
     batch = loop.make_batch(scene, cfg, K_rgb, K_evt, "cuda")
@@ -143,6 +149,7 @@ def main():
     result = {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "iters": args.iters, "multires_views": cfg.multires_views,
+        "compute_dtype": cfg.compute_dtype,
         "rays_per_iter": rays,
         "wall_ms_per_step": wall_ms, "rays_per_sec": rays / wall_ms * 1e3,
         "device_busy_ms_per_step": busy_ms,
