@@ -1,79 +1,265 @@
 // Device code shared by the backward kernels K2 (fused_mlp_bwd.cu) and K4
-// (staged_mlp_bwd.cu): helpers of the tile pass, and pass (b), the weight
-// gradients as deterministic split-K products over a feature-major scratch
-// of activations X and pre-activation gradients D (see fused_mlp_bwd.cu),
-// the matrix products on the tensor cores for both kernels.
+// (staged_mlp_bwd.cu): pass (a), the tile pass, one template over the view
+// input (K2's view encoding in the block, K4's per-ray bias), and pass (b),
+// the weight gradients as deterministic split-K products over a
+// feature-major scratch of activations X and pre-activation gradients D
+// (see fused_mlp_bwd.cu), every layer product of both on the tensor cores.
 #pragma once
 
-#include "fused_mlp_common.cuh"
-#include "mma_layer.cuh"
+#include "fused_mlp_tc.cuh"
 
 namespace fmlp {
 
-// acc *= (mask > 0) where mask is a feature-major global tile (row r0)
-template <int OT>
-__device__ __forceinline__ void relu_mask_global(float (&acc)[OT][PT],
-                                                 const float* X, int64_t ld,
-                                                 int r0, int64_t col0, int og,
-                                                 int pg) {
-#pragma unroll
-  for (int k = 0; k < OT; ++k) {
-    const float* m = X + (int64_t)(r0 + og + 32 * k) * ld + col0 + pg * PT;
-    const float4 m0 = *reinterpret_cast<const float4*>(m);
-    const float4 m1 = *reinterpret_cast<const float4*>(m + 4);
-    const float mv[PT] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
-#pragma unroll
-    for (int j = 0; j < PT; ++j) acc[k][j] = mv[j] > 0.f ? acc[k][j] : 0.f;
-  }
-}
+// Rows of the scratch, [row][point] with row stride n_pad. VIEW_PE: K2's
+// (the view encoding VPE among the activations), else K4's.
+template <bool VIEW_PE>
+struct Scratch {
+  static constexpr int X_PE = 0;
+  static constexpr int X_H = X_PE + PE_PAD;          // h0..h7
+  static constexpr int X_F = X_H + DEPTH * WIDTH;
+  static constexpr int X_VPE = X_F + WIDTH;          // K2 only
+  static constexpr int X_HV = X_VPE + (VIEW_PE ? VPE_PAD : 0);
+  static constexpr int X_ROWS = X_HV + HEAD;         // 2528 (K2), 2496 (K4)
+  static constexpr int D_PRE = 0;                    // d pre-activation, layers 0..7
+  static constexpr int D_F = D_PRE + DEPTH * WIDTH;
+  static constexpr int D_HV = D_F + WIDTH;           // K4: d vb per point
+  static constexpr int D_G = D_HV + HEAD;            // cotangent rows (rgb..., alpha)
+};
 
-// copy `rows` shared-memory rows (stride LD) to the feature-major global
-// scratch
-template <int LD = LDA>
+// copy `rows` shared-memory rows to the feature-major global scratch
 __device__ __forceinline__ void copy_rows(const float* src, int rows, float* G,
                                           int64_t ld, int64_t col0) {
   for (int e = threadIdx.x; e < rows * TP; e += THREADS) {
     const int r = e / TP, c = e % TP;
-    G[(int64_t)r * ld + col0 + c] = src[r * LD + c];
+    G[(int64_t)r * ld + col0 + c] = src[r * LDA + c];
   }
 }
 
 // VJP of the encoding for one point: d_enc rows (weighted by band; all ones
-// when band is null) back to the 3 input coordinates; denc row stride LD
-template <int LD = LDA>
+// when band is null) back to the 3 input coordinates
 __device__ __forceinline__ void encode_bwd(const float* denc, int c, int L,
                                            const float* __restrict__ band,
                                            const float* x3, float* dx) {
   for (int m = 0; m < 3; ++m) {
     const float x = __ldg(x3 + m);
-    float s = denc[m * LD + c];
+    float s = denc[m * LDA + c];
     for (int k = 0; k < L; ++k) {
       const float f = (float)(1 << k);
       const float b = x * f;
       const float w = band ? __ldg(band + k) : 1.f;
-      const float ds = denc[(3 + 6 * k + m) * LD + c] * w;
-      const float dc = denc[(6 + 6 * k + m) * LD + c] * w;
+      const float ds = denc[(3 + 6 * k + m) * LDA + c] * w;
+      const float dc = denc[(6 + 6 * k + m) * LDA + c] * w;
       s += f * (cosf(b) * ds - sinf(b) * dc);
     }
     dx[m] = s;
   }
 }
 
+// epilogue of a data-gradient product for d h_l: mask by h_l > 0, store
+// d pre_l to D (row d_row) and to H
+template <int M, int MT, int NT>
+__device__ __forceinline__ void dgrad_out(float (&acc)[MT][NT][4],
+                                          const uint32_t* masks, float* D,
+                                          int d_row, int64_t n_pad, int64_t p0,
+                                          float* H) {
+  tc::apply_signs(acc, masks);
+  tc::store_tile_global<M>(D + (int64_t)d_row * n_pad, n_pad, p0, acc);
+  tc::store_tile<M>(H, acc);
+}
+
+// ---- pass (a): the tile pass ----------------------------------------------
+//
+// One block per 64-point tile (one block of 8 warps per SM) rematerializes
+// the forward on the tensor cores (fused_mlp_tc.cuh), keeps the ReLU signs
+// of every layer as bits in shared memory, runs the chain rule back through
+// heads, trunk and the sin/cos encodings with the data-gradient products
+// A[i][o] = W[i][o] read from the same packed weights (no transposed copy),
+// writes d pts (and K2's per-point d viewdir), and stores every activation
+// (X) and every pre-activation gradient (D) of the tile to the scratch.
+// K4's d vb per point is D's rows D_HV, which the wrapper sums per ray.
+//
+// Shared memory (227 KB a block): H (256 rows x LDA), PE (64), three weight
+// stages (3 x 36,864 B) and the sign bits (17 words a thread, 17,408 B) are
+// common. K2 adds VPE (32 rows) and its cotangent tile G (8 rows, C + 1 <=
+// 8): 231,680 B. K4 has no VPE, which leaves room for 40 rows, but its
+// C + 1 goes to 128; so K4 loads its cotangent into H's rows 128..255 after
+// the forward, when hv sits in rows 0..127 and those rows hold nothing
+// (every thread has read f, the views product's trailing barrier), and
+// copies the alpha row, which the backward reads after the feature product
+// has overwritten H, into one row of its own (GA): 220,448 B for any C, all
+// three weight stages kept.
+constexpr int MASK_WORDS = DEPTH * 2 + 1;  // ReLU sign words a thread
+
+template <bool VIEW_PE>
+constexpr size_t tile_smem_bytes() {
+  return (WIDTH + PE_PAD + (VIEW_PE ? VPE_PAD + G_PAD : 1)) * LDA * sizeof(float) +
+         tc::STAGES_BYTES + MASK_WORDS * THREADS * sizeof(uint32_t);
+}
+
+// view: K2's viewdirs vd (n / S, 3) or K4's per-ray bias vb (n / S, 128);
+// band: K2's band weights (14,), null for K4 (no BARF); dvd: K2's d viewdir
+// per point (n, 3), null for K4. smem: tile_smem_bytes<VIEW_PE>() bytes.
+template <tc::Mode MODE, bool VIEW_PE>
+__device__ __forceinline__ void tile_pass(
+    const float* __restrict__ pts, const float* __restrict__ view, int64_t n,
+    int S, const float* __restrict__ P, const float* __restrict__ band,
+    const float* __restrict__ g, int C, int64_t n_pad, float* __restrict__ X,
+    float* __restrict__ D, float* __restrict__ dpts, float* __restrict__ dvd,
+    float* smem) {
+  using R = Scratch<VIEW_PE>;
+  using T256 = tc::Tiling<256, 4>;
+  using T128 = tc::Tiling<128, 2>;
+  using T64 = tc::Tiling<64, 1>;
+  using T32 = tc::Tiling<32, 1>;
+  float* H = smem;
+  float* PE = H + WIDTH * LDA;
+  float* VPE = PE + PE_PAD * LDA;                       // K2
+  float* G = VIEW_PE ? VPE + VPE_PAD * LDA : H + HEAD * LDA;
+  float* GA = VIEW_PE ? G + C * LDA : PE + PE_PAD * LDA;  // the alpha row
+  tc::Pipe pipe{VIEW_PE ? G + G_PAD * LDA : GA + LDA, 0};
+  uint32_t* masks =
+      reinterpret_cast<uint32_t*>(pipe.buf + tc::NSTAGES * tc::STAGE_FLOATS);
+  const Offsets o = offsets(C, VIEW_PE);
+  const int64_t p0 = (int64_t)blockIdx.x * TP;
+  // the cotangent tile (zero past n) into G, and to D's rows
+  auto load_g = [&](int rows) {
+    for (int e = threadIdx.x; e < rows * TP; e += THREADS) {
+      const int r = e / TP, c = e % TP;
+      const int64_t p = p0 + c;
+      const float v = (r <= C && p < n) ? __ldg(g + p * (C + 1) + r) : 0.f;
+      G[r * LDA + c] = v;
+      if (!VIEW_PE && r == C) GA[c] = v;
+    }
+    __syncthreads();
+    copy_rows(G, rows, D + (int64_t)R::D_G * n_pad, n_pad, p0);
+  };
+
+  pipe.start(fwd_src(P + o.w0, PE_ROWS, WIDTH));
+  encode_tile(pts, VIEW_PE ? view : nullptr, n, S, band, p0, PE, VPE);
+  __syncthreads();
+  copy_rows(PE, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
+  if constexpr (VIEW_PE) {
+    copy_rows(VPE, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
+    load_g(G_PAD);
+  }
+
+  // forward, keeping every activation in X and every ReLU sign in masks
+  const tc::WSrc wvpeT = bwd_src(P + o.wvpe, VPE_ROWS, HEAD);
+  const tc::WSrc wfvT = bwd_src(P + o.wfv, WIDTH, HEAD);
+  const Keep keep{X, n_pad, p0, R::X_H, R::X_F, R::X_HV, masks};
+  if constexpr (VIEW_PE) {
+    forward_tc<MODE>(P, o, PE, ViewPE{VPE}, H, pipe, &keep, [](const float*) {},
+                     &wvpeT);
+  } else {
+    forward_tc<MODE>(P, o, PE, ViewBias{view, n, p0, S}, H, pipe, &keep,
+                     [](const float*) {}, &wfvT);
+    load_g(C + 1);  // into H rows 128.. (see above)
+  }
+
+  // rgb head on CUDA cores, at the views layer's fragment positions:
+  // dhv = wrgb g_rgb, masked by hv > 0 -> D_HV and H rows 0..127 (each
+  // thread overwrites only the hv elements it wrote itself)
+  {
+    float acc[2][T128::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < T128::NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = T128::row(mt, r), c = T128::col(nt, r);
+          float s = 0.f;
+          for (int k = 0; k < C; ++k)
+            s = fmaf(__ldg(P + o.wrgb + i * C + k), G[k * LDA + c], s);
+          acc[mt][nt][r] = s;
+        }
+    dgrad_out<128>(acc, masks + DEPTH * 2 * THREADS, D, R::D_HV, n_pad, p0, H);
+  }
+  if constexpr (VIEW_PE) {
+    // view encoding: dvpe = wvpe dhv -> VPE (rows 27..31 stay 0)
+    float acc[1][T32::NT][4];
+    tc::zero(acc);
+    tc::product<MODE, 32, 1>(acc, wvpeT, H, pipe, &wfvT);
+    tc::store_tile<32>(VPE, acc);
+  }
+  float acc[4][T256::NT][4];
+  // feature: df = wfv dhv -> D_F, H
+  const tc::WSrc wfT = bwd_src(P + o.wf, WIDTH, WIDTH);
+  tc::zero(acc);
+  tc::product<MODE, 256, 4>(acc, wfvT, H, pipe, &wfT);
+  tc::store_tile_global<256>(D + (int64_t)R::D_F * n_pad, n_pad, p0, acc);
+  tc::store_tile<256>(H, acc);
+  // h7: dh = wf df + wa g_alpha, masked by h7 > 0 -> D_PRE + 7, H
+  const tc::WSrc wh7T = bwd_src(wh_ptr(P, o, DEPTH - 1), WIDTH, WIDTH);
+  tc::zero(acc);
+  tc::product<MODE, 256, 4>(acc, wfT, H, pipe, &wh7T);
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < T256::NT; ++nt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        acc[mt][nt][r] = fmaf(__ldg(P + o.wa + T256::row(mt, r)),
+                              GA[T256::col(nt, r)], acc[mt][nt][r]);
+  dgrad_out<256>(acc, masks + (DEPTH - 1) * 2 * THREADS, D,
+                 R::D_PRE + (DEPTH - 1) * WIDTH, n_pad, p0, H);
+  // trunk: dpre_{l-1} = (wh_l dpre_l) * (h_{l-1} > 0); dpe from layer SKIP
+  // (kept in PE, whose encoding X already holds) and layer 0
+  const tc::WSrc w5peT = bwd_src(P + o.w5pe, PE_ROWS, WIDTH);
+  const tc::WSrc w0T = bwd_src(P + o.w0, PE_ROWS, WIDTH);
+  float dpe[1][T64::NT][4];
+  for (int l = DEPTH - 1; l >= 1; --l) {
+    const tc::WSrc whT = bwd_src(wh_ptr(P, o, l), WIDTH, WIDTH);
+    const tc::WSrc after = l - 1 == SKIP ? w5peT
+                         : l - 1 >= 1    ? bwd_src(wh_ptr(P, o, l - 1), WIDTH, WIDTH)
+                                         : w0T;
+    if (l == SKIP) {
+      tc::zero(dpe);
+      tc::product<MODE, 64, 1>(dpe, w5peT, H, pipe, &whT);
+      tc::store_tile<64>(PE, dpe);
+    }
+    tc::zero(acc);
+    tc::product<MODE, 256, 4>(acc, whT, H, pipe, &after);
+    dgrad_out<256>(acc, masks + (l - 1) * 2 * THREADS, D,
+                   R::D_PRE + (l - 1) * WIDTH, n_pad, p0, H);
+  }
+  // layer 0: dpe += w0 dpre0 -> PE (each thread adds to its own elements)
+  tc::zero(dpe);
+  tc::product<MODE, 64, 1>(dpe, w0T, H, pipe, nullptr);
+  tc::add_tile<64>(PE, dpe);
+  __syncthreads();
+  // through sin/cos back to the inputs (K2: the points and the viewdirs)
+  if (threadIdx.x < (VIEW_PE ? 2 : 1) * TP) {
+    const bool views = threadIdx.x >= TP;
+    const int c = threadIdx.x % TP;
+    const int64_t p = p0 + c;
+    if (p < n) {
+      float dx[3];
+      if (views)
+        encode_bwd(VPE, c, L_VIEWS, band + L_PTS, view + (p / S) * 3, dx);
+      else
+        encode_bwd(PE, c, L_PTS, band, pts + p * 3, dx);
+      float* dst = (views ? dvd : dpts) + p * 3;
+      dst[0] = dx[0];
+      dst[1] = dx[1];
+      dst[2] = dx[2];
+    }
+  }
+}
+
 // ---- pass (b): weight gradients as split-K products ----------------------
 //
 // dW[i][o] = sum_p X[x_row0 + i][p] * D[d_row0 + o][p] over the points p of
-// one chunk z, written to part[z][out_off + i * O + col(o)]. Both operands
-// are feature-major, so the contraction runs along contiguous memory.
+// one chunk z, written to part[z][out_off + i * O + o] (natural column
+// order). Both operands are feature-major, so the contraction runs along
+// contiguous memory.
 
 using tc::GT;
 constexpr int MAX_JOBS = 16;
 
-// ilv = 1: the packed matrix has interleaved columns (K3/K4's layout),
-// column o at (o % 32) * (O / 32) + o / 32; 0: natural order (K1/K2's)
 struct GemmJob {
   int x_row0, I, d_row0, O, tiles_o, tile0;
   int64_t out_off;
-  int ilv;
 };
 struct GemmJobs {
   int count;
@@ -105,7 +291,6 @@ wgrad_gemm_kernel(const float* __restrict__ X, const float* __restrict__ D,
   float* dst = part + (int64_t)blockIdx.y * Ptot + J.out_off;
   const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
   const int g = lane / 4, tq = lane % 4;
-  const int ot = J.O / 32;
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
@@ -114,9 +299,7 @@ wgrad_gemm_kernel(const float* __restrict__ X, const float* __restrict__ D,
       for (int r = 0; r < 4; ++r) {
         const int i = i0 + (wid % 2) * 64 + mt * 16 + g + (r >= 2 ? 8 : 0);
         const int o = o0 + (wid / 2) * 32 + nt * 8 + 2 * tq + (r & 1);
-        if (i < J.I && o < J.O)
-          dst[(int64_t)i * J.O + (J.ilv ? (o % 32) * ot + o / 32 : o)] =
-              acc[mt][nt][r];
+        if (i < J.I && o < J.O) dst[(int64_t)i * J.O + o] = acc[mt][nt][r];
       }
 }
 
@@ -190,6 +373,39 @@ inline void number_jobs(GemmJobs* g, ThinJobs* t) {
     t->j[q].out0 = t->total;
     t->total += t->j[q].I * t->j[q].O;
   }
+}
+
+// The jobs that together cover the packed gradient vector: the matrix
+// products (K2's 12; K4 has no wvpe, the last, and takes the first 11),
+// then the biases (b, bf and K2's bv are contiguous in both the packed
+// vector and D), the alpha head, its bias, the rgb head and its bias.
+template <bool VIEW_PE>
+inline void make_jobs(int C, GemmJobs* g, ThinJobs* t) {
+  using R = Scratch<VIEW_PE>;
+  const Offsets o = offsets(C, VIEW_PE);
+  const int64_t WW = (int64_t)WIDTH * WIDTH;
+  *g = GemmJobs{VIEW_PE ? 12 : 11, {
+      {R::X_PE, PE_ROWS, R::D_PRE, WIDTH, 0, 0, o.w0},
+      {R::X_H + 0 * WIDTH, WIDTH, R::D_PRE + 1 * WIDTH, WIDTH, 0, 0, o.wh + 0 * WW},
+      {R::X_H + 1 * WIDTH, WIDTH, R::D_PRE + 2 * WIDTH, WIDTH, 0, 0, o.wh + 1 * WW},
+      {R::X_H + 2 * WIDTH, WIDTH, R::D_PRE + 3 * WIDTH, WIDTH, 0, 0, o.wh + 2 * WW},
+      {R::X_H + 3 * WIDTH, WIDTH, R::D_PRE + 4 * WIDTH, WIDTH, 0, 0, o.wh + 3 * WW},
+      {R::X_H + 4 * WIDTH, WIDTH, R::D_PRE + 5 * WIDTH, WIDTH, 0, 0, o.wh + 4 * WW},
+      {R::X_H + 5 * WIDTH, WIDTH, R::D_PRE + 6 * WIDTH, WIDTH, 0, 0, o.wh + 5 * WW},
+      {R::X_H + 6 * WIDTH, WIDTH, R::D_PRE + 7 * WIDTH, WIDTH, 0, 0, o.wh + 6 * WW},
+      {R::X_PE, PE_ROWS, R::D_PRE + SKIP * WIDTH, WIDTH, 0, 0, o.w5pe},
+      {R::X_H + (DEPTH - 1) * WIDTH, WIDTH, R::D_F, WIDTH, 0, 0, o.wf},
+      {R::X_F, WIDTH, R::D_HV, HEAD, 0, 0, o.wfv},
+      {R::X_VPE, VPE_ROWS, R::D_HV, HEAD, 0, 0, o.wvpe},
+  }};
+  *t = ThinJobs{5, 0, {
+      {-1, 1, R::D_PRE, DEPTH * WIDTH + WIDTH + (VIEW_PE ? HEAD : 0), 0, o.b},
+      {R::X_H + (DEPTH - 1) * WIDTH, WIDTH, R::D_G + C, 1, 0, o.wa},
+      {-1, 1, R::D_G + C, 1, 0, o.ba},
+      {R::X_HV, HEAD, R::D_G, C, 0, o.wrgb},
+      {-1, 1, R::D_G, C, 0, o.brgb},
+  }};
+  number_jobs(g, t);
 }
 
 inline int gemm_tiles(const GemmJobs& g) {

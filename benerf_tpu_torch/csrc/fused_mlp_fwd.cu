@@ -43,15 +43,14 @@ fwd_kernel(const float* __restrict__ pts, const float* __restrict__ vd,
   const int64_t p0 = (int64_t)blockIdx.x * TP;
 
   pipe.start(fwd_src(P + o.w0, PE_ROWS, WIDTH));  // in flight while encoding
-  encode_tile<tc::LDA>(pts, vd, n, S, band, p0, PE, VPE);
+  encode_tile(pts, vd, n, S, band, p0, PE, VPE);
   auto alpha = [&](const float* h7) {
-    head<tc::LDA>(P + o.wa, 1, 0, WIDTH, h7, __ldg(P + o.ba), out, n, p0, C, C);
+    head(P + o.wa, 1, 0, WIDTH, h7, __ldg(P + o.ba), out, n, p0, C, C);
   };
-  forward_tc<MODE>(P, o, PE, VPE, H, pipe, nullptr, alpha, nullptr);
+  forward_tc<MODE>(P, o, PE, ViewPE{VPE}, H, pipe, nullptr, alpha, nullptr);
   __syncthreads();  // hv in H rows 0..127
   for (int c = 0; c < C; ++c)
-    head<tc::LDA>(P + o.wrgb, C, c, HEAD, H, __ldg(P + o.brgb + c), out, n, p0,
-                  C, c);
+    head(P + o.wrgb, C, c, HEAD, H, __ldg(P + o.brgb + c), out, n, p0, C, c);
 }
 
 }  // namespace fmlp

@@ -1,11 +1,12 @@
-// Tensor-core layer product for K1/K2 (fused_mlp_fwd.cu, fused_mlp_bwd.cu)
-// and the tensor-core weight-gradient pass (fused_mlp_bwd_common.cuh).
+// Tensor-core layer product for K1-K4 (fused_mlp_{fwd,bwd}.cu,
+// staged_mlp_{fwd,bwd}.cu) and the tensor-core weight-gradient pass
+// (fused_mlp_bwd_common.cuh).
 //
 // out[m][p] = sum_k A[m][k] B[k][p] over a block's 64-point tile, on
 // mma.sync.aligned m16n8k8 (TF32) or m16n8k16 (BF16) with fp32 accumulators:
 //  - A is a weight matrix W (I, O), row-major in the packed vector with its
 //    columns in natural order: the forward reads A[m][k] = W[k][m] (m an
-//    output feature), the data-gradient products of K2 A[m][k] = W[m][k]
+//    output feature), the data-gradient products of K2/K4 A[m][k] = W[m][k]
 //    (m an input feature, k an output feature: no transposed copy needed);
 //  - B is an activation tile in shared memory, feature-major [k][point]
 //    with row stride LDA.

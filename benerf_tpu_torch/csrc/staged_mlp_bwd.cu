@@ -5,16 +5,21 @@
 // and the `_core` custom_vjp).
 //
 // Bound on an H100: operations. Per point it redoes K3's forward (1,179,904
-// FLOP), forms the data gradients (1x) and the weight gradients (1x); the
-// bytes it must move (pts, cotangent, d pts, the per-ray bias and its
-// gradient, and the weights and their gradients) are two orders of
-// magnitude below what HBM could move in that time.
+// FLOP), forms the data gradients (1x) and the weight gradients (1x):
+// 3 x 1,179,904 FLOP at 495 / 3 TFLOP/s in TF32X3, at 989 in BF16. The
+// bytes the function must move (pts, cotangent, d pts, the per-ray bias and
+// its gradient, the weights and their gradients) are two orders of
+// magnitude below what HBM could move in that time; the fp32 scratch below
+// (2,496 + 2,436 rows of 4 B a point each way at C = 3) is a cost of the
+// two-pass design, reported apart as K2's is.
 //
-// Design: K2's two deterministic passes (fused_mlp_bwd.cu), reshaped for
-// what K3 takes.
-//  (a) `staged_tile_kernel`: one block per 64-point tile rematerializes K3
-//      in shared memory (activation buffer, encoding, and the cotangent's
-//      C+1 rows, any C < 128: 88,128 B at C = 3, two blocks per SM), runs
+// Design: K2's two deterministic passes (fused_mlp_bwd.cu), on the same
+// template (fused_mlp_bwd_common.cuh) with the view input swapped:
+//  (a) `staged_tile_kernel`: `tile_pass<MODE, false>`, one block per
+//      64-point tile on the tensor cores in the mode of compute_dtype,
+//      TF32X3 or BF16 (operands rounded to bf16 at the fragment load, fp32
+//      in shared memory and in the scratch, heads fp32 on the CUDA cores,
+//      as K2). It rematerializes K3 with the ReLU signs kept as bits, runs
 //      the chain rule back through heads, trunk and the sin/cos encoding
 //      (L = 10, no BARF) to d pts, and stores every activation (X) and
 //      pre-activation gradient (D) of the tile to a feature-major scratch.
@@ -23,180 +28,41 @@
 //      (the views layer's pre-activation gradient, needed for wfv's
 //      gradient anyway), and the wrapper sums them over each ray's S
 //      samples, which may straddle tiles.
-//  (b) `weight_gradients` (fused_mlp_bwd_common.cuh): every weight gradient
-//      as a split-K product over fixed point chunks (K2's tensor-core pass
-//      in TF32X3 mode, writing K4's interleaved columns) and an in-order
-//      sum of the partials. The TPU kernel adds each grid step's tile into one
-//      VMEM output in grid order; Hopper blocks run concurrently, so no
-//      block adds into another's result and no atomics are used: split
-//      count changes the result only by the rounding of a reordered sum.
+//      Shared memory: the cotangent has C + 1 rows, up to 128, where K2's
+//      has at most 8, and K2's layout leaves 768 B free. Rather than drop a
+//      weight stage or build a second instantiation for large C, K4 loads
+//      its cotangent after the forward into rows 128..255 of the activation
+//      buffer H, which hold nothing once hv sits in rows 0..127, and keeps
+//      the alpha row, which the backward reads after the feature product
+//      has overwritten H, in one row of its own: 220,448 B for every C,
+//      all three weight stages kept, one block of 8 warps per SM.
+//  (b) `weight_gradients`: every weight gradient as a split-K product over
+//      fixed point chunks (the shared tensor-core GEMM in the same mode,
+//      natural column order) and an in-order sum of the partials. The TPU
+//      kernel adds each grid step's tile into one VMEM output in grid
+//      order; Hopper blocks run concurrently, so no block adds into
+//      another's result and no atomics are used: split count changes the
+//      result only by the rounding of a reordered sum.
 // Padded points carry a zero cotangent, so they add nothing to any sum and
-// the last partial tile's gradients are kept. The tile pass is fp32 on
-// CUDA cores.
+// the last partial tile's gradients are kept.
 
 #include "fused_mlp_bwd_common.cuh"
 
 namespace fmlp {
 
-// rows of the activation scratch X
-constexpr int SX_PE = 0;
-constexpr int SX_H = SX_PE + PE_PAD;          // h0..h7
-constexpr int SX_F = SX_H + DEPTH * WIDTH;
-constexpr int SX_HV = SX_F + WIDTH;
-constexpr int SX_ROWS = SX_HV + HEAD;         // 2496
-// rows of the gradient scratch D: then C + 1 cotangent rows (rgb..., alpha)
-constexpr int SD_PRE = 0;                     // d pre-activation, layers 0..7
-constexpr int SD_F = SD_PRE + DEPTH * WIDTH;
-constexpr int SD_HV = SD_F + WIDTH;           // d vb per point
-constexpr int SD_G = SD_HV + HEAD;
+using K4Rows = Scratch<false>;
+constexpr size_t STAGED_TILE_SMEM = tile_smem_bytes<false>();  // 220,448
 
-inline size_t staged_tile_smem(int C) {
-  return (size_t)(WIDTH + PE_PAD + C + 1) * LDA * sizeof(float);
-}
-
-__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+template <tc::Mode MODE>
+__global__ void __launch_bounds__(THREADS, 1)
 staged_tile_kernel(const float* __restrict__ pts, const float* __restrict__ vb,
                    int64_t n, int S, const float* __restrict__ P,
-                   const float* __restrict__ PTr, const float* __restrict__ g,
-                   int C, int64_t n_pad, float* __restrict__ X,
-                   float* __restrict__ D, float* __restrict__ dpts) {
+                   const float* __restrict__ g, int C, int64_t n_pad,
+                   float* __restrict__ X, float* __restrict__ D,
+                   float* __restrict__ dpts) {
   extern __shared__ float4 smem4[];
-  float* H = reinterpret_cast<float*>(smem4);
-  float* PE = H + WIDTH * LDA;
-  float* G = PE + PE_PAD * LDA;
-  const Offsets o = offsets(C, false);
-  const TOffsets to = toffsets(C, false);
-  const int og = threadIdx.x % 32, pg = threadIdx.x / 32;
-  const int64_t p0 = (int64_t)blockIdx.x * TP;
-
-  // inputs: the encoding and the cotangent tile (zero past n)
-  encode_tile(pts, nullptr, n, S, nullptr, p0, PE, nullptr);
-  for (int e = threadIdx.x; e < (C + 1) * TP; e += THREADS) {
-    const int r = e / TP, c = e % TP;
-    const int64_t p = p0 + c;
-    G[r * LDA + c] = p < n ? __ldg(g + p * (C + 1) + r) : 0.f;
-  }
-  __syncthreads();
-  copy_rows(PE, PE_PAD, X + (int64_t)SX_PE * n_pad, n_pad, p0);
-  copy_rows(G, C + 1, D + (int64_t)SD_G * n_pad, n_pad, p0);
-
-  // forward, keeping every activation in X
-  trunk_forward(P, o, PE, H, X, n_pad, SX_H, p0);            // h7 in H
-  feature_layer(P, o, H, X, n_pad, SX_F, p0);                // f in H
-  __syncthreads();
-  views_layer_vb(P, o, H, vb, n, S, p0, X, n_pad, SX_HV);    // hv in H rows 0..127
-  __syncthreads();
-
-  // Backward, one buffer as in the forward: each step reads H into
-  // registers, waits for every thread, then overwrites H. PE takes d pe;
-  // only the owning thread reads or writes those elements.
-  // rgb head: dhv = wrgb g_rgb, masked by hv > 0 (the thread's own elements)
-  {
-    float acc[4][PT];
-    zero_acc(acc);
-    mm_acc<4>(acc, PTr + to.wrgbT, HEAD, C, G, og, pg);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int j = 0; j < PT; ++j)
-        if (H[(og + 32 * k) * LDA + pg * PT + j] <= 0.f) acc[k][j] = 0.f;
-    store_smem<4>(H, acc, og, pg);
-    store_global<4>(D + (int64_t)SD_HV * n_pad, n_pad, p0, acc, og, pg);
-  }
-  __syncthreads();
-  // feature: df = wfv dhv -> H
-  {
-    float acc[8][PT];
-    zero_acc(acc);
-    mm_acc<8>(acc, PTr + to.wfvT, WIDTH, HEAD, H, og, pg);
-    __syncthreads();
-    store_smem<8>(H, acc, og, pg);
-    store_global<8>(D + (int64_t)SD_F * n_pad, n_pad, p0, acc, og, pg);
-  }
-  __syncthreads();
-  // h7: dh = wf df + wa g_alpha, masked by h7 > 0 -> H
-  {
-    float acc[8][PT];
-    zero_acc(acc);
-    mm_acc<8>(acc, PTr + to.wfT, WIDTH, WIDTH, H, og, pg);
-    mm_acc<8>(acc, PTr + to.waT, WIDTH, 1, G + C * LDA, og, pg);
-    relu_mask_global<8>(acc, X, n_pad, SX_H + (DEPTH - 1) * WIDTH, p0, og, pg);
-    __syncthreads();
-    store_smem<8>(H, acc, og, pg);
-    store_global<8>(D + (int64_t)(SD_PRE + (DEPTH - 1) * WIDTH) * n_pad, n_pad,
-                    p0, acc, og, pg);
-  }
-  __syncthreads();
-  // trunk: dpre_{l-1} = (wh_l dpre_l) * (h_{l-1} > 0); dpe from layer SKIP
-  for (int l = DEPTH - 1; l >= 1; --l) {
-    if (l == SKIP) {
-      float acc[2][PT];
-      zero_acc(acc);
-      mm_acc<2>(acc, PTr + to.w5peT, PE_PAD, WIDTH, H, og, pg);
-      store_smem<2>(PE, acc, og, pg);
-    }
-    float acc[8][PT];
-    zero_acc(acc);
-    mm_acc<8>(acc, PTr + to.whT + (int64_t)(l - 1) * WIDTH * WIDTH, WIDTH,
-              WIDTH, H, og, pg);
-    relu_mask_global<8>(acc, X, n_pad, SX_H + (l - 1) * WIDTH, p0, og, pg);
-    __syncthreads();
-    store_smem<8>(H, acc, og, pg);
-    store_global<8>(D + (int64_t)(SD_PRE + (l - 1) * WIDTH) * n_pad, n_pad, p0,
-                    acc, og, pg);
-    __syncthreads();
-  }
-  // layer 0: dpe += w0 dpre0 (dpre0 in H); each thread owns its PE entries
-  {
-    float acc[2][PT];
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-#pragma unroll
-      for (int j = 0; j < PT; ++j) acc[k][j] = PE[(og + 32 * k) * LDA + pg * PT + j];
-    mm_acc<2>(acc, PTr + to.w0T, PE_PAD, WIDTH, H, og, pg);
-    store_smem<2>(PE, acc, og, pg);
-  }
-  __syncthreads();
-  // through sin/cos back to the points
-  if (threadIdx.x < TP) {
-    const int64_t p = p0 + threadIdx.x;
-    if (p < n) {
-      float dx[3];
-      encode_bwd(PE, threadIdx.x, L_PTS, nullptr, pts + p * 3, dx);
-      dpts[p * 3] = dx[0];
-      dpts[p * 3 + 1] = dx[1];
-      dpts[p * 3 + 2] = dx[2];
-    }
-  }
-}
-
-// The jobs that together cover K3/K4's packed gradient vector: the 11
-// matrix products, then the biases (b, bf are contiguous in both the packed
-// vector and D), the alpha head, its bias, the rgb head and its bias.
-inline void make_staged_jobs(int C, GemmJobs* g, ThinJobs* t) {
-  const Offsets o = offsets(C, false);
-  const int64_t WW = (int64_t)WIDTH * WIDTH;
-  *g = GemmJobs{11, {
-      {SX_PE, PE_ROWS, SD_PRE, WIDTH, 0, 0, o.w0, 1},
-      {SX_H + 0 * WIDTH, WIDTH, SD_PRE + 1 * WIDTH, WIDTH, 0, 0, o.wh + 0 * WW, 1},
-      {SX_H + 1 * WIDTH, WIDTH, SD_PRE + 2 * WIDTH, WIDTH, 0, 0, o.wh + 1 * WW, 1},
-      {SX_H + 2 * WIDTH, WIDTH, SD_PRE + 3 * WIDTH, WIDTH, 0, 0, o.wh + 2 * WW, 1},
-      {SX_H + 3 * WIDTH, WIDTH, SD_PRE + 4 * WIDTH, WIDTH, 0, 0, o.wh + 3 * WW, 1},
-      {SX_H + 4 * WIDTH, WIDTH, SD_PRE + 5 * WIDTH, WIDTH, 0, 0, o.wh + 4 * WW, 1},
-      {SX_H + 5 * WIDTH, WIDTH, SD_PRE + 6 * WIDTH, WIDTH, 0, 0, o.wh + 5 * WW, 1},
-      {SX_H + 6 * WIDTH, WIDTH, SD_PRE + 7 * WIDTH, WIDTH, 0, 0, o.wh + 6 * WW, 1},
-      {SX_PE, PE_ROWS, SD_PRE + SKIP * WIDTH, WIDTH, 0, 0, o.w5pe, 1},
-      {SX_H + (DEPTH - 1) * WIDTH, WIDTH, SD_F, WIDTH, 0, 0, o.wf, 1},
-      {SX_F, WIDTH, SD_HV, HEAD, 0, 0, o.wfv, 1},
-  }};
-  *t = ThinJobs{5, 0, {
-      {-1, 1, SD_PRE, DEPTH * WIDTH + WIDTH, 0, o.b},  // b, bf
-      {SX_H + (DEPTH - 1) * WIDTH, WIDTH, SD_G + C, 1, 0, o.wa},
-      {-1, 1, SD_G + C, 1, 0, o.ba},
-      {SX_HV, HEAD, SD_G, C, 0, o.wrgb},
-      {-1, 1, SD_G, C, 0, o.brgb},
-  }};
-  number_jobs(g, t);
+  tile_pass<MODE, false>(pts, vb, n, S, P, nullptr, g, C, n_pad, X, D, dpts,
+                         nullptr, reinterpret_cast<float*>(smem4));
 }
 
 }  // namespace fmlp
@@ -207,43 +73,41 @@ extern "C" {
 // (feature-major, row stride n_pad), and the first row of D holding d vb
 // per point (128 rows)
 void staged_mlp_bwd_scratch(int64_t n_pad, int C, int64_t* out) {
-  out[0] = (int64_t)fmlp::SX_ROWS * n_pad;
-  out[1] = (int64_t)(fmlp::SD_G + C + 1) * n_pad;
-  out[2] = fmlp::SD_HV;
+  out[0] = (int64_t)fmlp::K4Rows::X_ROWS * n_pad;
+  out[1] = (int64_t)(fmlp::K4Rows::D_G + C + 1) * n_pad;
+  out[2] = fmlp::K4Rows::D_HV;
 }
 
-// 9 offsets of K4's transposed weight vector, in the order of
-// fmlp::TOffsets (wvpeT empty)
-void staged_mlp_tlayout(int C, int64_t* out) {
-  const fmlp::TOffsets o = fmlp::toffsets(C, false);
-  const int64_t v[9] = {o.whT, o.w0T, o.w5peT, o.wfT, o.wfvT,
-                        o.wvpeT, o.waT, o.wrgbT, o.total};
-  for (int i = 0; i < 9; ++i) out[i] = v[i];
-}
-
-// g (n, C+1) cotangent -> dP (packed layout), dpts (n, 3); d vb per point
-// is left in D's rows staged_mlp_bwd_scratch()[2] ..+128. n_pad = n rounded
-// up to 64; X, D scratch as sized above; part holds splits * (packed size)
-// partial sums.
+// g (n, C+1) cotangent -> dP (packed layout, natural column order), dpts
+// (n, 3); d vb per point is left in D's rows staged_mlp_bwd_scratch()[2]
+// ..+128. n_pad = n rounded up to 64; X, D scratch as sized above; part
+// holds splits * (packed size) partial sums; mode: 0 TF32X3, 1 BF16.
 int staged_mlp_bwd(const float* pts, const float* vb, int64_t n, int S,
-                   const float* P, const float* PTr, const float* g, int C,
-                   int64_t n_pad, float* X, float* D, float* dpts, float* part,
-                   int splits, float* dP, cudaStream_t stream) {
-  const size_t smem = fmlp::staged_tile_smem(C);
-  cudaFuncSetAttribute(fmlp::staged_tile_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  fmlp::staged_tile_kernel<<<(unsigned)(n_pad / fmlp::TP), fmlp::THREADS, smem,
-                             stream>>>(pts, vb, n, S, P, PTr, g, C, n_pad, X, D,
-                                       dpts);
+                   const float* P, const float* g, int C, int64_t n_pad,
+                   float* X, float* D, float* dpts, float* part, int splits,
+                   float* dP, int mode, cudaStream_t stream) {
+  const int smem = (int)fmlp::STAGED_TILE_SMEM;
+  const unsigned blocks = (unsigned)(n_pad / fmlp::TP);
+  if (mode == tc::TF32X3) {
+    cudaFuncSetAttribute(fmlp::staged_tile_kernel<tc::TF32X3>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fmlp::staged_tile_kernel<tc::TF32X3><<<blocks, fmlp::THREADS, smem, stream>>>(
+        pts, vb, n, S, P, g, C, n_pad, X, D, dpts);
+  } else {
+    cudaFuncSetAttribute(fmlp::staged_tile_kernel<tc::BF16>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    fmlp::staged_tile_kernel<tc::BF16><<<blocks, fmlp::THREADS, smem, stream>>>(
+        pts, vb, n, S, P, g, C, n_pad, X, D, dpts);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   fmlp::GemmJobs gj;
   fmlp::ThinJobs tj;
-  fmlp::make_staged_jobs(C, &gj, &tj);
+  fmlp::make_jobs<false>(C, &gj, &tj);
   return fmlp::weight_gradients(X, D, n_pad, splits,
                                 fmlp::offsets(C, false).total, gj, tj, part,
-                                dP, tc::TF32X3, stream);
+                                dP, mode, stream);
 }
 
 }  // extern "C"

@@ -30,10 +30,12 @@ class SceneData:
     gt_plane_depth: Optional[float] = None  # dominant scene depth
 
 
-def random_scene(cfg, n_events: int, seed: int = 0, device="cpu") -> SceneData:
+def random_scene(cfg, n_events: int, seed: int = 0, device=None) -> SceneData:
     """A scene of the config's image and event sizes made from a seed:
     `n_events` events of random pixel, time and polarity, and a random
-    blurry image (the JAX package's bench.py scene). No ground truth."""
+    blurry image (the JAX package's bench.py scene). No ground truth.
+    device: where the events live (None: the card, see
+    events.prepare)."""
     rng = np.random.default_rng(seed)
     events = events_mod.prepare(
         rng.integers(0, cfg.event_width, n_events),

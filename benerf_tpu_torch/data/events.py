@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from benerf_tpu_torch import resolve_device
+
 
 class EventArrays(NamedTuple):
     """Device-resident, time-sorted event stream (normalized ts in [0,1])."""
@@ -28,10 +30,11 @@ class EventArrays(NamedTuple):
         return self.pix_idx.shape[0]
 
 
-def prepare(x, y, ts, pol, width: int, device="cpu",
+def prepare(x, y, ts, pol, width: int, device=None,
             dtype=torch.float32) -> EventArrays:
-    """Host-side: sort by time, flatten pixels, move to `device`. ts must
-    already be in [0,1]."""
+    """Host-side: sort by time, flatten pixels, move to `device` (None: the
+    card, see resolve_device). ts must already be in [0,1]."""
+    device = resolve_device(device)
     ts = np.asarray(ts)
     order = np.argsort(ts, kind="stable")
     pix = np.asarray(y).astype(np.int64) * width + np.asarray(x).astype(np.int64)
@@ -103,12 +106,15 @@ def window_cap(ts_sorted, window_len: float, *, grid: int = 4096,
 
 
 def sample_time_window(generator, window_len: float,
-                       random_placement: bool = True, device="cpu"):
-    """Window [low, low+window_len] on the unit interval, as 0-d tensors.
+                       random_placement: bool = True, device=None):
+    """Window [low, low+window_len] on the unit interval, as 0-d tensors on
+    `device` (None: the generator's).
 
     random_placement: low ~ U(0, 1-window_len); else low = k*window_len with
     k ~ U{0..(1-w)//w - 1} (reference model/nerf.py:165-169).
     """
+    if device is None:
+        device = generator.device
     if random_placement:
         low = torch.rand((), generator=generator, device=device) * (1.0 - window_len)
     else:

@@ -22,17 +22,14 @@ weights, compute_dtype "float32" or "bfloat16"; pts (R, S, 3), viewdirs
 The build and load of every kernel library of the port (K1-K4) live here.
 
 Weights are packed into one flat vector (`_layout`), each matrix in its
-(fan_in, fan_out) orientation; K1/K2 read it with natural column order
-(`interleaved=False`), and their backward reads the same vector for its
-data-gradient products. The staged pair K3/K4 (ops/staged_mlp.py) uses the
-same layout without the view-encoding entries (view_pe=False) and with the
-columns of the matrices its CUDA-core layer product reads interleaved
-(`interleave`), so that the 8 (4, 2) outputs one thread owns, o = og + 32
-k, sit side by side and load as float4s; K4 also gets a transposed copy
-(`_tlayout`). The packing is differentiable (views and torch.cat), so the
-kernel's flat gradient, written in the same layout, flows back to each
-parameter. The BARF band weights get no gradient: they are step functions
-of the iteration counter.
+(fan_in, fan_out) orientation with its columns in natural order; every
+kernel reads it as it is: the forward products A[o][i] = W[i][o], the
+backward's data-gradient products A[i][o] = W[i][o] from the same vector
+(no transposed copy). The staged pair K3/K4 (ops/staged_mlp.py) uses the
+same layout without the view-encoding entries (view_pe=False). The packing
+is differentiable (views and torch.cat), so the kernel's flat gradient,
+written in the same layout, flows back to each parameter. The BARF band
+weights get no gradient: they are step functions of the iteration counter.
 """
 
 from __future__ import annotations
@@ -48,7 +45,6 @@ import time
 from pathlib import Path
 
 import torch
-import torch.nn.functional as F
 
 from benerf_tpu_torch.models import nerf as nerf_mod
 
@@ -87,9 +83,9 @@ _libs: dict = {}
 
 def _layout(C, view_pe=True):
     """(name, shape) of the packed weight vector, in order (mirrors
-    fmlp::Offsets in csrc/fused_mlp_common.cuh); `_INTERLEAVED` names hold
-    interleaved columns. view_pe=False (K3/K4): the view-encoding weights
-    and their bias are empty; the per-ray view bias comes in instead."""
+    fmlp::Offsets in csrc/fused_mlp_common.cuh). view_pe=False (K3/K4): the
+    view-encoding weights and their bias are empty; the per-ray view bias
+    comes in instead."""
     return [
         ("w0", (63, WIDTH)), ("wh", (DEPTH - 1, WIDTH, WIDTH)),
         ("w5pe", (63, WIDTH)), ("wf", (WIDTH, WIDTH)), ("wfv", (WIDTH, HEAD)),
@@ -99,38 +95,12 @@ def _layout(C, view_pe=True):
     ]
 
 
-def _tlayout(C, view_pe=True):
-    """(name, shape) of K4's transposed weight vector
-    (fmlp::TOffsets): matrix (I, O) stored (O, I padded to a multiple of 4),
-    columns interleaved."""
-    return [
-        ("whT", (DEPTH - 1, WIDTH, WIDTH)), ("w0T", (WIDTH, 64)),
-        ("w5peT", (WIDTH, 64)), ("wfT", (WIDTH, WIDTH)), ("wfvT", (HEAD, WIDTH)),
-        ("wvpeT", (HEAD, 32 if view_pe else 0)), ("waT", (1, WIDTH)),
-        ("wrgbT", (C, HEAD)),
-    ]
-
-
 def _offsets(layout):
     offs, o = [], 0
     for _, shape in layout:
         offs.append(o)
         o += math.prod(shape)
     return offs + [o]
-
-
-def interleave(m):
-    """(..., 32 * T) columns o = og + 32 k -> position og * T + k."""
-    return m.unflatten(-1, (m.shape[-1] // 32, 32)).transpose(-1, -2).flatten(-2)
-
-
-def deinterleave(m):
-    """Inverse of `interleave`."""
-    return m.unflatten(-1, (32, m.shape[-1] // 32)).transpose(-1, -2).flatten(-2)
-
-
-# packed matrices the layer product reads (interleaved columns)
-_INTERLEAVED = ("w0", "wh", "w5pe", "wf", "wfv", "wvpe")
 
 
 def supports(params) -> bool:
@@ -147,20 +117,17 @@ def supports(params) -> bool:
         return False
 
 
-def pack_params(params, view_pe=True, interleaved=True):
+def pack_params(params, view_pe=True):
     """Parameter dict -> flat packed vector (differentiable); view_pe as
-    for `_layout`; interleaved: the `_INTERLEAVED` matrices' columns
-    interleaved (K3/K4) or in natural order (K1/K2)."""
+    for `_layout`."""
     p = params["pts"]
     views = params["views"]
-    il = interleave if interleaved else (lambda m: m)
     parts = [
-        il(p[0]["w"]),
-        il(torch.stack([p[l]["w_h"] if l == SKIP_LAYER else p[l]["w"]
-                        for l in range(1, DEPTH)])),
-        il(p[SKIP_LAYER]["w_pe"]), il(params["feature"]["w"]),
-        il(views["w_feat"]),
-        *([il(views["w_pe"])] if view_pe else []),
+        p[0]["w"],
+        torch.stack([p[l]["w_h"] if l == SKIP_LAYER else p[l]["w"]
+                     for l in range(1, DEPTH)]),
+        p[SKIP_LAYER]["w_pe"], params["feature"]["w"], views["w_feat"],
+        *([views["w_pe"]] if view_pe else []),
         torch.stack([p[l]["b"] for l in range(DEPTH)]),
         params["feature"]["b"], *([views["b"]] if view_pe else []),
         params["alpha"]["w"], params["alpha"]["b"], params["rgb"]["w"],
@@ -169,29 +136,12 @@ def pack_params(params, view_pe=True, interleaved=True):
     return torch.cat([x.reshape(-1) for x in parts])
 
 
-def unpack(flat, C, view_pe=True, interleaved=True):
-    """Flat packed vector -> {name: tensor} per `_layout`, columns in their
-    natural order; `interleaved` as the vector was packed."""
+def unpack(flat, C, view_pe=True):
+    """Flat packed vector -> {name: tensor view} per `_layout`."""
     layout = _layout(C, view_pe)
     offs = _offsets(layout)
-    out = {name: flat[offs[i]:offs[i + 1]].view(shape)
-           for i, (name, shape) in enumerate(layout)}
-    return {k: deinterleave(v) if interleaved and k in _INTERLEAVED else v
-            for k, v in out.items()}
-
-
-def pack_transposed(packed, C, view_pe=True):
-    """K4's transposed weight vector from the interleaved packed one (no
-    gradient): each matrix transposed, its rows zero-padded to a multiple
-    of 4, its columns interleaved."""
-    v = unpack(packed.detach(), C, view_pe)
-    parts = [
-        v["wh"].transpose(1, 2), F.pad(v["w0"].t(), (0, 1)),
-        F.pad(v["w5pe"].t(), (0, 1)), v["wf"].t(), v["wfv"].t(),
-        F.pad(v["wvpe"].t(), (0, 5 if view_pe else 0)), v["wa"].t(),
-        v["wrgb"].t(),
-    ]
-    return torch.cat([interleave(x).reshape(-1) for x in parts])
+    return {name: flat[offs[i]:offs[i + 1]].view(shape)
+            for i, (name, shape) in enumerate(layout)}
 
 
 def band_weights(barf_weights, barf_weights_views, device):
@@ -276,21 +226,20 @@ _API = {
         "fused_mlp_wgrad": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
         "fused_mlp_bwd_scratch": ([_I64, _P], None)},
     "staged_mlp_fwd": {
-        "staged_mlp_fwd": ([_P, _P, _I64, _I, _P, _I, _P, _P], _I),
+        "staged_mlp_fwd": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
         "staged_mlp_layout": ([_I, _P], None)},
     "staged_mlp_bwd": {
-        "staged_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P, _P,
-                            _P, _I, _P, _P], _I),
-        "staged_mlp_bwd_scratch": ([_I64, _I, _P], None),
-        "staged_mlp_tlayout": ([_I, _P], None)},
+        "staged_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _I, _I64, _P, _P, _P,
+                            _P, _I, _P, _I, _P], _I),
+        "staged_mlp_bwd_scratch": ([_I64, _I, _P], None)},
 }
 # the layout each library reports, checked against the Python one at load:
-# name -> (C function, layout function, view_pe). K2 reads K1's layout, from
-# the same header (fmlp::offsets), so K1's library reports it for both.
+# name -> (C function, view_pe). K2 and K4 read the layouts of K1 and K3,
+# from the same header (fmlp::offsets), so K1's and K3's libraries report
+# them for both.
 _LAYOUT_OF = {
-    "fused_mlp_fwd": ("fused_mlp_layout", _layout, True),
-    "staged_mlp_fwd": ("staged_mlp_layout", _layout, False),
-    "staged_mlp_bwd": ("staged_mlp_tlayout", _tlayout, False),
+    "fused_mlp_fwd": ("fused_mlp_layout", True),
+    "staged_mlp_fwd": ("staged_mlp_layout", False),
 }
 
 
@@ -304,9 +253,9 @@ def _lib(name):
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     if name in _LAYOUT_OF:
-        fn, layout, view_pe = _LAYOUT_OF[name]
-        for C in (1, 3, 8):
-            _check_layout(getattr(lib, fn), layout(C, view_pe), C)
+        fn, view_pe = _LAYOUT_OF[name]
+        for C in (1, 3, 8, 127):
+            _check_layout(getattr(lib, fn), _layout(C, view_pe), C)
     _libs[name] = lib
     return lib
 
@@ -345,8 +294,7 @@ def _mode(compute_dtype):
 
 
 def launch_fwd(packed, pts, vd, band, S, C, compute_dtype="float32"):
-    """K1: pts (n, 3), vd (n / S, 3) -> raw (n, C+1); packed in natural
-    column order."""
+    """K1: pts (n, 3), vd (n / S, 3) -> raw (n, C+1)."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
     if n == 0 or n % S:
@@ -377,7 +325,7 @@ def bwd_scratch(n, device):
 def launch_bwd(packed, pts, vd, band, g, S, C, splits=DEFAULT_SPLITS,
                compute_dtype="float32"):
     """K2: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d vd per point
-    (n, 3)); packed and d packed in natural column order."""
+    (n, 3))."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
     _check("packed", packed, (_offsets(_layout(C))[-1],))
@@ -464,11 +412,11 @@ def fused_nerf_mlp(params, pts, viewdirs, *, num_freqs=10, num_freqs_views=4,
 
 def _fused(params, pts, viewdirs, barf_weights, barf_weights_views, splits,
            compute_dtype):
-    """The card path: the packing (natural column order), the band weights,
-    K1 and (through autograd) K2."""
+    """The card path: the packing, the band weights, K1 and (through
+    autograd) K2."""
     R, S, _ = pts.shape
     C = params["rgb"]["w"].shape[1]
-    packed = pack_params(params, interleaved=False)
+    packed = pack_params(params)
     band = band_weights(barf_weights, barf_weights_views, pts.device)
     out = _FusedMLP.apply(packed, pts.reshape(R * S, 3).contiguous(),
                           viewdirs.contiguous(), band, S, C, splits,

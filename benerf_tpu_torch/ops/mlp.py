@@ -7,9 +7,7 @@ ops/mlp.py:67-82):
   - "fused": K1/K2 (ops/fused_mlp.py), the standard architecture at 10/4
     frequencies, BARF allowed, compute_dtype "float32" or "bfloat16";
   - "staged": K3/K4 (ops/staged_mlp.py), the standard trunk with any view
-    encoding, BARF off, fp32 only: compute_dtype "bfloat16" raises
-    NotImplementedError there until K3/K4 move onto the tensor cores
-    (ROADMAP Queue 1);
+    encoding, BARF off, compute_dtype "float32" or "bfloat16";
   - "plain": models/nerf.apply, every other architecture (other widths or
     depths, no viewdirs, BARF with a view encoding other than 27 rows),
     where the JAX package runs plain XLA too; counted in ROUTES["plain"].
@@ -63,15 +61,9 @@ def mlp_forward(
                 compute_dtype=compute_dtype,
             )
         if which == "staged":
-            if compute_dtype != "float32":
-                raise NotImplementedError(
-                    f"compute_dtype={compute_dtype!r} on the staged route: "
-                    "K3/K4 are fp32 on CUDA cores; their bf16 mode comes "
-                    "with their move onto the tensor cores (ROADMAP Queue 1 "
-                    "item 1)")
             return staged_mlp.staged_nerf_mlp(
                 params, pts, viewdirs, num_freqs=num_freqs,
-                num_freqs_views=num_freqs_views,
+                num_freqs_views=num_freqs_views, compute_dtype=compute_dtype,
             )
         ROUTES["plain"] += 1
     cd = None if compute_dtype == "float32" else torch.bfloat16

@@ -8,10 +8,14 @@ torch.autograd.Function. Each .cu file's header says what bounds it and how
 its design answers that.
 
 Contract of `staged_nerf_mlp` (the JAX function's): the standard 8x256
-trunk with viewdirs, any view-encoding width, C + 1 <= 128, no BARF;
-pts (R, S, 3), viewdirs (R, 3) -> raw (R, S, C+1).
-  - CPU tensors take the plain PyTorch version, models/nerf.apply;
-  - CUDA float32 tensors launch the kernels;
+trunk with viewdirs, any view-encoding width, C + 1 <= 128, no BARF,
+compute_dtype "float32" or "bfloat16"; pts (R, S, 3), viewdirs (R, 3) ->
+raw (R, S, C+1).
+  - CPU tensors take the plain PyTorch version, models/nerf.apply (bf16
+    operands for "bfloat16");
+  - CUDA float32 tensors launch the kernels, on the tensor cores as K1/K2:
+    "float32" in their TF32X3 mode, "bfloat16" in their BF16 mode (bf16
+    operands, fp32 accumulation, as the JAX kernel);
   - anything outside the contract raises ValueError on either device,
     including a point encoding whose width does not match w0's 63 rows
     (the JAX kernel pads the encoding by 64 - 63 columns whatever its
@@ -20,10 +24,14 @@ pts (R, S, 3), viewdirs (R, 3) -> raw (R, S, C+1).
 As in the JAX function, the view branch's own input is a plain product
 outside the kernels: vb = vpe @ views.w_pe + views.b, one (128,) row per
 ray, so autograd carries its gradient to views.w_pe, views.b and the
-viewdirs. The kernels read vb per ray (the JAX kernel reads a per-point
-copy). The packing holds the JAX `pack_params` groups (w0, wh, w5pe, b, wa,
-wf, bf, wfv, wrgb and the head bias hb as ba, brgb) in K1's layout without
-the view-encoding entries: `fused_mlp.pack_params(params, view_pe=False)`.
+viewdirs. In bf16 mode its operands are rounded to bf16 with fp32
+accumulation, as K1 treats its view-encoding product (the JAX function
+rounds the finished vb instead; both sit well inside the bf16 bounds,
+tests/test_torch_tc_mlp.py). The kernels read vb per ray (the JAX kernel
+reads a per-point copy). The packing holds the JAX `pack_params` groups
+(w0, wh, w5pe, b, wa, wf, bf, wfv, wrgb and the head bias hb as ba, brgb)
+in K1's layout without the view-encoding entries:
+`fused_mlp.pack_params(params, view_pe=False)`.
 """
 
 from __future__ import annotations
@@ -37,11 +45,13 @@ from benerf_tpu_torch.models import nerf as nerf_mod
 from benerf_tpu_torch.ops import fused_mlp
 from benerf_tpu_torch.ops.fused_mlp import (DEFAULT_SPLITS, DEPTH, HEAD,
                                             SKIP_LAYER, TILE, WIDTH, _check,
-                                            _layout, _lib, _offsets, _ptr,
-                                            _stream)
+                                            _layout, _lib, _mode, _offsets,
+                                            _ptr, _stream, launch_key)
 
-# launches on the card, one per wrapper call that launched its kernel(s)
-LAUNCHES = {"staged_mlp_fwd": 0, "staged_mlp_bwd": 0}
+# launches on the card, one per wrapper call that launched its kernel(s),
+# by mode as fused_mlp.LAUNCHES
+LAUNCHES = {"staged_mlp_fwd": 0, "staged_mlp_bwd": 0,
+            "staged_mlp_fwd_bf16": 0, "staged_mlp_bwd_bf16": 0}
 
 
 def supports(params) -> bool:
@@ -58,8 +68,9 @@ def supports(params) -> bool:
         return False
 
 
-def launch_fwd(packed, pts, vb, S, C):
+def launch_fwd(packed, pts, vb, S, C, compute_dtype="float32"):
     """K3: pts (n, 3), per-ray view bias vb (n / S, 128) -> raw (n, C+1)."""
+    mode = _mode(compute_dtype)
     n = pts.shape[0]
     if n == 0 or n % S:
         raise ValueError(f"point count {n} is not a positive multiple of S={S}")
@@ -71,16 +82,18 @@ def launch_fwd(packed, pts, vb, S, C):
     lib = _lib("staged_mlp_fwd")
     out = torch.empty((n, C + 1), device=pts.device, dtype=torch.float32)
     rc = lib.staged_mlp_fwd(_ptr(pts), _ptr(vb), n, S, _ptr(packed), C,
-                            _ptr(out), _stream())
+                            _ptr(out), mode, _stream())
     if rc:
         raise RuntimeError(f"staged_mlp_fwd: CUDA error {rc}")
-    LAUNCHES["staged_mlp_fwd"] += 1
+    LAUNCHES[launch_key("staged_mlp_fwd", compute_dtype)] += 1
     return out
 
 
-def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS):
+def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
+               compute_dtype="float32"):
     """K4: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d vb (n / S,
     128))."""
+    mode = _mode(compute_dtype)
     n = pts.shape[0]
     R = n // S
     _check("packed", packed, (_offsets(_layout(C, False))[-1],))
@@ -94,19 +107,18 @@ def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS):
     n_pad = -(-n // TILE) * TILE
     sizes = (ctypes.c_int64 * 3)()
     lib.staged_mlp_bwd_scratch(n_pad, C, sizes)
-    ptr_ = fused_mlp.pack_transposed(packed, C, view_pe=False).contiguous()
     x_scr = torch.empty(sizes[0], device=dev)
     d_scr = torch.empty(sizes[1], device=dev)
     part = torch.empty((splits, packed.numel()), device=dev)
     dpacked = torch.empty_like(packed)
     dpts = torch.empty((n, 3), device=dev)
     rc = lib.staged_mlp_bwd(
-        _ptr(pts), _ptr(vb), n, S, _ptr(packed), _ptr(ptr_), _ptr(g), C, n_pad,
+        _ptr(pts), _ptr(vb), n, S, _ptr(packed), _ptr(g), C, n_pad,
         _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(part), splits,
-        _ptr(dpacked), _stream())
+        _ptr(dpacked), mode, _stream())
     if rc:
         raise RuntimeError(f"staged_mlp_bwd: CUDA error {rc}")
-    LAUNCHES["staged_mlp_bwd"] += 1
+    LAUNCHES[launch_key("staged_mlp_bwd", compute_dtype)] += 1
     # K4 leaves d vb per point in the scratch's rows [sizes[2], +128); a
     # ray's bias is broadcast over its S samples: sum them
     dvb_pt = d_scr.view(-1, n_pad)[sizes[2]:sizes[2] + HEAD, :n]
@@ -116,24 +128,25 @@ def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS):
 
 class _StagedMLP(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, packed, pts, vb, S, C, splits):
+    def forward(ctx, packed, pts, vb, S, C, splits, compute_dtype):
         ctx.save_for_backward(packed, pts, vb)
-        ctx.S, ctx.C, ctx.splits = S, C, splits
-        return launch_fwd(packed, pts, vb, S, C)
+        ctx.S, ctx.C, ctx.splits, ctx.cd = S, C, splits, compute_dtype
+        return launch_fwd(packed, pts, vb, S, C, compute_dtype)
 
     @staticmethod
     def backward(ctx, g):
         packed, pts, vb = ctx.saved_tensors
         dpacked, dpts, dvb = launch_bwd(packed, pts, vb, g.contiguous(), ctx.S,
-                                        ctx.C, ctx.splits)
-        return dpacked, dpts, dvb, None, None, None
+                                        ctx.C, ctx.splits, ctx.cd)
+        return dpacked, dpts, dvb, None, None, None, None
 
 
 def staged_nerf_mlp(params, pts, viewdirs, *, num_freqs=10, num_freqs_views=4,
-                    splits=DEFAULT_SPLITS):
+                    splits=DEFAULT_SPLITS, compute_dtype="float32"):
     """Drop-in replacement for models.nerf.apply on the standard trunk with
     viewdirs, any view encoding, no BARF. pts: (R, S, 3); viewdirs: (R, 3).
     On the CPU this is the plain version, nerf.apply."""
+    _mode(compute_dtype)
     if viewdirs is None or not supports(params):
         raise ValueError("staged_nerf_mlp takes the 8x256 trunk with viewdirs "
                          f"and C + 1 <= {HEAD}; ops/mlp.route picks the "
@@ -144,19 +157,30 @@ def staged_nerf_mlp(params, pts, viewdirs, *, num_freqs=10, num_freqs_views=4,
             f"num_freqs={num_freqs} encodes {3 + 6 * num_freqs} channels but "
             f"w0 has {rows} rows")
     if pts.device.type == "cpu":
-        return nerf_mod.apply(params, pts, viewdirs, num_freqs=num_freqs,
-                              num_freqs_views=num_freqs_views)
-    return _staged(params, pts, viewdirs, num_freqs_views, splits)
+        return nerf_mod.apply(
+            params, pts, viewdirs, num_freqs=num_freqs,
+            num_freqs_views=num_freqs_views,
+            compute_dtype=None if compute_dtype == "float32" else torch.bfloat16)
+    return _staged(params, pts, viewdirs, num_freqs_views, splits, compute_dtype)
 
 
-def _staged(params, pts, viewdirs, num_freqs_views, splits):
+def view_bias(params, viewdirs, num_freqs_views, compute_dtype="float32"):
+    """The per-ray view bias vb (R, 128) = vpe @ views.w_pe + views.b, the
+    product's operands rounded to bf16 in bf16 mode (fp32 accumulation)."""
+    vpe = embedder.positional_encoding(viewdirs, num_freqs_views)
+    w = params["views"]["w_pe"]
+    if compute_dtype == "bfloat16":
+        vpe, w = (t.to(torch.bfloat16).to(torch.float32) for t in (vpe, w))
+    return vpe @ w + params["views"]["b"]
+
+
+def _staged(params, pts, viewdirs, num_freqs_views, splits, compute_dtype):
     """The card path: the per-ray view bias, the packing, K3 and (through
     autograd) K4."""
     R, S, _ = pts.shape
     C = params["rgb"]["w"].shape[1]
-    vpe = embedder.positional_encoding(viewdirs, num_freqs_views)
-    vb = vpe @ params["views"]["w_pe"] + params["views"]["b"]  # (R, 128)
+    vb = view_bias(params, viewdirs, num_freqs_views, compute_dtype)
     packed = fused_mlp.pack_params(params, view_pe=False)
     out = _StagedMLP.apply(packed, pts.reshape(R * S, 3).contiguous(),
-                           vb.contiguous(), S, C, splits)
+                           vb.contiguous(), S, C, splits, compute_dtype)
     return out.view(R, S, C + 1)

@@ -24,15 +24,20 @@ an exception):
   4. the same slice with compute_dtype = "bfloat16" for BF16_ITERS
      iterations, every MLP call through K1/K2 in bf16 mode;
   5. K3/K4 against their plain version (a view encoding of L = 6, 39 rows)
-     at both training n and at ragged n, C in {1, 3, 8}; K4 at two split
-     counts; times beside the bound;
+     at both training n and at ragged n, C in {1, 3, 8, 127} (C + 1 = 128
+     fills the head space), as phase 2 holds K1/K2: fp32 mode (TF32X3)
+     against fp32 nerf.apply, bf16 mode against nerf.apply with bf16
+     operands and float64; K4 at two split counts; times of both modes
+     beside their bounds;
   6. the L = 6 slice: tanabata with multires_views = 6 and caller-built
      MLPs, L6_ITERS train steps through make_train_step on the same scene,
-     every MLP call through K3/K4;
-  7. the card routes: a width-128 MLP and one without viewdirs take the
-     plain route (as in the JAX package); bf16 runs K1/K2 on the fused
-     route and raises on the staged one;
-  8. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
+     every MLP call through K3/K4 in fp32 mode;
+  7. the same L = 6 slice with compute_dtype = "bfloat16" for BF16_ITERS
+     steps, every MLP call through K3/K4 in bf16 mode;
+  8. the card routes: a width-128 MLP and one without viewdirs take the
+     plain route (as in the JAX package); bf16 runs K1 on the fused route
+     and K3 on the staged one, each in its bf16 mode;
+  9. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -74,8 +79,14 @@ TC_PEAK = {"float32": 495e12 / 3,   # TF32X3: three TF32 products a FLOP
 MODE_NAME = {"float32": "tf32x3", "bfloat16": "bf16"}
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
 # K2's fp32 scratch a point, each way: a cost of its two-pass design, not of
-# the function, so outside its bound (reported as scratch_floor_ms)
+# the function, so outside its bound (reported as scratch_floor_ms); K4's
+# has no view-encoding rows and C + 1 cotangent rows
 K2_SCRATCH_B = (2528 + 2440) * 4
+
+
+def k4_scratch_bytes(C):
+    return (2496 + 2432 + C + 1) * 4
+
 # (I, O) of the matrix products of K2's weight-gradient pass: w0, wh x 7,
 # w5pe, wf, wfv, wvpe
 WGRAD_SHAPES = ([(63, 256)] + [(256, 256)] * 7 + [(63, 256), (256, 256),
@@ -138,7 +149,8 @@ def _barf_kw(bw, bwv):
 
 
 def check_fwd(torch, which, R, S, C, barf, seed=0):
-    """K1 or K3 (fp32) vs nerf.apply on the card -> (max abs err, scale)."""
+    """K1 or K3 (fp32 mode) vs nerf.apply on the card -> (max abs err,
+    scale)."""
     from benerf_tpu_torch.models import nerf
 
     op, views_ch, kw = _pair(which)
@@ -232,45 +244,45 @@ def _rms_rel(a, b):
                  / b.double().pow(2).mean().sqrt().clamp_min(1e-30))
 
 
-def check_bf16(torch, R, S, C, barf, seed=0):
-    """K1/K2 in bf16 mode. Forward: vs nerf.apply with bf16 operands within
+def check_bf16(torch, which, R, S, C, barf, seed=0):
+    """K1/K2 or K3/K4 in bf16 mode. Forward: vs nerf.apply with bf16 operands within
     BF16_FWD_TOL x scale. Gradients of sum(sin(out)): finite; the weight
     gradients' worst err/scale and the per-point gradients' RMS error, each
     against a float64 run of nerf.apply, between BF16_GRAD_FLOOR and
     BF16_GRAD_FACTOR times the plain bf16 version's. -> (fwd err/scale, weight-grad distances to f64
     (kernel, plain), per-point RMS distances (kernel, plain))."""
     from benerf_tpu_torch.models import nerf
-    from benerf_tpu_torch.ops import fused_mlp
 
-    params, pts, vd, bw, bwv = _inputs(torch, R, S, C, seed, barf)
-    kw = _barf_kw(bw, bwv)
+    op, views_ch, kw = _pair(which)
+    fwd, bwd = which.split("/")
+    params, pts, vd, bw, bwv = _inputs(torch, R, S, C, seed, barf, views_ch)
+    barf_kw = _barf_kw(bw, bwv)
+    kw = {**kw, **barf_kw}
     with torch.no_grad():
-        out_k = fused_mlp.fused_nerf_mlp(params, pts, vd, compute_dtype="bfloat16",
-                                         **kw)
+        out_k = op(params, pts, vd, compute_dtype="bfloat16", **kw)
         out_p = nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     err, scale = _max_err(out_k, out_p)
-    gk = _grads(torch, fused_mlp.fused_nerf_mlp, params, pts, vd,
-                compute_dtype="bfloat16", **kw)
+    gk = _grads(torch, op, params, pts, vd, compute_dtype="bfloat16", **kw)
     gp = _grads(torch, nerf.apply, params, pts, vd,
                 compute_dtype=torch.bfloat16, **kw)
     g64 = _grads(torch, nerf.apply, _f64(torch, params), pts.double(),
-                 vd.double(), **{k: v.double() for k, v in kw.items()})
+                 vd.double(), **{**kw, **{k: v.double() for k, v in barf_kw.items()}})
     torch.cuda.synchronize()
     n_w = len(g64) - 2
     wk, wp = _dist(gk[:n_w], g64[:n_w]), _dist(gp[:n_w], g64[:n_w])
     pk = max(_rms_rel(a, b) for a, b in zip(gk[n_w:], g64[n_w:]))
     pp = max(_rms_rel(a, b) for a, b in zip(gp[n_w:], g64[n_w:]))
-    print(f"  K1/K2 bf16 R={R} S={S} C={C} barf={barf}: fwd err/scale "
+    print(f"  {which} bf16 R={R} S={S} C={C} barf={barf}: fwd err/scale "
           f"{err / scale:.3e} (tol {BF16_FWD_TOL}); to float64: weight grads "
           f"{wk:.3e} (plain bf16 {wp:.3e}), per-point RMS {pk:.3e} (plain "
           f"{pp:.3e}); factor limits [{BF16_GRAD_FLOOR}, {BF16_GRAD_FACTOR}]")
     if not err <= BF16_FWD_TOL * scale:
-        raise AssertionError(f"K1 bf16 disagrees with the plain version: {err}")
+        raise AssertionError(f"{fwd} bf16 disagrees with the plain version: {err}")
     if not all(bool(torch.isfinite(g).all()) for g in gk):
-        raise AssertionError("K2 bf16: non-finite gradients")
+        raise AssertionError(f"{bwd} bf16: non-finite gradients")
     if not (BF16_GRAD_FLOOR * wp <= wk <= BF16_GRAD_FACTOR * wp
             and BF16_GRAD_FLOOR * pp <= pk <= BF16_GRAD_FACTOR * pp):
-        raise AssertionError(f"K2 bf16 gradients' distance to float64 not that "
+        raise AssertionError(f"{bwd} bf16 gradients' distance to float64 not that "
                              f"of bf16 operands: {wk} vs {wp}, {pk} vs {pp}")
     wabs = max(float((a.double() - b).abs().max())
                for a, b in zip(gk[:n_w], g64[:n_w]))
@@ -319,7 +331,7 @@ def time_kernels(torch, S, C=3, compute_dtype="float32"):
     params, pts, vd, _, _ = _inputs(torch, RAYS, S, C, 1, False)
     n = RAYS * S
     cd = None if compute_dtype == "float32" else torch.bfloat16
-    packed = fused_mlp.pack_params(params, interleaved=False).contiguous()
+    packed = fused_mlp.pack_params(params).contiguous()
     band = fused_mlp.band_weights(None, None, "cuda")
     x = pts.reshape(n, 3).contiguous()
     g = torch.randn((n, C + 1), device="cuda")
@@ -378,17 +390,20 @@ def time_wgrad(torch, S, C=3, compute_dtype="float32"):
     return k, times[0], times[1]
 
 
-def time_staged_kernels(torch, S, C=3):
+def time_staged_kernels(torch, S, C=3, compute_dtype="float32"):
     """(K3 ms, plain fwd ms, K4 ms, plain fwd+bwd ms) at n = RAYS * S, view
-    encoding L = 6; the per-ray view bias is made outside, as on the path."""
-    from benerf_tpu_torch.models import bridge, embedder, nerf
+    encoding L = 6, in the kernels' mode for `compute_dtype`; the plain
+    version runs in it too. The per-ray view bias is made outside, as on
+    the path."""
+    from benerf_tpu_torch.models import bridge, nerf
     from benerf_tpu_torch.ops import fused_mlp, staged_mlp
 
     params, pts, vd, _, _ = _inputs(torch, RAYS, S, C, 1, False, views_ch=39)
     n = RAYS * S
+    cd = None if compute_dtype == "float32" else torch.bfloat16
     packed = fused_mlp.pack_params(params, view_pe=False).contiguous()
-    vb = (embedder.positional_encoding(vd, 6) @ params["views"]["w_pe"]
-          + params["views"]["b"]).contiguous()
+    with torch.no_grad():
+        vb = staged_mlp.view_bias(params, vd, 6, compute_dtype).contiguous()
     x = pts.reshape(n, 3).contiguous()
     g = torch.randn((n, C + 1), device="cuda")
     wrt = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
@@ -396,14 +411,17 @@ def time_staged_kernels(torch, S, C=3):
 
     def plain_fwd():
         with torch.no_grad():
-            nerf.apply(params, pts, vd, num_freqs_views=6)
+            nerf.apply(params, pts, vd, num_freqs_views=6, compute_dtype=cd)
 
     def plain_fwd_bwd():
-        out = nerf.apply(params, pts, vd, num_freqs_views=6).reshape(n, C + 1)
+        out = nerf.apply(params, pts, vd, num_freqs_views=6,
+                         compute_dtype=cd).reshape(n, C + 1)
         torch.autograd.grad(out, wrt, g)
 
-    k3 = time_ms(torch, lambda: staged_mlp.launch_fwd(packed, x, vb, S, C))
-    k4 = time_ms(torch, lambda: staged_mlp.launch_bwd(packed, x, vb, g, S, C))
+    k3 = time_ms(torch, lambda: staged_mlp.launch_fwd(packed, x, vb, S, C,
+                                                      compute_dtype))
+    k4 = time_ms(torch, lambda: staged_mlp.launch_bwd(
+        packed, x, vb, g, S, C, compute_dtype=compute_dtype))
     p1 = time_ms(torch, plain_fwd)
     p2 = time_ms(torch, plain_fwd_bwd)
     return k3, p1, k4, p2
@@ -471,18 +489,20 @@ def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
     return 1e3 * RAYS / steady, steady, launches, wall
 
 
-def run_l6_slice(torch, scene):
+def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32"):
     """tanabata with multires_views = 6: both NeRFs built by the caller with
-    39 view-encoding rows, L6_ITERS steps of make_train_step (one host sync
-    per step, as the train loop) -> (ms/iter, rays/s, launch counts,
-    losses)."""
+    39 view-encoding rows, `iters` steps of make_train_step (one host sync
+    per step, as the train loop) with the MLPs in `compute_dtype`, the
+    first L6_WARMUP untimed -> (ms/iter, rays/s, launch counts, losses)."""
     from benerf_tpu_torch.core.config import load_config
     from benerf_tpu_torch.data import events as events_util
     from benerf_tpu_torch.models import bridge, nerf
+    from benerf_tpu_torch.ops import staged_mlp
     from benerf_tpu_torch.train import loop
     from benerf_tpu_torch.train import step as step_mod
 
-    cfg = dataclasses.replace(load_config(str(TANABATA)), multires_views=6)
+    cfg = dataclasses.replace(load_config(str(TANABATA)), multires_views=6,
+                              compute_dtype=compute_dtype)
     if cfg.event_time_window and cfg.event_window_cap == 0:  # as loop.train
         cfg = dataclasses.replace(cfg, event_window_cap=events_util.window_cap(
             scene.events.ts.cpu().numpy(), cfg.accumulate_time_length))
@@ -502,36 +522,28 @@ def run_l6_slice(torch, scene):
 
     losses = []
     reset_counts()
-    for i in range(L6_ITERS):
+    for i in range(iters):
         if i == L6_WARMUP:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         state, metrics = step_fn(state, batch, cfg.seed)
         losses.append(metrics["loss"].item())
     torch.cuda.synchronize()
-    ms_iter = 1e3 * (time.perf_counter() - t0) / (L6_ITERS - L6_WARMUP)
+    ms_iter = 1e3 * (time.perf_counter() - t0) / (iters - L6_WARMUP)
     launches = counts()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"losses not all finite: {losses}")
-    expect_counts(launches, L6_ITERS, ("staged_mlp_fwd", "staged_mlp_bwd"))
-    print(f"  {L6_ITERS} iterations; losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
+    expect_counts(launches, iters, tuple(staged_mlp.launch_key(k, compute_dtype)
+                                         for k in ("staged_mlp_fwd", "staged_mlp_bwd")))
+    print(f"  {iters} iterations; losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
           f"launches {launches}")
     return ms_iter, 1e3 * RAYS / ms_iter, launches, losses
 
 
-def _raises(exc, fn):
-    """Whether fn() raises `exc` (any other exception propagates)."""
-    try:
-        fn()
-    except exc:
-        return True
-    return False
-
-
 def check_routes(torch):
     """Routes on the card: the plain route where the JAX package has no
-    kernel (counted, no kernel launched); bf16 on the fused route launches
-    K1 in bf16 mode, on the staged route it raises."""
+    kernel (counted, no kernel launched); bf16 launches K1 in bf16 mode on
+    the fused route and K3 in bf16 mode on the staged one."""
     from benerf_tpu_torch.models import nerf
     from benerf_tpu_torch.ops import mlp
 
@@ -558,10 +570,13 @@ def check_routes(torch):
     if bf != want or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"bf16 on the fused route: counts {bf}, expected {want}")
     print(f"  fused route: bf16 runs K1 in bf16 mode, counts {bf}")
-    if not _raises(NotImplementedError, lambda: mlp.mlp_forward(
-            l6, pts, vd, compute_dtype="bfloat16", num_freqs_views=6)):
-        raise AssertionError("bf16 on the staged route did not raise")
-    print("  staged route: bf16 raises NotImplementedError")
+    reset_counts()
+    out = mlp.mlp_forward(l6, pts, vd, compute_dtype="bfloat16", num_freqs_views=6)
+    bf = counts()
+    want = {k: 1 if k == "staged_mlp_fwd_bf16" else 0 for k in bf}
+    if bf != want or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"bf16 on the staged route: counts {bf}, expected {want}")
+    print(f"  staged route: bf16 runs K3 in bf16 mode, counts {bf}")
     print(f"  width 128 and no viewdirs: plain route, counts {got}")
 
 
@@ -620,37 +635,42 @@ def _per_n_fused(torch, compute_dtype, C=3):
     return out
 
 
-def _per_n_staged(torch, C=3):
-    """K3/K4 at both training n: forward bytes are pts, the per-ray view
-    bias, the outputs and the weights; backward adds the cotangent, d pts,
-    the bias gradient and the weight gradients. K3 and K4's tile pass are
-    fp32 on CUDA cores; K4's weight gradients run on the tensor cores in
-    TF32X3: K4's bound is 2x the forward's FLOP at FP32_PEAK plus 1x at the
-    TF32X3 rate."""
+def _per_n_staged(torch, compute_dtype, C=3):
+    """K3/K4 in one mode at both training n: times, plain times, bounds.
+    Forward bytes are pts, the per-ray view bias, the outputs and the
+    weights; backward adds the cotangent, d pts, the bias gradient and the
+    weight gradients. Operations: 1x (K3) and 3x (K4) the forward's FLOP,
+    at the tensor-core rate of the mode, with the fp32 CUDA-core bound
+    beside it. K4's fp32 scratch (k4_scratch_bytes a point each way) is its
+    design's own floor (bwd_scratch_floor_ms), as K2's."""
     from benerf_tpu_torch.ops import fused_mlp
 
     flops_pt = flops_fwd_per_point(views_ch=0)
     weights = fused_mlp._offsets(fused_mlp._layout(C, view_pe=False))[-1]
+    peak = TC_PEAK[compute_dtype]
     out = {}
     for S in (64, 128):
         n = RAYS * S
-        kf, pf, kb, pb = time_staged_kernels(torch, S, C)
+        n_pad = -(-n // fused_mlp.TILE) * fused_mlp.TILE
+        kf, pf, kb, pb = time_staged_kernels(torch, S, C, compute_dtype)
         view = RAYS * 128
         bytes_f = (n * (3 + C + 1) + view + weights) * 4
         bytes_b = bytes_f + (n * (C + 1 + 3) + view + weights) * 4
         flops = flops_pt * n
         d = dict(fwd_ms=kf, fwd_plain_ms=pf, bwd_ms=kb, bwd_plain_ms=pb,
                  fwd_fp32_core_bound_ms=flops / FP32_PEAK * 1e3,
-                 bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3)
-        d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, FP32_PEAK, bytes_f)
-        t_ops = 2 * flops / FP32_PEAK + flops / TC_PEAK["float32"]
-        t_bytes = bytes_b / HBM_BYTES_S
-        d["bwd_bound_ms"] = max(t_ops, t_bytes) * 1e3
-        d["bwd_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+                 bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3,
+                 bwd_scratch_floor_ms=2 * k4_scratch_bytes(C) * n_pad
+                 / HBM_BYTES_S * 1e3)
+        d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
+        d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
         out[n] = d
-        print(f"  n={n}: fwd {kf:.3f} ms (plain {pf:.3f}, bound "
-              f"{d['fwd_bound_ms']:.3f}), bwd {kb:.3f} ms (plain fwd+bwd "
-              f"{pb:.3f}, bound {d['bwd_bound_ms']:.3f})")
+        print(f"  {MODE_NAME[compute_dtype]} n={n}: K3 {kf:.3f} ms (plain "
+              f"{pf:.3f}, bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
+              f"{d['fwd_fp32_core_bound_ms']:.3f}); K4 {kb:.3f} ms (plain "
+              f"fwd+bwd {pb:.3f}, bound {d['bwd_bound_ms']:.3f} "
+              f"{d['bwd_bound_by']}, fp32-core {d['bwd_fp32_core_bound_ms']:.3f}, "
+              f"scratch floor {d['bwd_scratch_floor_ms']:.3f})")
     return out
 
 
@@ -722,10 +742,11 @@ def main():
     # split-count independence on the fine shape: splits 32 (default) vs 7
     check_splits(torch, "K1/K2", g32, 1e-4)
     print("    bf16 mode vs nerf.apply with bf16 operands and vs float64")
-    bf = {RAYS * S: check_bf16(torch, RAYS, S, 3, False) for S in (64, 128)}
+    bf = {RAYS * S: check_bf16(torch, "K1/K2", RAYS, S, 3, False)
+          for S in (64, 128)}
     for R, S in ((5, 64), (3, 37)):
         for C in (1, 3, 7):
-            check_bf16(torch, R, S, C, True)
+            check_bf16(torch, "K1/K2", R, S, C, True)
     k12 = {cd: _per_n_fused(torch, cd) for cd in ("float32", "bfloat16")}
 
     # 3. the tanabata slice, fp32 mode
@@ -744,12 +765,13 @@ def main():
     print(f"  last {LOG_EVERY} iterations: {bf_ms:.2f} ms/iter, "
           f"{bf_rays_s:,.0f} rays/s on {smi}")
 
-    # 5. K3/K4 vs plain, view encoding L = 6
-    print("[5] K3/K4 vs plain PyTorch (fp32, TF32 off, view encoding L = 6)")
+    # 5. K3/K4 vs plain, view encoding L = 6, both modes
+    print("[5] K3/K4 vs plain PyTorch (view encoding L = 6; fp32 mode: "
+          "TF32X3 vs fp32, TF32 off)")
     k3_err = {RAYS * S: check_fwd(torch, "K3/K4", RAYS, S, 3, False)
               for S in (64, 128)}
     for R, S in ((5, 64), (3, 37)):
-        for C in (1, 3, 8):
+        for C in (1, 3, 8, 127):
             check_fwd(torch, "K3/K4", R, S, C, False)
     k4_err, k4_outside = {}, {}
     for S, seed in ((64, 0), (128, 2)):
@@ -757,22 +779,36 @@ def main():
             torch, "K3/K4", RAYS, S, 3, False, seed=seed)
         k4_err[RAYS * S] = (err, rel)
     for R, S in ((5, 64), (3, 37)):
-        for C in (1, 3, 8):
+        for C in (1, 3, 8, 127):
             check_bwd(torch, "K3/K4", R, S, C, False)
     check_splits(torch, "K3/K4", g32, 1e-5)
-    k34 = _per_n_staged(torch)
+    print("    bf16 mode vs nerf.apply with bf16 operands and vs float64")
+    bf34 = {RAYS * S: check_bf16(torch, "K3/K4", RAYS, S, 3, False)
+            for S in (64, 128)}
+    for R, S in ((5, 64), (3, 37)):
+        for C in (1, 3, 8, 127):
+            check_bf16(torch, "K3/K4", R, S, C, False)
+    k34 = {cd: _per_n_staged(torch, cd) for cd in ("float32", "bfloat16")}
 
-    # 6. the L = 6 slice
+    # 6. the L = 6 slice, fp32 mode
     print(f"[6] tanabata, multires_views = 6, full width, {L6_ITERS} iterations")
     l6_ms, l6_rays_s, l6_launches, _ = run_l6_slice(torch, scene)
     print(f"  steady state: {l6_ms:.2f} ms/iter, {l6_rays_s:,.0f} rays/s "
           f"({RAYS} rays/iter, last {L6_ITERS - L6_WARMUP} iterations) on {smi}")
 
-    # 7. routes on the card
-    print("[7] MLP routes on the card")
+    # 7. the L = 6 slice, bf16 mode
+    print(f"[7] tanabata, multires_views = 6, full width, {BF16_ITERS} "
+          "iterations, compute_dtype = bfloat16")
+    l6bf_ms, l6bf_rays_s, l6bf_launches, _ = run_l6_slice(
+        torch, scene, BF16_ITERS, "bfloat16")
+    print(f"  steady state: {l6bf_ms:.2f} ms/iter, {l6bf_rays_s:,.0f} rays/s "
+          f"(last {BF16_ITERS - L6_WARMUP} iterations) on {smi}")
+
+    # 8. routes on the card
+    print("[8] MLP routes on the card")
     check_routes(torch)
 
-    # 8. results
+    # 9. results
     fwd_tol = f"{FWD_TOL} x max(|plain|, 1)"
     bwd_tol = (f"{GRAD_TOL} x max(|plain grad|, 1) per gradient; per-point "
                f"grads: at most {KINK_FRAC} of elements past it (ReLU kinks)")
@@ -785,11 +821,18 @@ def main():
     k3_err = {n: (e, e / s) for n, (e, s) in k3_err.items()}
     k1_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf.items()}
     k2_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf.items()}
+    k3_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf34.items()}
+    k4_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf34.items()}
     scratch = {"scratch_floor_ms": k12["float32"][RAYS * 128]["bwd_scratch_floor_ms"]}
+    scratch4 = {"scratch_floor_ms": k34["float32"][RAYS * 128]["bwd_scratch_floor_ms"]}
     fwd_src, bwd_src = ("benerf_tpu_torch/csrc/fused_mlp_fwd.cu",
                         "benerf_tpu_torch/csrc/fused_mlp_bwd.cu")
     k1_rep = "benerf_tpu/ops/pallas_mlp_t.py:244 _fwd_kernel_t"
     k2_rep = "benerf_tpu/ops/pallas_mlp_t.py:257 _bwd_kernel_t"
+    k3_src, k4_src = ("benerf_tpu_torch/csrc/staged_mlp_fwd.cu",
+                      "benerf_tpu_torch/csrc/staged_mlp_bwd.cu")
+    k3_rep = "benerf_tpu/ops/pallas_mlp.py:155 _fwd_kernel"
+    k4_rep = "benerf_tpu/ops/pallas_mlp.py:174 _bwd_kernel"
     kernels = [
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "tf32x3",
                      launches["fused_mlp_fwd"], k1_err, fwd_tol, k12["float32"],
@@ -806,14 +849,21 @@ def main():
                      bf_launches["fused_mlp_bwd_bf16"], k2_bf, bf_bwd_tol,
                      k12["bfloat16"], "bwd", bf16_vs_float64={str(n): d for n, d in bf.items()},
                      weight_gradient_pass=_wgrad_line(k12["bfloat16"]), **scratch),
-        _kernel_line("K3 staged_mlp_fwd", "benerf_tpu_torch/csrc/staged_mlp_fwd.cu",
-                     "benerf_tpu/ops/pallas_mlp.py:155 _fwd_kernel", "fp32",
-                     l6_launches["staged_mlp_fwd"], k3_err, fwd_tol, k34, "fwd"),
-        _kernel_line("K4 staged_mlp_bwd", "benerf_tpu_torch/csrc/staged_mlp_bwd.cu",
-                     "benerf_tpu/ops/pallas_mlp.py:174 _bwd_kernel",
-                     "fp32 tile pass, tf32x3 weight gradients",
-                     l6_launches["staged_mlp_bwd"], k4_err, bwd_tol, k34, "bwd",
-                     pointwise_outside_tol={str(n): v for n, v in k4_outside.items()}),
+        _kernel_line("K3 staged_mlp_fwd", k3_src, k3_rep, "tf32x3",
+                     l6_launches["staged_mlp_fwd"], k3_err, fwd_tol,
+                     k34["float32"], "fwd"),
+        _kernel_line("K3 staged_mlp_fwd", k3_src, k3_rep, "bf16",
+                     l6bf_launches["staged_mlp_fwd_bf16"], k3_bf, bf_fwd_tol,
+                     k34["bfloat16"], "fwd"),
+        _kernel_line("K4 staged_mlp_bwd", k4_src, k4_rep, "tf32x3",
+                     l6_launches["staged_mlp_bwd"], k4_err, bwd_tol,
+                     k34["float32"], "bwd",
+                     pointwise_outside_tol={str(n): v for n, v in k4_outside.items()},
+                     **scratch4),
+        _kernel_line("K4 staged_mlp_bwd", k4_src, k4_rep, "bf16",
+                     l6bf_launches["staged_mlp_bwd_bf16"], k4_bf, bf_bwd_tol,
+                     k34["bfloat16"], "bwd",
+                     bf16_vs_float64={str(n): d for n, d in bf34.items()}, **scratch4),
     ]
     print(json.dumps({"kernels": kernels, "slices": {
         "tanabata": {"ms_per_iter": ms_iter, "rays_per_sec": rays_s,
@@ -822,7 +872,10 @@ def main():
                           "iters": BF16_ITERS, "launches": bf_launches},
         "tanabata_multires_views_6": {
             "ms_per_iter": l6_ms, "rays_per_sec": l6_rays_s,
-            "iters": L6_ITERS, "launches": l6_launches}}}))
+            "iters": L6_ITERS, "launches": l6_launches},
+        "tanabata_multires_views_6_bf16": {
+            "ms_per_iter": l6bf_ms, "rays_per_sec": l6bf_rays_s,
+            "iters": BF16_ITERS, "launches": l6bf_launches}}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

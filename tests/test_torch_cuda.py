@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1/K2 (both modes) and K3/K4 on the card, against
+"""The port's CUDA kernels K1/K2 and K3/K4 (both modes) on the card, against
 the plain PyTorch version (models/nerf.apply), and the MLP dispatcher's
 card routes. CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
@@ -126,11 +126,13 @@ def test_weight_gradients_do_not_depend_on_the_split_count(card, a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-5 * scale)
 
 
-@pytest.mark.parametrize("C", [1, 3, 8])
-def test_staged_kernels_match_plain_at_a_ragged_size(card, C):
-    """K3/K4 with a view encoding of L = 6 at 3 x 37 points: a ray's
-    samples straddle tiles and the last tile is ragged."""
-    params, pts, vd, _ = _inputs(3, 37, C, False, seed=C, views_ch=39)
+@pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
+@pytest.mark.parametrize("C", [1, 3, 8, 127])
+def test_staged_kernels_match_plain_at_a_ragged_size(card, C, R, S):
+    """K3/K4 in fp32 mode (TF32X3) with a view encoding of L = 6. At 3 x 37
+    a ray's samples straddle tiles and the last tile is ragged; C = 127 is
+    the widest head space they take (C + 1 <= 128)."""
+    params, pts, vd, _ = _inputs(R, S, C, False, seed=C, views_ch=39)
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
     x, v = pts.requires_grad_(True), vd.requires_grad_(True)
     before = dict(staged_mlp.LAUNCHES)
@@ -145,7 +147,34 @@ def test_staged_kernels_match_plain_at_a_ragged_size(card, C):
     for a, b in zip(grads_k, grads_p):
         scale = max(b.abs().max().item(), 1.0)
         torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * scale)
-    assert grads_k[-2][-1].abs().sum() > 0  # the ragged tile's points
+    assert grads_k[-2][-1].abs().sum() > 0  # the last tile's points
+
+
+@pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
+@pytest.mark.parametrize("C", [1, 3, 8, 127])
+def test_staged_bf16_kernels_match_plain_at_a_ragged_size(card, C, R, S):
+    """K3/K4 in bf16 mode, held as K1/K2's bf16 mode is: the forward within
+    2e-2 x scale of nerf.apply with bf16 operands; gradients finite and no
+    farther from a float64 run than twice the plain bf16 version's
+    distance."""
+    params, pts, vd, _ = _inputs(R, S, C, False, seed=C, views_ch=39)
+    kw = dict(num_freqs_views=6)
+    before = dict(staged_mlp.LAUNCHES)
+    with torch.no_grad():
+        out_k = staged_mlp.staged_nerf_mlp(params, pts, vd, compute_dtype="bfloat16", **kw)
+        out_p = nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16, **kw)
+    scale = max(out_p.abs().max().item(), 1.0)
+    torch.testing.assert_close(out_k, out_p, rtol=0, atol=2e-2 * scale)
+    gk = _grads(staged_mlp.staged_nerf_mlp, params, pts, vd, compute_dtype="bfloat16", **kw)
+    assert staged_mlp.LAUNCHES["staged_mlp_fwd_bf16"] == before["staged_mlp_fwd_bf16"] + 2
+    assert staged_mlp.LAUNCHES["staged_mlp_bwd_bf16"] == before["staged_mlp_bwd_bf16"] + 1
+    assert staged_mlp.LAUNCHES["staged_mlp_fwd"] == before["staged_mlp_fwd"]
+    gp = _grads(nerf.apply, params, pts, vd, compute_dtype=torch.bfloat16, **kw)
+    g64 = _grads(nerf.apply, bridge.tree_map(lambda t: t.double(), params),
+                 pts.double(), vd.double(), **kw)
+    assert all(bool(torch.isfinite(g).all()) for g in gk)
+    assert _dist(gk[:-2], g64[:-2]) <= 2.0 * _dist(gp[:-2], g64[:-2])
+    assert gk[-2][-1].abs().sum() > 0  # the last tile's points
 
 
 def test_staged_weight_gradients_do_not_depend_on_the_split_count(card):
@@ -164,8 +193,8 @@ def test_staged_weight_gradients_do_not_depend_on_the_split_count(card):
 
 def test_card_path_raises_where_the_kernel_does_not_apply(card):
     """A kernel route or the plain route where the JAX package has no
-    kernel; bf16 runs K1/K2 in their bf16 mode on the fused route and raises
-    on the staged one; an encoding that does not match w0 raises."""
+    kernel; bf16 runs K1/K2 and K3/K4 in their bf16 mode; an encoding that
+    does not match w0 raises."""
     params, pts, vd, _ = _inputs(2, 8, 3, False)
     before = fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"]
     out = mlp_ops.mlp_forward(params, pts, vd, compute_dtype="bfloat16")
@@ -174,8 +203,12 @@ def test_card_path_raises_where_the_kernel_does_not_apply(card):
         out, nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16), rtol=0,
         atol=2e-2 * max(out.abs().max().item(), 1.0))
     l6, _, _, _ = _inputs(2, 8, 3, False, views_ch=39)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlp_ops.mlp_forward(l6, pts, vd, num_freqs_views=6, compute_dtype="bfloat16")
+    before = staged_mlp.LAUNCHES["staged_mlp_fwd_bf16"]
+    out = mlp_ops.mlp_forward(l6, pts, vd, num_freqs_views=6, compute_dtype="bfloat16")
+    assert staged_mlp.LAUNCHES["staged_mlp_fwd_bf16"] == before + 1
+    torch.testing.assert_close(
+        out, nerf.apply(l6, pts, vd, num_freqs_views=6, compute_dtype=torch.bfloat16),
+        rtol=0, atol=2e-2 * max(out.abs().max().item(), 1.0))
     with pytest.raises(ValueError):
         mlp_ops.mlp_forward(params, pts, vd, num_freqs=6)
     narrow, pts, vd, _ = _inputs(2, 8, 3, False, width=64)

@@ -3,8 +3,11 @@ oracle `accumulate_events_numpy`.
 
 Both ETA paths are covered: the full-stream mask and the `cap` path that
 takes a fixed number of events from the window start (start clamped to
-N - cap) and reports how many events a too-small cap dropped.
+N - cap) and reports how many events a too-small cap dropped. The scene
+entry points put their events on the card unless asked for the CPU.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +28,7 @@ def _random_events(n=5000, seed=0):
 
 def _both(seed=0, n=5000):
     x, y, ts, pol = _random_events(n, seed)
-    return (x, y, ts, pol), jev.prepare(x, y, ts, pol, W), tev.prepare(x, y, ts, pol, W)
+    return (x, y, ts, pol), jev.prepare(x, y, ts, pol, W), tev.prepare(x, y, ts, pol, W, device="cpu")
 
 
 def _oracle(x, y, ts, pol, lo, hi):
@@ -124,3 +127,23 @@ def test_eta_count_window_is_a_contiguous_slice(random_placement):
     np.testing.assert_array_equal(eta.numpy(), want)
     if not random_placement:
         assert start % n_window == 0
+
+
+def test_scene_entry_points_default_to_the_card(monkeypatch):
+    """random_scene and prepare put the events on the card unless asked
+    for the CPU, and raise without a card; a window lands on its
+    generator's device."""
+    from benerf_tpu_torch.data import datasets as tdatasets
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = types.SimpleNamespace(event_width=W, event_height=H, rgb_width=W,
+                                rgb_height=H, channels=3)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdatasets.random_scene(cfg, 100, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tev.prepare(*_random_events(10), W)
+    scene = tdatasets.random_scene(cfg, 100, seed=0, device="cpu")
+    assert scene.events.ts.device.type == "cpu" and scene.events.num == 100
+    assert scene.image.shape == (1, H, W, 3)
+    lo, hi = tev.sample_time_window(torch.Generator().manual_seed(0), 0.1)
+    assert lo.device.type == hi.device.type == "cpu"

@@ -5,9 +5,13 @@ K3/K4 pair) and its MLP dispatcher (ops/mlp.py) against the JAX package.
   pallas_mlp.fused_nerf_mlp in Pallas interpret mode and vs nerf.apply, for
   view encodings other than 27 rows and C up to 8; tolerances as
   tests/test_pallas.py: forward atol 1e-4, gradients 3e-4 * max(scale, 1);
+- K3/K4's arithmetic, emulated in both modes (tests/test_torch_tc_mlp.py's
+  emulation with the per-ray view bias), against the JAX package: TF32X3
+  against fp32 nerf.apply and float64, BF16 against the JAX kernel's bf16
+  mode in interpret mode, forward and gradients;
 - the op's card path in Python (per-ray view bias, packing, the autograd
-  Function) with the kernel launches replaced by a plain computation on the
-  packed weights, since CUDA kernels have no CPU mode;
+  Function) in both modes, with the kernel launches replaced by that
+  emulation, since CUDA kernels have no CPU mode; K3/K4's packed layout;
 - ops.mlp.route vs the decision of benerf_tpu/ops/mlp.py:67-82 over a grid
   of architectures;
 - the train step's loss and every gradient vs JAX make_loss_fn with a view
@@ -28,6 +32,7 @@ import torch
 
 import test_golden_grad as gg
 import test_torch_step as ts
+import test_torch_tc_mlp as tc
 
 from benerf_tpu.models import nerf as jnerf
 from benerf_tpu.ops import pallas_mlp, pallas_mlp_t
@@ -173,50 +178,131 @@ def test_staged_gradients_match_jax(views_ch, C, S, interpret_mode):
         _assert_grads_close(got, _jax_grads(jnerf.apply, params, pts, vd, Lv))
 
 
-# ---- the card path's Python, kernels replaced by plain math ---------------
+# ---- the kernels' arithmetic, emulated; the card path's Python -------------
 
 
-def _packed_forward(packed, pts, vb, S, C):
-    """What K3 computes, from the packed vector it reads."""
-    w = fused_mlp.unpack(packed, C, view_pe=False)
-    pe = temb.positional_encoding(pts, 10)
-    h = torch.relu(pe @ w["w0"] + w["b"][0])
-    for l in range(1, 8):
-        t = h @ w["wh"][l - 1] + w["b"][l]
-        if l == 5:
-            t = t + pe @ w["w5pe"]
-        h = torch.relu(t)
-    f = h @ w["wf"] + w["bf"]
-    hv = torch.relu(f @ w["wfv"] + vb.repeat_interleave(S, dim=0))
-    return torch.cat([hv @ w["wrgb"] + w["brgb"], h @ w["wa"] + w["ba"]], -1)
+def _emulated_staged(compute_dtype):
+    """The staged op as K3/K4 compute it (tc.emulated_forward with the
+    per-ray view bias), straight from the parameter dict: (p, x (R, S, 3),
+    v (R, 3), num_freqs_views) -> raw (R, S, C+1)."""
+    def fn(p, x, v, num_freqs_views):
+        R, S, _ = x.shape
+        C = p["rgb"]["w"].shape[1]
+        vb = staged_mlp.view_bias(p, v, num_freqs_views, compute_dtype)
+        w = fused_mlp.unpack(fused_mlp.pack_params(p, view_pe=False), C,
+                             view_pe=False)
+        out = tc.emulated_forward(w, x.reshape(-1, 3), None, torch.ones(14),
+                                  tc.MODES[compute_dtype],
+                                  vb.repeat_interleave(S, dim=0))
+        return out.reshape(R, S, C + 1)
+    return fn
 
 
-def _packed_backward(packed, pts, vb, g, S, C, splits):
+# forward and gradients; TF32X3 against JAX fp32 at FWD_ATOL / GRAD_TOL and
+# against float64 at F64_TOL x scale; BF16 against the JAX kernel's bf16
+# mode (interpret mode) at test_pallas's test_bfloat16_mode bounds: forward
+# 2e-2 x scale, gradients 0.15 relative RMS per leaf. Measured on these
+# inputs: TF32X3 2.8e-7 (forward) and 6.6e-7 (worst gradient) x scale from
+# float64; BF16 3.9e-3 x scale and 0.024 RMS from the JAX kernel's bf16 mode
+F64_TOL = 1e-5
+BF16_FWD = 2e-2
+BF16_GRAD_RMS = 0.15
+
+
+def _rms(a):
+    return float(np.sqrt(np.mean(np.square(a, dtype=np.float64))))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_emulated_staged_network_matches_jax(compute_dtype, interpret_mode):
+    """The staged network with K3/K4's layer products (TF32X3 or BF16) and
+    a 39-row view encoding, against the JAX package from the same numpy
+    inputs, on points away from ReLU ties."""
+    params, pts, vd, Lv = _inputs(13, 64, 3, 39, seed=11)
+    pts = _away_from_relu_ties(params, pts, vd, Lv, seed=12)
+    emu = _emulated_staged(compute_dtype)
+    tp = bridge.params_from_numpy(params)
+    got = emu(tp, torch.as_tensor(pts), torch.as_tensor(vd), Lv).numpy()
+    got_g = _port_grads(emu, params, pts, vd, Lv)
+    jp = jax.tree.map(jnp.asarray, params)
+    if compute_dtype == "float32":
+        want = np.asarray(jnerf.apply(jp, jnp.asarray(pts), jnp.asarray(vd),
+                                      num_freqs_views=Lv))
+        np.testing.assert_allclose(got, want, rtol=0, atol=FWD_ATOL)
+        _assert_grads_close(got_g, _jax_grads(jnerf.apply, params, pts, vd, Lv))
+        f64 = jax.tree.map(lambda a: a.astype(np.float64), (params, pts, vd))
+        want64 = tnerf.apply(bridge.params_from_numpy(f64[0]),
+                             torch.as_tensor(f64[1]), torch.as_tensor(f64[2]),
+                             num_freqs_views=Lv).numpy()
+        assert np.abs(got - want64).max() <= F64_TOL * max(np.abs(want64).max(), 1.0)
+        for a, b in zip(got_g, _port_grads(tnerf.apply, *f64, Lv)):
+            assert np.abs(a - b).max() <= F64_TOL * max(np.abs(b).max(), 1.0)
+        return
+    def kernel(p, x, d, num_freqs_views):
+        return pallas_mlp.fused_nerf_mlp(p, x, d, num_freqs_views=num_freqs_views,
+                                         compute_dtype="bfloat16")
+    want = np.asarray(kernel(jp, jnp.asarray(pts), jnp.asarray(vd), Lv))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=BF16_FWD * max(np.abs(want).max(), 1.0))
+    for a, b in zip(got_g, _jax_grads(kernel, params, pts, vd, Lv)):
+        assert a.shape == b.shape
+        assert _rms(a - b) <= BF16_GRAD_RMS * max(_rms(b), 1e-6)
+
+
+def _launch_fwd(seen):
+    def launch(packed, pts, vb, S, C, compute_dtype="float32"):
+        seen.append(("fwd", compute_dtype))
+        w = fused_mlp.unpack(packed, C, view_pe=False)
+        return tc.emulated_forward(w, pts, None, torch.ones(14),
+                                   tc.MODES[compute_dtype],
+                                   vb.repeat_interleave(S, dim=0))
+    return launch
+
+
+def _launch_bwd(seen):
     """What K4 returns: (d packed, d pts, d vb per ray)."""
-    with torch.enable_grad():
-        ins = [t.detach().requires_grad_(True) for t in (packed, pts, vb)]
-        out = _packed_forward(*ins, S, C)
-        return torch.autograd.grad(out, ins, g)
+    def launch(packed, pts, vb, g, S, C, splits=32, compute_dtype="float32"):
+        seen.append(("bwd", compute_dtype))
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in (packed, pts, vb)]
+            w = fused_mlp.unpack(ins[0], C, view_pe=False)
+            out = tc.emulated_forward(w, ins[1], None, torch.ones(14),
+                                      tc.MODES[compute_dtype],
+                                      ins[2].repeat_interleave(S, dim=0))
+            return torch.autograd.grad(out, ins, g)
+    return launch
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("C,S", [(3, 37), (8, 64)])
-def test_staged_card_path_wiring(C, S, monkeypatch):
+def test_staged_card_path_wiring(C, S, compute_dtype, monkeypatch):
     """The per-ray view bias, the packing without the view-encoding
     entries and the autograd Function route every gradient to its
-    parameter, the points and the viewdirs."""
-    monkeypatch.setattr(staged_mlp, "launch_fwd", _packed_forward)
-    monkeypatch.setattr(staged_mlp, "launch_bwd", _packed_backward)
+    parameter, the points and the viewdirs where autograd through the same
+    arithmetic on the parameters sends it, and pass the mode to both
+    launches."""
+    seen = []
+    monkeypatch.setattr(staged_mlp, "launch_fwd", _launch_fwd(seen))
+    monkeypatch.setattr(staged_mlp, "launch_bwd", _launch_bwd(seen))
     params, pts, vd, Lv = _inputs(3, S, C, 39, seed=C)
 
     def card_path(p, x, v, num_freqs_views):
-        return staged_mlp._staged(p, x, v, num_freqs_views, splits=1)
+        return staged_mlp._staged(p, x, v, num_freqs_views, 1, compute_dtype)
 
-    want = _port_grads(tnerf.apply, params, pts, vd, Lv)
-    _assert_grads_close(_port_grads(card_path, params, pts, vd, Lv), want)
+    got = _port_grads(card_path, params, pts, vd, Lv)
+    assert seen == [("fwd", compute_dtype), ("bwd", compute_dtype)]
+    want = _port_grads(_emulated_staged(compute_dtype), params, pts, vd, Lv)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert np.abs(a - b).max() <= 1e-5 * max(np.abs(b).max(), 1.0)
 
 
 @pytest.mark.parametrize("C", [1, 8])
 def test_staged_packed_layout(C):
+    """K3/K4's packed vector: K1's layout without the view-encoding entries,
+    columns in natural order, every matrix the products stage 16-byte
+    aligned, unpack inverting pack; the weights and their gradient share
+    it."""
     params, _, _, _ = _inputs(1, 1, C, 39, seed=C)
     tp = bridge.params_from_numpy(params)
     packed = fused_mlp.pack_params(tp, view_pe=False)
@@ -227,20 +313,24 @@ def test_staged_packed_layout(C):
     assert all(o % 4 == 0 for o in offs[:10])
     v = fused_mlp.unpack(packed, C, view_pe=False)
     assert v["wvpe"].numel() == v["bv"].numel() == 0
-    np.testing.assert_array_equal(v["wfv"], tp["views"]["w_feat"])
+    raw = packed[offs[4]:offs[4] + 256 * 128].view(256, 128)
+    np.testing.assert_array_equal(raw, tp["views"]["w_feat"])
+    np.testing.assert_array_equal(v["w0"], tp["pts"][0]["w"])
+    np.testing.assert_array_equal(v["wh"][4], tp["pts"][5]["w_h"])
+    np.testing.assert_array_equal(v["w5pe"], tp["pts"][5]["w_pe"])
     np.testing.assert_array_equal(v["bf"], tp["feature"]["b"])
     np.testing.assert_array_equal(v["wa"], tp["alpha"]["w"])
     np.testing.assert_array_equal(v["wrgb"], tp["rgb"]["w"])
     np.testing.assert_array_equal(v["brgb"], tp["rgb"]["b"])
-    tl = fused_mlp._tlayout(C, view_pe=False)
-    toffs = fused_mlp._offsets(tl)
-    tvec = fused_mlp.pack_transposed(packed, C, view_pe=False)
-    assert tvec.numel() == toffs[-1] and all(o % 4 == 0 for o in toffs)
-    tv = {name: fused_mlp.deinterleave(tvec[toffs[i]:toffs[i + 1]].view(shape))
-          for i, (name, shape) in enumerate(tl)}
-    np.testing.assert_array_equal(tv["wfvT"], v["wfv"].t())
-    np.testing.assert_array_equal(tv["waT"], v["wa"].t())
-    np.testing.assert_array_equal(tv["wrgbT"], v["wrgb"].t())
+    # a flat gradient in the same layout reaches each parameter
+    leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(tp)]
+    flat = torch.arange(packed.numel(), dtype=torch.float32)
+    grads = dict(zip(map(id, leaves), torch.autograd.grad(
+        fused_mlp.pack_params(tp, view_pe=False), leaves, flat,
+        allow_unused=True)))
+    g = grads[id(tp["rgb"]["w"])]
+    np.testing.assert_array_equal(g.reshape(-1), flat[offs[11]:offs[12]])
+    assert grads[id(tp["views"]["w_pe"])] is None
 
 
 # ---- the route table --------------------------------------------------------

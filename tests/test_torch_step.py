@@ -122,7 +122,7 @@ def _port_side(jparams, seed, C, dtype=torch.float32):
     params = bridge.tree_map(lambda t: t.to(dtype).requires_grad_(True),
                              bridge.params_from_numpy(_np_tree(jparams)))
     batch = tstep.SceneBatch(
-        events=tevents.prepare(*ev, width=W_EVT, dtype=dtype),
+        events=tevents.prepare(*ev, width=W_EVT, device="cpu", dtype=dtype),
         image_flat=torch.as_tensor(img, dtype=dtype),
         rgb_exp_ts=torch.tensor([0.35, 0.65], dtype=dtype),
         K_rgb=torch.as_tensor(K, dtype=dtype), K_evt=torch.as_tensor(K, dtype=dtype))
@@ -383,7 +383,7 @@ def _golden_inputs(g, case, cfg, dtype):
         pol=torch.as_tensor(g[p + "evt_pol"], dtype=dtype))
     if not f64:  # as events.prepare makes them: time-sorted
         events = tevents.prepare(g[p + "evt_x"], g[p + "evt_y"], g[p + "evt_ts"],
-                                 g[p + "evt_pol"], width=W_EVT)
+                                 g[p + "evt_pol"], width=W_EVT, device="cpu")
     batch = tstep.SceneBatch(
         events=events,
         image_flat=torch.as_tensor(g[p + "img"][0].reshape(-1, C), dtype=dtype),
@@ -700,7 +700,7 @@ def _tiny_train_cfg(tmp_path, **kw):
 def _tiny_scene(C=1):
     ev, img, _ = _scene_np(0, C)
     return tdatasets.SceneData(
-        events=tevents.prepare(*ev, width=W_EVT),
+        events=tevents.prepare(*ev, width=W_EVT, device="cpu"),
         image=img.reshape(1, H_RGB, W_RGB, C), imgtest=None,
         rgb_exp_ts=np.array([0.35, 0.65]))
 

@@ -1,5 +1,5 @@
-"""K1/K2's tensor-core modes (csrc/mma_layer.cuh) and the fused op's card
-path, on the CPU.
+"""The kernels' tensor-core modes (csrc/mma_layer.cuh) and the fused op's
+card path, on the CPU.
 
 - a plain torch emulation of the kernels' layer products: TF32X3 (operands
   split into a cvt.rna TF32 big part and the remainder, which the tensor
@@ -10,13 +10,15 @@ path, on the CPU.
 - the emulated network in both modes against the JAX package (nerf.apply in
   fp32, the Pallas kernel's bf16 mode in interpret mode), from the same
   numpy inputs;
-- the natural-order packed layout K1/K2 read, against the offsets formula
-  of csrc/fused_mlp_common.cuh;
+- the packed layout K1-K4 read (natural column order), against the
+  offsets formula of csrc/fused_mlp_common.cuh;
 - the card path's Python (packing, band weights, the autograd Function) in
   both modes, with the launches replaced by the emulation, since CUDA
   kernels have no CPU mode;
 - the route of compute_dtype on the card: "bfloat16" reaches K1/K2 and
-  raises on the staged route.
+  K3/K4 with its mode.
+The staged network's emulation (K3/K4) is held to the JAX package in
+tests/test_torch_staged_mlp.py.
 """
 
 import types
@@ -75,14 +77,19 @@ def mm(a, w, mode):
     return a @ w
 
 
-def emulated_forward(w, pts, vd_pt, band, mode):
+def emulated_forward(w, pts, vd_pt, band, mode, vb_pt=None):
     """K1 on unpacked weights `w` (fused_mlp.unpack): points (n, 3), per-point
     viewdirs (n, 3), band (14,); products in `mode`, heads in fp32 as the
-    kernel's CUDA-core heads."""
+    kernels' CUDA-core heads. K3 with `vb_pt`, its per-ray view bias
+    repeated per point (n, 128): the views layer adds it in place of the
+    view-encoding product and its bias (vd_pt unused; band all ones)."""
     pe = temb.positional_encoding(pts, 10, include_input=False)
     pe = torch.cat([pts, temb.apply_barf_weights(pe, band[:10], include_input=False)], -1)
-    vpe = temb.positional_encoding(vd_pt, 4, include_input=False)
-    vpe = torch.cat([vd_pt, temb.apply_barf_weights(vpe, band[10:], include_input=False)], -1)
+    if vb_pt is None:
+        vpe = temb.positional_encoding(vd_pt, 4, include_input=False)
+        vpe = torch.cat([vd_pt, temb.apply_barf_weights(vpe, band[10:],
+                                                        include_input=False)], -1)
+        vb_pt = mm(vpe, w["wvpe"], mode) + w["bv"]
     h = torch.relu(mm(pe, w["w0"], mode) + w["b"][0])
     for l in range(1, 8):
         t = mm(h, w["wh"][l - 1], mode) + w["b"][l]
@@ -90,7 +97,7 @@ def emulated_forward(w, pts, vd_pt, band, mode):
             t = t + mm(pe, w["w5pe"], mode)
         h = torch.relu(t)
     f = mm(h, w["wf"], mode) + w["bf"]
-    hv = torch.relu(mm(f, w["wfv"], mode) + mm(vpe, w["wvpe"], mode) + w["bv"])
+    hv = torch.relu(mm(f, w["wfv"], mode) + vb_pt)
     return torch.cat([hv @ w["wrgb"] + w["brgb"], h @ w["wa"] + w["ba"]], -1)
 
 
@@ -169,9 +176,7 @@ def test_emulated_network_matches_jax(compute_dtype):
     kernel's bf16 mode (interpret mode) at test_bfloat16_mode's 2e-2 x
     scale."""
     params, pts, vd, band = _inputs(4, 64, 3, seed=1)
-    w = fused_mlp.unpack(fused_mlp.pack_params(bridge.params_from_numpy(params),
-                                               interleaved=False), 3,
-                         interleaved=False)
+    w = fused_mlp.unpack(fused_mlp.pack_params(bridge.params_from_numpy(params)), 3)
     x = torch.as_tensor(pts).reshape(-1, 3)
     v = torch.as_tensor(vd).repeat_interleave(64, dim=0)
     got = emulated_forward(w, x, v, torch.as_tensor(band), MODES[compute_dtype])
@@ -223,24 +228,28 @@ def _c_offsets(C):
     return list(o.values())
 
 
+# the matrices the tensor-core products stage with cp.async
+_STAGED = ("w0", "wh", "w5pe", "wf", "wfv", "wvpe")
+
+
 @pytest.mark.parametrize("C", [1, 3, 7])
 def test_natural_layout_round_trip(C):
-    """K1/K2's packed vector: columns in natural order, offsets as the
-    kernels compute them, every matrix 16-byte aligned with rows of a
-    multiple of 4 floats (cp.async copies 16 bytes), and unpack inverts
-    pack."""
+    """The packed vector of K1/K2: columns in natural order, offsets as the
+    kernels compute them, every matrix the products stage 16-byte aligned
+    with rows of a multiple of 4 floats (cp.async copies 16 bytes), and
+    unpack inverts pack."""
     params, _, _, _ = _inputs(1, 1, C, seed=C)
     tp = bridge.params_from_numpy(params)
-    packed = fused_mlp.pack_params(tp, interleaved=False)
+    packed = fused_mlp.pack_params(tp)
     offs = fused_mlp._offsets(fused_mlp._layout(C))
     assert offs == _c_offsets(C) and packed.numel() == offs[-1]
     names = [n for n, _ in fused_mlp._layout(C)]
     for name, shape in fused_mlp._layout(C):
-        if name in fused_mlp._INTERLEAVED:
+        if name in _STAGED:
             assert offs[names.index(name)] % 4 == 0 and shape[-1] % 4 == 0
     raw = packed[:63 * 256].view(63, 256)
     assert torch.equal(raw, tp["pts"][0]["w"])
-    v = fused_mlp.unpack(packed, C, interleaved=False)
+    v = fused_mlp.unpack(packed, C)
     assert torch.equal(v["wh"][4], tp["pts"][5]["w_h"])
     assert torch.equal(v["w5pe"], tp["pts"][5]["w_pe"])
     assert torch.equal(v["wfv"], tp["views"]["w_feat"])
@@ -248,11 +257,13 @@ def test_natural_layout_round_trip(C):
     assert torch.equal(v["bv"], tp["views"]["b"])
     assert torch.equal(v["wrgb"], tp["rgb"]["w"])
     again = fused_mlp.pack_params(bridge.tree_unflatten(tp, [
-        t for t in bridge.tree_leaves(tp)]), interleaved=False)
+        t for t in bridge.tree_leaves(tp)]))
     assert torch.equal(again, packed)
-    # the interleaved packing of K3/K4 differs only by column order
-    il = fused_mlp.unpack(fused_mlp.pack_params(tp), C)
-    assert all(torch.equal(il[k], v[k]) for k in v)
+    # K3/K4's packing is the same vector without the view-encoding entries
+    staged = fused_mlp.unpack(fused_mlp.pack_params(tp, view_pe=False), C,
+                              view_pe=False)
+    assert all(torch.equal(staged[k], v[k]) for k in v if k not in ("wvpe", "bv"))
+    assert staged["wvpe"].numel() == staged["bv"].numel() == 0
 
 
 # ---- the card path's Python -----------------------------------------------------
@@ -261,7 +272,7 @@ def test_natural_layout_round_trip(C):
 def _launch_fwd(seen):
     def launch(packed, pts, vd, band, S, C, compute_dtype="float32"):
         seen.append(("fwd", compute_dtype))
-        w = fused_mlp.unpack(packed, C, interleaved=False)
+        w = fused_mlp.unpack(packed, C)
         return emulated_forward(w, pts, vd.repeat_interleave(S, dim=0), band,
                                 MODES[compute_dtype])
     return launch
@@ -274,7 +285,7 @@ def _launch_bwd(seen):
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True)
                    for t in (packed, pts, vd.repeat_interleave(S, dim=0))]
-            w = fused_mlp.unpack(ins[0], C, interleaved=False)
+            w = fused_mlp.unpack(ins[0], C)
             out = emulated_forward(w, ins[1], ins[2], band, MODES[compute_dtype])
             return torch.autograd.grad(out, ins, g)
     return launch
@@ -328,14 +339,13 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
 
 
 def test_compute_dtype_routes_on_the_card(monkeypatch):
-    """On a CUDA tensor, "bfloat16" goes to K1/K2 with its mode, and the
-    staged route (K3/K4, fp32 only) raises naming its redesign; the CPU
-    takes the plain version with bf16 operands."""
+    """On a CUDA tensor, either compute_dtype goes to K1/K2 and to K3/K4
+    with its mode; an unknown one raises."""
     calls = []
     monkeypatch.setattr(fused_mlp, "fused_nerf_mlp",
                         lambda *a, **k: calls.append(("fused", k["compute_dtype"])))
     monkeypatch.setattr(staged_mlp, "staged_nerf_mlp",
-                        lambda *a, **k: calls.append(("staged", None)))
+                        lambda *a, **k: calls.append(("staged", k["compute_dtype"])))
     card = types.SimpleNamespace(device=torch.device("cuda"))
     std = bridge.params_from_numpy(_inputs(1, 1, 3, seed=0)[0])
     l6 = bridge.params_from_numpy(jax.tree.map(np.asarray, jnerf.init_params(
@@ -343,9 +353,10 @@ def test_compute_dtype_routes_on_the_card(monkeypatch):
     vd = torch.zeros(1, 3)
     for cd in MODES:
         tmlp.mlp_forward(std, card, vd, compute_dtype=cd)
-    tmlp.mlp_forward(l6, card, vd, num_freqs_views=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmlp.mlp_forward(l6, card, vd, num_freqs_views=6, compute_dtype="bfloat16")
-    assert calls == [("fused", "float32"), ("fused", "bfloat16"), ("staged", None)]
+        tmlp.mlp_forward(l6, card, vd, num_freqs_views=6, compute_dtype=cd)
+    assert calls == [("fused", "float32"), ("staged", "float32"),
+                     ("fused", "bfloat16"), ("staged", "bfloat16")]
     with pytest.raises(ValueError, match="compute_dtype"):
         fused_mlp.launch_fwd(None, None, None, None, 1, 3, compute_dtype="float16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        staged_mlp.launch_fwd(None, None, None, 1, 3, compute_dtype="float16")

@@ -8,9 +8,9 @@ PARENT_DIR and CHANGE_DIR (default: this repository) are checkouts, e.g.
 kernels and runs chip_smoke.time_kernels and time_staged_kernels in a
 process of its own, in the order parent, change, change, parent, at the
 training path's n = 195,520 and 391,040. Prints one JSON line per run and
-the median per side (ms, CUDA events): K1 and K2 in fp32 mode (k1, k2),
-in bf16 mode where the tree has it (k1_bf16, k2_bf16), K3 and K4, and the
-plain versions (plain_*).
+the median per side (ms, CUDA events): K1/K2 and K3/K4 in fp32 mode (k1,
+k2, k3, k4), in bf16 mode where the tree has it (k1_bf16, k2_bf16,
+k3_bf16, k4_bf16), and the plain versions (plain_*).
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
 
@@ -29,6 +29,7 @@ from benerf_tpu_torch.ops import fused_mlp
 torch.backends.cuda.matmul.allow_tf32 = False
 fused_mlp.build()
 modes = "compute_dtype" in inspect.signature(cs.time_kernels).parameters
+staged_modes = "compute_dtype" in inspect.signature(cs.time_staged_kernels).parameters
 res = {}
 for S in (64, 128):  # what both trees have first, in the same order
     r = dict(zip(("k3", "plain_fwd_l6", "k4", "plain_fwd_bwd_l6"),
@@ -37,6 +38,10 @@ for S in (64, 128):  # what both trees have first, in the same order
     if modes:
         r.update(zip(("k1_bf16", "plain_fwd_bf16", "k2_bf16", "plain_fwd_bwd_bf16"),
                      cs.time_kernels(torch, S, compute_dtype="bfloat16")))
+    if staged_modes:
+        r.update(zip(("k3_bf16", "plain_fwd_l6_bf16", "k4_bf16",
+                      "plain_fwd_bwd_l6_bf16"),
+                     cs.time_staged_kernels(torch, S, compute_dtype="bfloat16")))
     res[str(cs.RAYS * S)] = r
 print(json.dumps(res))
 """

@@ -9,7 +9,7 @@ Builds the tanabata config at full width on an in-memory random scene of
 1,000,000 events (as chip_smoke.py does); with --multires-views L other
 than 4, both NeRF MLPs are built with a view encoding of 3 + 6 L rows (the
 path of the staged kernels K3/K4, as chip_smoke.py phase 6); with
---compute-dtype bfloat16 the MLPs run K1/K2 in their bf16 mode. Runs a few
+--compute-dtype bfloat16 the MLPs run K1/K2 (or K3/K4) in their bf16 mode. Runs a few
 warm-up steps, then
 `--iters` steps under torch.profiler. Prints and writes (JSON, --out):
   - the step's wall time (host clock, one host sync per step as in the
