@@ -24,10 +24,12 @@
 //      scratch in HBM ([feature][point], n padded to 64);
 //  (b) each weight gradient dW = X_rows D_rows^T (a sum over all points)
 //      as a split-K product, the point axis cut into `splits` fixed chunks,
-//      one partial per chunk: `wgrad_gemm_kernel` takes the 12 matrix
-//      products in one launch (128x128 output tiles on the tensor cores),
-//      `wgrad_thin_kernel` the biases and the 1- and C-column heads (a warp
-//      per element); then `reduce_kernel` sums the partials in chunk order.
+//      one partial per chunk: `wgrad_wgmma_kernel` takes the 12 matrix
+//      products and the biases of their D rows in one launch (persistent
+//      blocks, TMA stages and wgmma on 128x128 output tiles,
+//      wgrad_wgmma.cuh), `wgrad_thin_kernel` the 1- and C-column heads and
+//      their biases (a warp per element); then `reduce_kernel` sums the
+//      partials in chunk order.
 //      No atomics: the result is the same from run to run, and tile size
 //      and split count change it only by the rounding of a reordered sum.
 // Padded points carry a zero cotangent, so they add nothing to any sum and
@@ -64,6 +66,11 @@ extern "C" {
 void fused_mlp_bwd_scratch(int64_t n_pad, int64_t* out) {
   out[0] = (int64_t)fmlp::K2Rows::X_ROWS * n_pad;
   out[1] = (int64_t)fmlp::D_ROWS * n_pad;
+}
+
+// pass (b)'s job table (fmlp::job_rows), 16 rows of 6
+int fused_mlp_wgrad_jobs(int C, int64_t* out) {
+  return fmlp::job_rows<true>(C, out);
 }
 
 // Pass (b) alone, on a scratch that pass (a) filled: for timing it apart.

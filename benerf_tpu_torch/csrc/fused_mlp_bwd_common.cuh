@@ -7,6 +7,7 @@
 #pragma once
 
 #include "fused_mlp_tc.cuh"
+#include "wgrad_wgmma.cuh"
 
 namespace fmlp {
 
@@ -252,56 +253,8 @@ __device__ __forceinline__ void tile_pass(
 // dW[i][o] = sum_p X[x_row0 + i][p] * D[d_row0 + o][p] over the points p of
 // one chunk z, written to part[z][out_off + i * O + o] (natural column
 // order). Both operands are feature-major, so the contraction runs along
-// contiguous memory.
-
-using tc::GT;
-constexpr int MAX_JOBS = 16;
-
-struct GemmJob {
-  int x_row0, I, d_row0, O, tiles_o, tile0;
-  int64_t out_off;
-};
-struct GemmJobs {
-  int count;
-  GemmJob j[MAX_JOBS];
-};
-
-// One block per (128x128 output tile of any job, chunk), on the tensor
-// cores (mma_layer.cuh gemm_tile: both operands staged by cp.async).
-template <tc::Mode MODE>
-__global__ void __launch_bounds__(THREADS, 1)
-wgrad_gemm_kernel(const float* __restrict__ X, const float* __restrict__ D,
-                  int64_t ld, int64_t chunk, float* __restrict__ part,
-                  int64_t Ptot, const GemmJobs jobs) {
-  extern __shared__ float4 gsmem4[];
-  int q = 0;
-  while (q + 1 < jobs.count && (int)blockIdx.x >= jobs.j[q + 1].tile0) ++q;
-  const GemmJob J = jobs.j[q];
-  const int t = blockIdx.x - J.tile0;
-  const int i0 = (t / J.tiles_o) * GT, o0 = (t % J.tiles_o) * GT;
-  const int64_t k_begin = (int64_t)blockIdx.y * chunk;
-  const int64_t k_end = k_begin + chunk < ld ? k_begin + chunk : ld;
-
-  float acc[4][4][4];
-  tc::zero(acc);
-  tc::gemm_tile<MODE>(acc, X + (int64_t)(J.x_row0 + i0) * ld, J.I - i0,
-                      D + (int64_t)(J.d_row0 + o0) * ld, J.O - o0, ld, k_begin,
-                      k_end, reinterpret_cast<float*>(gsmem4));
-
-  float* dst = part + (int64_t)blockIdx.y * Ptot + J.out_off;
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  const int g = lane / 4, tq = lane % 4;
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = i0 + (wid % 2) * 64 + mt * 16 + g + (r >= 2 ? 8 : 0);
-        const int o = o0 + (wid / 2) * 32 + nt * 8 + 2 * tq + (r & 1);
-        if (i < J.I && o < J.O) dst[(int64_t)i * J.O + o] = acc[mt][nt][r];
-      }
-}
+// contiguous memory: the matrix products are wgrad_wgmma.cuh's TMA + wgmma
+// kernel.
 
 struct ThinJob {
   int x_row0, I, d_row0, O, out0;  // x_row0 < 0: X is a row of ones (bias)
@@ -312,7 +265,7 @@ struct ThinJobs {
   ThinJob j[MAX_JOBS];
 };
 
-// The biases and the 1- and C-column heads: one warp per output element
+// The 1- and C-column heads and their biases: one warp per output element
 // (i, o) and chunk, float4 loads along the points, a fixed-order shuffle
 // reduction.
 __global__ void __launch_bounds__(THREADS)
@@ -364,9 +317,9 @@ inline void number_jobs(GemmJobs* g, ThinJobs* t) {
   int tiles = 0;
   for (int q = 0; q < g->count; ++q) {
     GemmJob& k = g->j[q];
-    k.tiles_o = (k.O + GT - 1) / GT;
+    k.tiles_o = (k.O + wg::TILE - 1) / wg::TILE;
     k.tile0 = tiles;
-    tiles += ((k.I + GT - 1) / GT) * k.tiles_o;
+    tiles += ((k.I + wg::TILE - 1) / wg::TILE) * k.tiles_o;
   }
   t->total = 0;
   for (int q = 0; q < t->count; ++q) {
@@ -377,29 +330,29 @@ inline void number_jobs(GemmJobs* g, ThinJobs* t) {
 
 // The jobs that together cover the packed gradient vector: the matrix
 // products (K2's 12; K4 has no wvpe, the last, and takes the first 11),
-// then the biases (b, bf and K2's bv are contiguous in both the packed
-// vector and D), the alpha head, its bias, the rgb head and its bias.
+// which also sum their D rows into the biases b (layer by layer), bf and
+// K2's bv, then the alpha head, its bias, the rgb head and its bias.
 template <bool VIEW_PE>
 inline void make_jobs(int C, GemmJobs* g, ThinJobs* t) {
   using R = Scratch<VIEW_PE>;
   const Offsets o = offsets(C, VIEW_PE);
   const int64_t WW = (int64_t)WIDTH * WIDTH;
+  const int64_t b = o.b;
   *g = GemmJobs{VIEW_PE ? 12 : 11, {
-      {R::X_PE, PE_ROWS, R::D_PRE, WIDTH, 0, 0, o.w0},
-      {R::X_H + 0 * WIDTH, WIDTH, R::D_PRE + 1 * WIDTH, WIDTH, 0, 0, o.wh + 0 * WW},
-      {R::X_H + 1 * WIDTH, WIDTH, R::D_PRE + 2 * WIDTH, WIDTH, 0, 0, o.wh + 1 * WW},
-      {R::X_H + 2 * WIDTH, WIDTH, R::D_PRE + 3 * WIDTH, WIDTH, 0, 0, o.wh + 2 * WW},
-      {R::X_H + 3 * WIDTH, WIDTH, R::D_PRE + 4 * WIDTH, WIDTH, 0, 0, o.wh + 3 * WW},
-      {R::X_H + 4 * WIDTH, WIDTH, R::D_PRE + 5 * WIDTH, WIDTH, 0, 0, o.wh + 4 * WW},
-      {R::X_H + 5 * WIDTH, WIDTH, R::D_PRE + 6 * WIDTH, WIDTH, 0, 0, o.wh + 5 * WW},
-      {R::X_H + 6 * WIDTH, WIDTH, R::D_PRE + 7 * WIDTH, WIDTH, 0, 0, o.wh + 6 * WW},
-      {R::X_PE, PE_ROWS, R::D_PRE + SKIP * WIDTH, WIDTH, 0, 0, o.w5pe},
-      {R::X_H + (DEPTH - 1) * WIDTH, WIDTH, R::D_F, WIDTH, 0, 0, o.wf},
-      {R::X_F, WIDTH, R::D_HV, HEAD, 0, 0, o.wfv},
-      {R::X_VPE, VPE_ROWS, R::D_HV, HEAD, 0, 0, o.wvpe},
+      {R::X_PE, PE_ROWS, R::D_PRE, WIDTH, 0, 0, o.w0, b},
+      {R::X_H + 0 * WIDTH, WIDTH, R::D_PRE + 1 * WIDTH, WIDTH, 0, 0, o.wh + 0 * WW, b + 1 * WIDTH},
+      {R::X_H + 1 * WIDTH, WIDTH, R::D_PRE + 2 * WIDTH, WIDTH, 0, 0, o.wh + 1 * WW, b + 2 * WIDTH},
+      {R::X_H + 2 * WIDTH, WIDTH, R::D_PRE + 3 * WIDTH, WIDTH, 0, 0, o.wh + 2 * WW, b + 3 * WIDTH},
+      {R::X_H + 3 * WIDTH, WIDTH, R::D_PRE + 4 * WIDTH, WIDTH, 0, 0, o.wh + 3 * WW, b + 4 * WIDTH},
+      {R::X_H + 4 * WIDTH, WIDTH, R::D_PRE + 5 * WIDTH, WIDTH, 0, 0, o.wh + 4 * WW, b + 5 * WIDTH},
+      {R::X_H + 5 * WIDTH, WIDTH, R::D_PRE + 6 * WIDTH, WIDTH, 0, 0, o.wh + 5 * WW, b + 6 * WIDTH},
+      {R::X_H + 6 * WIDTH, WIDTH, R::D_PRE + 7 * WIDTH, WIDTH, 0, 0, o.wh + 6 * WW, b + 7 * WIDTH},
+      {R::X_PE, PE_ROWS, R::D_PRE + SKIP * WIDTH, WIDTH, 0, 0, o.w5pe, -1},
+      {R::X_H + (DEPTH - 1) * WIDTH, WIDTH, R::D_F, WIDTH, 0, 0, o.wf, o.bf},
+      {R::X_F, WIDTH, R::D_HV, HEAD, 0, 0, o.wfv, VIEW_PE ? o.bv : -1},
+      {R::X_VPE, VPE_ROWS, R::D_HV, HEAD, 0, 0, o.wvpe, -1},
   }};
-  *t = ThinJobs{5, 0, {
-      {-1, 1, R::D_PRE, DEPTH * WIDTH + WIDTH + (VIEW_PE ? HEAD : 0), 0, o.b},
+  *t = ThinJobs{4, 0, {
       {R::X_H + (DEPTH - 1) * WIDTH, WIDTH, R::D_G + C, 1, 0, o.wa},
       {-1, 1, R::D_G + C, 1, 0, o.ba},
       {R::X_HV, HEAD, R::D_G, C, 0, o.wrgb},
@@ -408,9 +361,31 @@ inline void make_jobs(int C, GemmJobs* g, ThinJobs* t) {
   number_jobs(g, t);
 }
 
+// The job table as rows of (x_row0, I, d_row0, O, out_off, bias_off), the
+// matrix products first, then the thin jobs (x_row0 = -1: a row of ones;
+// bias_off -1), 16 rows (K4: 15); returns the row count.
+template <bool VIEW_PE>
+inline int job_rows(int C, int64_t* out) {
+  GemmJobs g;
+  ThinJobs t;
+  make_jobs<VIEW_PE>(C, &g, &t);
+  int n = 0;
+  for (int q = 0; q < g.count; ++q, ++n) {
+    const GemmJob& k = g.j[q];
+    const int64_t row[6] = {k.x_row0, k.I, k.d_row0, k.O, k.out_off, k.bias_off};
+    for (int c = 0; c < 6; ++c) out[6 * n + c] = row[c];
+  }
+  for (int q = 0; q < t.count; ++q, ++n) {
+    const ThinJob& k = t.j[q];
+    const int64_t row[6] = {k.x_row0, k.I, k.d_row0, k.O, k.out_off, -1};
+    for (int c = 0; c < 6; ++c) out[6 * n + c] = row[c];
+  }
+  return n;
+}
+
 inline int gemm_tiles(const GemmJobs& g) {
   const GemmJob& l = g.j[g.count - 1];
-  return l.tile0 + ((l.I + GT - 1) / GT) * l.tiles_o;
+  return l.tile0 + ((l.I + wg::TILE - 1) / wg::TILE) * l.tiles_o;
 }
 
 // Pass (b): every weight gradient dP (Ptot floats, packed layout) from the
@@ -422,27 +397,15 @@ inline int weight_gradients(const float* X, const float* D, int64_t n_pad,
                             const ThinJobs& tj, float* part, float* dP,
                             int mode, cudaStream_t stream) {
   int64_t chunk = (n_pad + splits - 1) / splits;
-  chunk = (chunk + tc::GKS - 1) / tc::GKS * tc::GKS;
-  const dim3 grid(gemm_tiles(gj), splits);
-  const int smem = (int)tc::GEMM_SMEM_BYTES;
-  if (mode == tc::TF32X3) {
-    cudaFuncSetAttribute(wgrad_gemm_kernel<tc::TF32X3>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    wgrad_gemm_kernel<tc::TF32X3><<<grid, THREADS, smem, stream>>>(
-        X, D, n_pad, chunk, part, Ptot, gj);
-  } else {
-    cudaFuncSetAttribute(wgrad_gemm_kernel<tc::BF16>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    wgrad_gemm_kernel<tc::BF16><<<grid, THREADS, smem, stream>>>(
-        X, D, n_pad, chunk, part, Ptot, gj);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  chunk = (chunk + wg::KS - 1) / wg::KS * wg::KS;
+  int err = launch_wgmma(X, D, n_pad, chunk, splits, gj, gemm_tiles(gj), part,
+                         Ptot, mode, stream);
+  if (err) return err;
   const int thin_blocks = (tj.total * 32 + THREADS - 1) / THREADS;
   wgrad_thin_kernel<<<dim3(thin_blocks, splits), THREADS, 0, stream>>>(
       X, D, n_pad, chunk, part, Ptot, tj);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  err = (int)cudaGetLastError();
+  if (err) return err;
   reduce_kernel<<<(unsigned)((Ptot + 255) / 256), 256, 0, stream>>>(
       part, splits, Ptot, dP);
   return (int)cudaGetLastError();

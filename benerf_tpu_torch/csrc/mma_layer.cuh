@@ -1,6 +1,6 @@
 // Tensor-core layer product for K1-K4 (fused_mlp_{fwd,bwd}.cu,
-// staged_mlp_{fwd,bwd}.cu) and the tensor-core weight-gradient pass
-// (fused_mlp_bwd_common.cuh).
+// staged_mlp_{fwd,bwd}.cu). The weight-gradient pass of K2/K4 has its own
+// TMA + wgmma kernel (wgrad_wgmma.cuh).
 //
 // out[m][p] = sum_k A[m][k] B[k][p] over a block's 64-point tile, on
 // mma.sync.aligned m16n8k8 (TF32) or m16n8k16 (BF16) with fp32 accumulators:
@@ -437,77 +437,6 @@ __device__ __forceinline__ void apply_signs(float (&acc)[MT][NT][4],
         const int i = (mt * NT + nt) * 4 + r;
         if (!((w[i / 32] >> (i % 32)) & 1u)) acc[mt][nt][r] = 0.f;
       }
-}
-
-// ---- the tensor-core weight-gradient product --------------------------------
-//
-// dW[i][o] = sum_p X[i][p] D[o][p] for one 128 x 128 output tile and one
-// chunk of points: A(m = i, k = p) = X rows, B(k = p, n = o) = D rows, both
-// contiguous along the points. Stages of GKS points of both operands
-// ([row][GKS + 4] floats each) in a ring of GNST through cp.async: the
-// operands stream from HBM once per tile, and one block an SM keeps three
-// stages (96 KB) in flight to cover its latency.
-
-constexpr int GT = 128;                 // output tile (I and O)
-constexpr int GKS = 32;                 // points a stage
-constexpr int GLD = GKS + 4;
-constexpr int GNST = 4;                 // stages in the ring
-constexpr int GSTAGE_FLOATS = 2 * GT * GLD;
-constexpr size_t GEMM_SMEM_BYTES = GNST * GSTAGE_FLOATS * sizeof(float);  // 147,456
-
-// Issue the copies of points [k, k + GKS) of rows [r0, r0 + GT) of X (the
-// first `xrows` real) and of D (`drows` real) into a stage.
-__device__ __forceinline__ void issue_gemm_stage(const float* X, int xrows,
-                                                 const float* D, int drows,
-                                                 int64_t ld, int64_t k,
-                                                 float* dst) {
-  for (int e = threadIdx.x; e < 2 * GT * (GKS / 4); e += THREADS) {
-    const int which = e / (GT * (GKS / 4));
-    const int q = e % (GT * (GKS / 4));
-    const int r = q / (GKS / 4), c = (q % (GKS / 4)) * 4;
-    const float* base = which ? D : X;
-    const bool in = r < (which ? drows : xrows);
-    cp_async16(dst + which * GT * GLD + r * GLD + c,
-               in ? base + (int64_t)r * ld + k + c : base, in ? 16 : 0);
-  }
-}
-
-// acc (+)= the tile's product over points [k_begin, k_end) (multiples of
-// GKS), each stage promoted into acc. Warps: 2 along I (64 rows, MT = 4) x
-// 4 along O (32, NT = 4).
-template <Mode MODE>
-__device__ __forceinline__ void gemm_tile(float (&acc)[4][4][4], const float* X,
-                                          int xrows, const float* D, int drows,
-                                          int64_t ld, int64_t k_begin,
-                                          int64_t k_end, float* smem) {
-  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int m0 = (wid % 2) * 64, n0 = (wid / 2) * 32;
-  const int ns = (int)((k_end - k_begin) / GKS);
-  if (ns <= 0) return;
-  auto issue = [&](int s) {
-    if (s < ns)
-      issue_gemm_stage(X, xrows, D, drows, ld, k_begin + (int64_t)s * GKS,
-                       smem + (s % GNST) * GSTAGE_FLOATS);
-    cp_async_commit();
-  };
-  for (int s = 0; s < GNST - 1; ++s) issue(s);
-  for (int s = 0; s < ns; ++s) {
-    cp_async_wait<GNST - 2>();  // stage s has landed
-    __syncthreads();            // ... for every thread; stage s - 1 is read
-    issue(s + GNST - 1);        // into stage s - 1's buffer
-    const float* xs = smem + (s % GNST) * GSTAGE_FLOATS;
-    const float* ds = xs + GT * GLD;
-    float part[4][4][4];
-    zero(part);
-#pragma unroll
-    for (int kk = 0; kk < GKS; kk += Step<MODE>::K) {
-      auto A = [&](int m, int k) { return xs[(m0 + m) * GLD + kk + k]; };
-      auto B = [&](int k, int n) { return ds[(n0 + n) * GLD + kk + k]; };
-      warp_step<MODE>(part, A, B, g, t);
-    }
-    promote(acc, part);
-  }
 }
 
 }  // namespace tc

@@ -37,8 +37,9 @@
 //      has overwritten H, in one row of its own: 220,448 B for every C,
 //      all three weight stages kept, one block of 8 warps per SM.
 //  (b) `weight_gradients`: every weight gradient as a split-K product over
-//      fixed point chunks (the shared tensor-core GEMM in the same mode,
-//      natural column order) and an in-order sum of the partials. The TPU
+//      fixed point chunks (K2's TMA + wgmma kernel in the same mode,
+//      wgrad_wgmma.cuh, natural column order) and an in-order sum of the
+//      partials. The TPU
 //      kernel adds each grid step's tile into one VMEM output in grid
 //      order; Hopper blocks run concurrently, so no block adds into
 //      another's result and no atomics are used: split count changes the
@@ -78,6 +79,23 @@ void staged_mlp_bwd_scratch(int64_t n_pad, int C, int64_t* out) {
   out[2] = fmlp::K4Rows::D_HV;
 }
 
+// pass (b)'s job table (fmlp::job_rows), 15 rows of 6
+int staged_mlp_wgrad_jobs(int C, int64_t* out) {
+  return fmlp::job_rows<false>(C, out);
+}
+
+// Pass (b) alone, on a scratch that pass (a) filled: for timing it apart.
+int staged_mlp_wgrad(const float* X, const float* D, int64_t n_pad, int C,
+                     float* part, int splits, float* dP, int mode,
+                     cudaStream_t stream) {
+  fmlp::GemmJobs gj;
+  fmlp::ThinJobs tj;
+  fmlp::make_jobs<false>(C, &gj, &tj);
+  return fmlp::weight_gradients(X, D, n_pad, splits,
+                                fmlp::offsets(C, false).total, gj, tj, part,
+                                dP, mode, stream);
+}
+
 // g (n, C+1) cotangent -> dP (packed layout, natural column order), dpts
 // (n, 3); d vb per point is left in D's rows staged_mlp_bwd_scratch()[2]
 // ..+128. n_pad = n rounded up to 64; X, D scratch as sized above; part
@@ -101,13 +119,7 @@ int staged_mlp_bwd(const float* pts, const float* vb, int64_t n, int S,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-
-  fmlp::GemmJobs gj;
-  fmlp::ThinJobs tj;
-  fmlp::make_jobs<false>(C, &gj, &tj);
-  return fmlp::weight_gradients(X, D, n_pad, splits,
-                                fmlp::offsets(C, false).total, gj, tj, part,
-                                dP, mode, stream);
+  return staged_mlp_wgrad(X, D, n_pad, C, part, splits, dP, mode, stream);
 }
 
 }  // extern "C"

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from benerf_tpu_torch import resolve_device
+
 
 def tree_map(fn, tree):
     """Apply fn to every leaf of a tree of dicts, lists and tuples."""
@@ -46,9 +48,11 @@ def tree_unflatten(tree, leaves):
     return rebuild(tree)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device=None):
     """Tree of numpy arrays (any array-likes) -> tree of tensors on
-    `device`, dtype kept."""
+    `device` (default: the card, raising without one; see
+    benerf_tpu_torch.resolve_device), dtype kept."""
+    device = resolve_device(device)
     return tree_map(
         lambda x: torch.as_tensor(np.array(x), device=device), tree
     )

@@ -224,6 +224,7 @@ _API = {
         "fused_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P, _P,
                            _P, _P, _I, _P, _I, _P], _I),
         "fused_mlp_wgrad": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
+        "fused_mlp_wgrad_jobs": ([_I, _P], _I),
         "fused_mlp_bwd_scratch": ([_I64, _P], None)},
     "staged_mlp_fwd": {
         "staged_mlp_fwd": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
@@ -231,6 +232,8 @@ _API = {
     "staged_mlp_bwd": {
         "staged_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _I, _I64, _P, _P, _P,
                             _P, _I, _P, _I, _P], _I),
+        "staged_mlp_wgrad": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
+        "staged_mlp_wgrad_jobs": ([_I, _P], _I),
         "staged_mlp_bwd_scratch": ([_I64, _I, _P], None)},
 }
 # the layout each library reports, checked against the Python one at load:
@@ -240,6 +243,12 @@ _API = {
 _LAYOUT_OF = {
     "fused_mlp_fwd": ("fused_mlp_layout", True),
     "staged_mlp_fwd": ("staged_mlp_layout", False),
+}
+# the weight-gradient job table each backward library reports, checked
+# against `wgrad_jobs` at load: name -> (C function, view_pe)
+_JOBS_OF = {
+    "fused_mlp_bwd": ("fused_mlp_wgrad_jobs", True),
+    "staged_mlp_bwd": ("staged_mlp_wgrad_jobs", False),
 }
 
 
@@ -256,6 +265,10 @@ def _lib(name):
         fn, view_pe = _LAYOUT_OF[name]
         for C in (1, 3, 8, 127):
             _check_layout(getattr(lib, fn), _layout(C, view_pe), C)
+    if name in _JOBS_OF:
+        fn, view_pe = _JOBS_OF[name]
+        for C in (1, 3, 7):
+            _check_jobs(getattr(lib, fn), view_pe, C)
     _libs[name] = lib
     return lib
 
@@ -267,6 +280,17 @@ def _check_layout(fn, layout, C):
     if list(got) != want:
         raise RuntimeError(f"packed layout mismatch (C={C}): kernel {list(got)}"
                            f" vs python {want}")
+
+
+def _check_jobs(fn, view_pe, C):
+    products, thin = wgrad_jobs(C, view_pe)
+    want = [list(j[1:]) for j in products + thin]
+    got = (ctypes.c_int64 * (6 * len(want)))()
+    rows = fn(C, got)
+    got = [list(got[6 * i:6 * i + 6]) for i in range(rows)]
+    if got != want:
+        raise RuntimeError(f"weight-gradient jobs mismatch (C={C}, view_pe="
+                           f"{view_pe}): kernel {got} vs python {want}")
 
 
 def _ptr(t):
@@ -352,19 +376,100 @@ def launch_bwd(packed, pts, vd, band, g, S, C, splits=DEFAULT_SPLITS,
     return dpacked, dpts, dvd
 
 
+# rows of the backward scratch (fmlp::Scratch in
+# csrc/fused_mlp_bwd_common.cuh), [row][point] with row stride n_pad
+X_H = 64                              # after the point encoding (64 rows)
+X_F = X_H + DEPTH * WIDTH
+X_VPE = X_F + WIDTH                   # K2's view encoding (32 rows)
+D_F = DEPTH * WIDTH                   # after d pre-activation of layers 0..7
+D_HV = D_F + WIDTH
+D_G = D_HV + HEAD                     # the cotangent's C + 1 rows
+
+
+def wgrad_jobs(C, view_pe=True):
+    """The weight-gradient pass's job table (mirrors fmlp::make_jobs,
+    checked against the library's at load): (matrix products, thin jobs),
+    each a list of (name, x_row0, I, d_row0, O, out_off, bias_off): the
+    packed gradient's entries [out_off, out_off + I O) are X[x_row0:+I] @
+    D[d_row0:+O]^T over the scratch's points, row-major; x_row0 = -1 stands
+    for a row of ones (a bias); bias_off >= 0: the entries [bias_off,
+    bias_off + O) are the sums of those D rows (the kernel forms them while
+    it splits D). view_pe as for `_layout`: K2's table (12 products), else
+    K4's (11, no wvpe)."""
+    layout = _layout(C, view_pe)
+    off = dict(zip([name for name, _ in layout], _offsets(layout)))
+    x_hv = X_VPE + (32 if view_pe else 0)
+    h7 = X_H + (DEPTH - 1) * WIDTH
+    products = [("w0", 0, 63, 0, WIDTH, off["w0"], off["b"])]
+    products += [(f"wh{l + 1}", X_H + l * WIDTH, WIDTH, (l + 1) * WIDTH, WIDTH,
+                  off["wh"] + l * WIDTH * WIDTH, off["b"] + (l + 1) * WIDTH)
+                 for l in range(DEPTH - 1)]
+    products += [("w5pe", 0, 63, SKIP_LAYER * WIDTH, WIDTH, off["w5pe"], -1),
+                 ("wf", h7, WIDTH, D_F, WIDTH, off["wf"], off["bf"]),
+                 ("wfv", X_F, WIDTH, D_HV, HEAD, off["wfv"],
+                  off["bv"] if view_pe else -1)]
+    if view_pe:
+        products.append(("wvpe", X_VPE, 27, D_HV, HEAD, off["wvpe"], -1))
+    thin = [("wa", h7, WIDTH, D_G + C, 1, off["wa"], -1),
+            ("ba", -1, 1, D_G + C, 1, off["ba"], -1),
+            ("wrgb", x_hv, HEAD, D_G, C, off["wrgb"], -1),
+            ("brgb", -1, 1, D_G, C, off["brgb"], -1)]
+    return products, thin
+
+
+def wgrad_ranges(C, view_pe=True):
+    """(name, offset, size) of every range of the packed gradient that the
+    weight-gradient pass writes, by `wgrad_jobs`: each product, each bias
+    of its D rows, each thin job."""
+    products, thin = wgrad_jobs(C, view_pe)
+    out = [(j[0], j[5], j[2] * j[4]) for j in products + thin]
+    return out + [(f"bias of {j[0]}", j[6], j[4]) for j in products if j[6] >= 0]
+
+
+def wgrad_plain(x_scr, d_scr, n_pad, C, view_pe=True, compute_dtype="float32"):
+    """The weight-gradient pass's plain version: the packed gradient from a
+    scratch by `wgrad_jobs`, in float64; in "bfloat16" the matrix products'
+    operands are rounded to bf16 first, as the kernel does (the thin jobs
+    read fp32 in both modes)."""
+    _mode(compute_dtype)
+    X, D = x_scr.view(-1, n_pad), d_scr.view(-1, n_pad)
+    products, thin = wgrad_jobs(C, view_pe)
+    out = torch.zeros(_offsets(_layout(C, view_pe))[-1], dtype=torch.float64,
+                      device=x_scr.device)
+    for q, (_, x0, I, d0, O, off, bias) in enumerate(products + thin):
+        d = D[d0:d0 + O]
+        if bias >= 0:
+            out[bias:bias + O] = d.double().sum(dim=1)
+        x = X[x0:x0 + I] if x0 >= 0 else torch.ones_like(d[:1])
+        if q < len(products) and compute_dtype == "bfloat16":
+            x, d = (t.to(torch.bfloat16) for t in (x, d))
+        out[off:off + I * O] = (x.double() @ d.double().t()).reshape(-1)
+    return out
+
+
 def run_wgrad(x_scr, d_scr, n_pad, C, splits=DEFAULT_SPLITS,
-              compute_dtype="float32"):
-    """K2's weight-gradient pass alone on a scratch from `bwd_scratch`, for
-    timing it apart (not counted: the main path runs it inside K2)."""
+              compute_dtype="float32", view_pe=True):
+    """The weight-gradient pass alone (K2's table, or K4's with view_pe
+    False) on a scratch from `bwd_scratch` / `staged_mlp.bwd_scratch`, for
+    timing and checking it apart (not counted: the main path runs it inside
+    K2 and K4). On the CPU: the plain version, `wgrad_plain`, in fp32."""
+    if x_scr.device.type == "cpu":
+        return wgrad_plain(x_scr, d_scr, n_pad, C, view_pe,
+                           compute_dtype).float()
     _check("X scratch", x_scr, tuple(x_scr.shape))
     _check("D scratch", d_scr, tuple(d_scr.shape))
-    part = torch.empty((splits, _offsets(_layout(C))[-1]), device=x_scr.device)
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    part = torch.empty((splits, _offsets(_layout(C, view_pe))[-1]),
+                       device=x_scr.device)
     dpacked = torch.empty(part.shape[1], device=x_scr.device)
-    rc = _lib("fused_mlp_bwd").fused_mlp_wgrad(
+    name = "fused_mlp_wgrad" if view_pe else "staged_mlp_wgrad"
+    lib = _lib("fused_mlp_bwd" if view_pe else "staged_mlp_bwd")
+    rc = getattr(lib, name)(
         _ptr(x_scr), _ptr(d_scr), n_pad, C, _ptr(part), splits,
         _ptr(dpacked), _mode(compute_dtype), _stream())
     if rc:
-        raise RuntimeError(f"fused_mlp_wgrad: CUDA error {rc}")
+        raise RuntimeError(f"{name}: CUDA error {rc}")
     return dpacked
 
 

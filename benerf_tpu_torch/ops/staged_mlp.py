@@ -89,6 +89,16 @@ def launch_fwd(packed, pts, vb, S, C, compute_dtype="float32"):
     return out
 
 
+def bwd_scratch(n, C, device):
+    """K4's scratch for n points and C channels: (n_pad, X, D, first row of
+    d vb per point in D), feature-major fp32."""
+    n_pad = -(-n // TILE) * TILE
+    sizes = (ctypes.c_int64 * 3)()
+    _lib("staged_mlp_bwd").staged_mlp_bwd_scratch(n_pad, C, sizes)
+    return (n_pad, torch.empty(sizes[0], device=device),
+            torch.empty(sizes[1], device=device), sizes[2])
+
+
 def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
                compute_dtype="float32"):
     """K4: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d vb (n / S,
@@ -104,11 +114,7 @@ def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
         raise ValueError(f"splits must be >= 1, got {splits}")
     lib = _lib("staged_mlp_bwd")
     dev = pts.device
-    n_pad = -(-n // TILE) * TILE
-    sizes = (ctypes.c_int64 * 3)()
-    lib.staged_mlp_bwd_scratch(n_pad, C, sizes)
-    x_scr = torch.empty(sizes[0], device=dev)
-    d_scr = torch.empty(sizes[1], device=dev)
+    n_pad, x_scr, d_scr, dvb_row = bwd_scratch(n, C, dev)
     part = torch.empty((splits, packed.numel()), device=dev)
     dpacked = torch.empty_like(packed)
     dpts = torch.empty((n, 3), device=dev)
@@ -119,9 +125,9 @@ def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
     if rc:
         raise RuntimeError(f"staged_mlp_bwd: CUDA error {rc}")
     LAUNCHES[launch_key("staged_mlp_bwd", compute_dtype)] += 1
-    # K4 leaves d vb per point in the scratch's rows [sizes[2], +128); a
+    # K4 leaves d vb per point in the scratch's rows [dvb_row, +128); a
     # ray's bias is broadcast over its S samples: sum them
-    dvb_pt = d_scr.view(-1, n_pad)[sizes[2]:sizes[2] + HEAD, :n]
+    dvb_pt = d_scr.view(-1, n_pad)[dvb_row:dvb_row + HEAD, :n]
     dvb = dvb_pt.unflatten(1, (R, S)).sum(dim=2).t()
     return dpacked, dpts, dvb
 

@@ -13,9 +13,11 @@ an exception):
      n = 3,055 x 128 = 391,040) and at a ragged n with BARF on and off,
      C in {1, 3, 7} (C + 1 = 8 fills every head row): in fp32 mode (TF32X3) against fp32 nerf.apply, in bf16
      mode against nerf.apply with bf16 operands and float64 (check_*_bf16);
-     K2 also rerun with another split count; CUDA-event times of kernel,
-     plain version, both bounds, and of K2's weight-gradient pass beside
-     torch.matmul of the same products;
+     K2 also rerun with another split count; K2's weight-gradient pass
+     alone (csrc/wgrad_wgmma.cuh) against the float64 product of the same
+     scratch, both modes, splits 32 and 7, at both training n and 3 x 37;
+     CUDA-event times of kernel, plain version, both bounds, and of the
+     weight-gradient pass beside torch.matmul of the same products;
   3. the tanabata slice: the config at full width (400x600, 1024 event +
      1024 rgb rays over 19 poses, 64+64 samples, 8x256 MLPs) trained for
      ITERS iterations on a scene made in memory from a seed, with the launch
@@ -27,8 +29,9 @@ an exception):
      at both training n and at ragged n, C in {1, 3, 8, 127} (C + 1 = 128
      fills the head space), as phase 2 holds K1/K2: fp32 mode (TF32X3)
      against fp32 nerf.apply, bf16 mode against nerf.apply with bf16
-     operands and float64; K4 at two split counts; times of both modes
-     beside their bounds;
+     operands and float64; K4 at two split counts; K4's weight-gradient
+     pass (K4's job table) against float64 as in phase 2; times of both
+     modes beside their bounds;
   6. the L = 6 slice: tanabata with multires_views = 6 and caller-built
      MLPs, L6_ITERS train steps through make_train_step on the same scene,
      every MLP call through K3/K4 in fp32 mode;
@@ -87,10 +90,11 @@ K2_SCRATCH_B = (2528 + 2440) * 4
 def k4_scratch_bytes(C):
     return (2496 + 2432 + C + 1) * 4
 
-# (I, O) of the matrix products of K2's weight-gradient pass: w0, wh x 7,
-# w5pe, wf, wfv, wvpe
-WGRAD_SHAPES = ([(63, 256)] + [(256, 256)] * 7 + [(63, 256), (256, 256),
-                                                   (256, 128), (27, 128)])
+# the weight-gradient pass alone against the float64 product of the same
+# scratch (bf16 mode: of its bf16-rounded operands), per job, x max |ref|:
+# its TF32X3 (or bf16-operand) products with fp32 sums promoted every 32
+# points sit at ~1e-6 (tests/test_torch_wgrad.py); one TF32 product at ~3e-4
+WGRAD_TOL = 1e-5
 
 
 def flops_fwd_per_point(depth=8, width=256, input_ch=63, views_ch=27,
@@ -356,38 +360,131 @@ def time_kernels(torch, S, C=3, compute_dtype="float32"):
     return k1, p1, k2, p2
 
 
-def time_wgrad(torch, S, C=3, compute_dtype="float32"):
-    """(K2's weight-gradient pass ms, torch.matmul of the same 12 products
-    ms in fp32, the same in TF32) at n = RAYS * S. The pass runs alone on a
-    scratch of random numbers (its work does not depend on the values);
-    torch.matmul is the yardstick only: the port never calls it."""
+def wgrad_scratch(torch, view_pe, n, C=3, seed=3):
+    """A backward scratch for n points (K2's rows with view_pe, else K4's),
+    filled with normal numbers: (n_pad, X, D). The pass's work does not
+    depend on the values."""
+    from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+
+    if view_pe:
+        n_pad, x_scr, d_scr = fused_mlp.bwd_scratch(n, "cuda")
+    else:
+        n_pad, x_scr, d_scr, _ = staged_mlp.bwd_scratch(n, C, "cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    x_scr.normal_(generator=g)
+    d_scr.normal_(generator=g)
+    return n_pad, x_scr, d_scr
+
+
+def check_wgrad(torch, view_pe, n, C=3):
+    """The weight-gradient pass alone (K2's job table with view_pe, else
+    K4's) at n points, both modes, splits 32 and 7, against
+    fused_mlp.wgrad_plain: the float64 product of the same scratch (bf16
+    mode: of its bf16-rounded operands), within WGRAD_TOL x max |ref| for
+    every job -> {mode: {"splits_32": worst err/scale, "splits_7": ...,
+    "max_abs_err": ..., and in bf16 mode "vs_fp32_operands": distance to
+    the float64 product of the unrounded scratch}}."""
+    from benerf_tpu_torch.ops import fused_mlp
+
+    name = "K2" if view_pe else "K4"
+    n_pad, x_scr, d_scr = wgrad_scratch(torch, view_pe, n, C)
+    ranges = fused_mlp.wgrad_ranges(C, view_pe)
+
+    def worst(got, ref):
+        rel, err = 0.0, 0.0
+        for _, off, size in ranges:
+            a, b = got[off:off + size].double(), ref[off:off + size]
+            e = float((a - b).abs().max())
+            err, rel = max(err, e), max(rel, e / max(float(b.abs().max()), 1e-30))
+        return rel, err
+
+    out = {}
+    for cd in ("float32", "bfloat16"):
+        ref = fused_mlp.wgrad_plain(x_scr, d_scr, n_pad, C, view_pe, cd)
+        r = {}
+        for splits in (32, 7):
+            got = fused_mlp.run_wgrad(x_scr, d_scr, n_pad, C, splits, cd, view_pe)
+            torch.cuda.synchronize()
+            rel, err = worst(got, ref)
+            if not (bool(torch.isfinite(got).all()) and rel <= WGRAD_TOL):
+                raise AssertionError(f"{name} weight-gradient pass ({cd}, splits "
+                                     f"{splits}, n={n}) off float64: {rel}")
+            r[f"splits_{splits}"] = rel
+            r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
+        if cd == "bfloat16":
+            r["vs_fp32_operands"] = worst(got, fused_mlp.wgrad_plain(
+                x_scr, d_scr, n_pad, C, view_pe))[0]
+        out[MODE_NAME[cd]] = r
+        print(f"  {name} weight-gradient pass {MODE_NAME[cd]} n={n}: vs float64 "
+              f"worst err/scale {r['splits_32']:.3e} (splits 32), "
+              f"{r['splits_7']:.3e} (7)"
+              + (f"; bf16 vs fp32 operands {r['vs_fp32_operands']:.3e}"
+                 if cd == "bfloat16" else "") + f" (tol {WGRAD_TOL})")
+    return out
+
+
+def time_wgrad(torch, S, C=3, compute_dtype="float32", view_pe=True):
+    """(the weight-gradient pass ms, torch.matmul of the same products ms in
+    fp32, the same in TF32, the same on bf16 operands) at n = RAYS * S, K2's
+    job table with view_pe, else K4's. The pass runs alone on a scratch of
+    random numbers; torch.matmul is the yardstick only: the port never
+    calls it."""
     from benerf_tpu_torch.ops import fused_mlp
 
     n = RAYS * S
-    n_pad, x_scr, d_scr = fused_mlp.bwd_scratch(n, "cuda")
-    x_scr.normal_()
-    d_scr.normal_()
-    k = time_ms(torch, lambda: fused_mlp.run_wgrad(x_scr, d_scr, n_pad, C,
-                                                   compute_dtype=compute_dtype))
+    n_pad, x_scr, d_scr = wgrad_scratch(torch, view_pe, n, C)
+    k = time_ms(torch, lambda: fused_mlp.run_wgrad(
+        x_scr, d_scr, n_pad, C, compute_dtype=compute_dtype, view_pe=view_pe))
     del x_scr, d_scr
-    xs = torch.randn((sum(i for i, _ in WGRAD_SHAPES), n), device="cuda")
-    ds = torch.randn((sum(o for _, o in WGRAD_SHAPES), n), device="cuda")
+    shapes = [(j[2], j[4]) for j in fused_mlp.wgrad_jobs(C, view_pe)[0]]
+    xs = torch.randn((sum(i for i, _ in shapes), n), device="cuda")
+    ds = torch.randn((sum(o for _, o in shapes), n), device="cuda")
     pairs, i0, o0 = [], 0, 0
-    for i, o in WGRAD_SHAPES:
+    for i, o in shapes:
         pairs.append((xs[i0:i0 + i], ds[o0:o0 + o]))
         i0, o0 = i0 + i, o0 + o
 
-    def library():
-        for a, b in pairs:
+    def library(ps):
+        for a, b in ps:
             torch.matmul(a, b.t())
 
     tf32 = torch.backends.cuda.matmul.allow_tf32
     times = []
     for allow in (False, True):
         torch.backends.cuda.matmul.allow_tf32 = allow
-        times.append(time_ms(torch, library))
+        times.append(time_ms(torch, lambda: library(pairs)))
     torch.backends.cuda.matmul.allow_tf32 = tf32
-    return k, times[0], times[1]
+    del xs, ds
+    bf = [(a.to(torch.bfloat16), b.to(torch.bfloat16)) for a, b in pairs]
+    times.append(time_ms(torch, lambda: library(bf)))
+    return k, times[0], times[1], times[2]
+
+
+def _wgrad_per_n(torch, per, n, C, compute_dtype, view_pe, peak, weights,
+                 scratch_b):
+    """Time the weight-gradient pass at n = RAYS * S into `per` (the
+    wgrad_* keys): pass and library times, the operation bound (its matrix
+    products at the mode's tensor-core rate) and the byte bound (its
+    scratch read once, its gradients written once)."""
+    from benerf_tpu_torch.ops import fused_mlp
+
+    S = n // RAYS
+    n_pad = -(-n // fused_mlp.TILE) * fused_mlp.TILE
+    kw, lib32, lib_tf32, lib_bf16 = time_wgrad(torch, S, C, compute_dtype, view_pe)
+    products = fused_mlp.wgrad_jobs(C, view_pe)[0]
+    wflops = 2 * n * sum(j[2] * j[4] for j in products)
+    wbytes = scratch_b * n_pad + weights * 4
+    per.update(wgrad_ms=kw, wgrad_library_fp32_ms=lib32,
+               wgrad_library_tf32_ms=lib_tf32,
+               wgrad_ops_bound_ms=wflops / peak * 1e3,
+               wgrad_bytes_bound_ms=wbytes / HBM_BYTES_S * 1e3)
+    if compute_dtype == "bfloat16":
+        per["wgrad_library_bf16_operands_ms"] = lib_bf16
+    per["wgrad_bound_ms"], per["wgrad_bound_by"] = _bound(wflops, peak, wbytes)
+    return (f"weight-gradient pass {kw:.3f} ms (bound {per['wgrad_bound_ms']:.3f} "
+            f"{per['wgrad_bound_by']}; torch.matmul fp32 {lib32:.3f}, TF32 "
+            f"{lib_tf32:.3f}, bf16 operands {lib_bf16:.3f})")
 
 
 def time_staged_kernels(torch, S, C=3, compute_dtype="float32"):
@@ -596,7 +693,7 @@ def _per_n_fused(torch, compute_dtype, C=3):
     (K2_SCRATCH_B a point each way), is its design's own floor
     (bwd_scratch_floor_ms), not part of the bound. K2's weight-gradient pass
     is timed alone too, beside torch.matmul of its products (its
-    `library_ms`); its bound counts the scratch, which is its input."""
+    `library_ms`); its byte bound counts the scratch, which is its input."""
     from benerf_tpu_torch.ops import fused_mlp
 
     flops_pt = flops_fwd_per_point()
@@ -607,31 +704,24 @@ def _per_n_fused(torch, compute_dtype, C=3):
         n = RAYS * S
         n_pad = -(-n // fused_mlp.TILE) * fused_mlp.TILE
         kf, pf, kb, pb = time_kernels(torch, S, C, compute_dtype)
-        kw, lib32, lib_tf32 = time_wgrad(torch, S, C, compute_dtype)
         bytes_f = (n * (3 + C + 1) + RAYS * 3 + weights) * 4
         bytes_b = bytes_f + (n * (C + 1 + 3 + 3) + weights) * 4
         flops = flops_pt * n
-        wflops = 2 * n * sum(i * o for i, o in WGRAD_SHAPES)
         d = dict(fwd_ms=kf, fwd_plain_ms=pf, bwd_ms=kb, bwd_plain_ms=pb,
                  fwd_fp32_core_bound_ms=flops / FP32_PEAK * 1e3,
                  bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3,
-                 wgrad_ms=kw, wgrad_library_fp32_ms=lib32,
-                 wgrad_library_tf32_ms=lib_tf32,
                  bwd_scratch_floor_ms=2 * K2_SCRATCH_B * n_pad / HBM_BYTES_S * 1e3)
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
-        d["wgrad_bound_ms"], d["wgrad_bound_by"] = _bound(
-            wflops, peak, K2_SCRATCH_B * n_pad + weights * 4)
+        wline = _wgrad_per_n(torch, d, n, C, compute_dtype, True, peak, weights,
+                             K2_SCRATCH_B)
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K1 {kf:.3f} ms (plain {pf:.3f}, "
               f"bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
               f"{d['fwd_fp32_core_bound_ms']:.3f}); K2 {kb:.3f} ms (plain "
               f"fwd+bwd {pb:.3f}, bound {d['bwd_bound_ms']:.3f} "
               f"{d['bwd_bound_by']}, fp32-core {d['bwd_fp32_core_bound_ms']:.3f}, "
-              f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); "
-              f"its weight-gradient pass {kw:.3f} ms (bound "
-              f"{d['wgrad_bound_ms']:.3f}; torch.matmul fp32 {lib32:.3f}, "
-              f"TF32 {lib_tf32:.3f})")
+              f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); its {wline}")
     return out
 
 
@@ -642,7 +732,8 @@ def _per_n_staged(torch, compute_dtype, C=3):
     weight gradients. Operations: 1x (K3) and 3x (K4) the forward's FLOP,
     at the tensor-core rate of the mode, with the fp32 CUDA-core bound
     beside it. K4's fp32 scratch (k4_scratch_bytes a point each way) is its
-    design's own floor (bwd_scratch_floor_ms), as K2's."""
+    design's own floor (bwd_scratch_floor_ms), as K2's; its weight-gradient
+    pass (K4's job table) is timed alone as K2's."""
     from benerf_tpu_torch.ops import fused_mlp
 
     flops_pt = flops_fwd_per_point(views_ch=0)
@@ -664,13 +755,15 @@ def _per_n_staged(torch, compute_dtype, C=3):
                  / HBM_BYTES_S * 1e3)
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
+        wline = _wgrad_per_n(torch, d, n, C, compute_dtype, False, peak, weights,
+                             k4_scratch_bytes(C))
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K3 {kf:.3f} ms (plain "
               f"{pf:.3f}, bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
               f"{d['fwd_fp32_core_bound_ms']:.3f}); K4 {kb:.3f} ms (plain "
               f"fwd+bwd {pb:.3f}, bound {d['bwd_bound_ms']:.3f} "
               f"{d['bwd_bound_by']}, fp32-core {d['bwd_fp32_core_bound_ms']:.3f}, "
-              f"scratch floor {d['bwd_scratch_floor_ms']:.3f})")
+              f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); its {wline}")
     return out
 
 
@@ -690,11 +783,18 @@ def _kernel_line(name, source, replaces, mode, launches, errs, tol, per_n,
                   for n, dd in per_n.items()}, **extra)
 
 
-def _wgrad_line(per_n):
-    """K2's weight-gradient pass, a part of K2's entry: its time beside
-    torch.matmul of the same products (library_ms: fp32, TF32)."""
-    return {str(n): {k: v for k, v in d.items() if k.startswith("wgrad")}
-            for n, d in per_n.items()}
+def _wgrad_line(per_n, vs_f64, mode):
+    """The weight-gradient pass of a K2 or K4 entry (csrc/wgrad_wgmma.cuh):
+    per training n its time, operation and byte bounds beside torch.matmul
+    of the same products (fp32, TF32, and in bf16 mode on bf16 operands),
+    and its distance to the float64 product of the same scratch (at the
+    ragged n too, splits 32 and 7)."""
+    return dict(
+        source="benerf_tpu_torch/csrc/wgrad_wgmma.cuh",
+        per_call={str(n): {k: v for k, v in d.items() if k.startswith("wgrad")}
+                  for n, d in per_n.items()},
+        vs_float64={str(n): d[mode] for n, d in vs_f64.items()},
+        vs_float64_tolerance=f"{WGRAD_TOL} x max(|float64 product|) per job")
 
 
 def main():
@@ -718,7 +818,7 @@ def main():
     print(f"    kernel build {build_s:.1f} s")
     for name, log in fused_mlp.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
 
     # 2. K1/K2 vs plain, at the path's shapes, both modes
@@ -741,6 +841,8 @@ def main():
     check_bwd(torch, "K1/K2", 3, 37, 3, False)
     # split-count independence on the fine shape: splits 32 (default) vs 7
     check_splits(torch, "K1/K2", g32, 1e-4)
+    print("    K2's weight-gradient pass alone vs float64 of the same scratch")
+    wg2 = {n: check_wgrad(torch, True, n) for n in (RAYS * 64, RAYS * 128, 3 * 37)}
     print("    bf16 mode vs nerf.apply with bf16 operands and vs float64")
     bf = {RAYS * S: check_bf16(torch, "K1/K2", RAYS, S, 3, False)
           for S in (64, 128)}
@@ -782,6 +884,8 @@ def main():
         for C in (1, 3, 8, 127):
             check_bwd(torch, "K3/K4", R, S, C, False)
     check_splits(torch, "K3/K4", g32, 1e-5)
+    print("    K4's weight-gradient pass alone vs float64 of the same scratch")
+    wg4 = {n: check_wgrad(torch, False, n) for n in (RAYS * 64, RAYS * 128, 3 * 37)}
     print("    bf16 mode vs nerf.apply with bf16 operands and vs float64")
     bf34 = {RAYS * S: check_bf16(torch, "K3/K4", RAYS, S, 3, False)
             for S in (64, 128)}
@@ -844,11 +948,13 @@ def main():
                      launches["fused_mlp_bwd"], k2_err, bwd_tol, k12["float32"],
                      "bwd",
                      pointwise_outside_tol={str(n): v for n, v in k2_outside.items()},
-                     weight_gradient_pass=_wgrad_line(k12["float32"]), **scratch),
+                     weight_gradient_pass=_wgrad_line(k12["float32"], wg2, "tf32x3"),
+                     **scratch),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "bf16",
                      bf_launches["fused_mlp_bwd_bf16"], k2_bf, bf_bwd_tol,
                      k12["bfloat16"], "bwd", bf16_vs_float64={str(n): d for n, d in bf.items()},
-                     weight_gradient_pass=_wgrad_line(k12["bfloat16"]), **scratch),
+                     weight_gradient_pass=_wgrad_line(k12["bfloat16"], wg2, "bf16"),
+                     **scratch),
         _kernel_line("K3 staged_mlp_fwd", k3_src, k3_rep, "tf32x3",
                      l6_launches["staged_mlp_fwd"], k3_err, fwd_tol,
                      k34["float32"], "fwd"),
@@ -859,11 +965,14 @@ def main():
                      l6_launches["staged_mlp_bwd"], k4_err, bwd_tol,
                      k34["float32"], "bwd",
                      pointwise_outside_tol={str(n): v for n, v in k4_outside.items()},
+                     weight_gradient_pass=_wgrad_line(k34["float32"], wg4, "tf32x3"),
                      **scratch4),
         _kernel_line("K4 staged_mlp_bwd", k4_src, k4_rep, "bf16",
                      l6bf_launches["staged_mlp_bwd_bf16"], k4_bf, bf_bwd_tol,
                      k34["bfloat16"], "bwd",
-                     bf16_vs_float64={str(n): d for n, d in bf34.items()}, **scratch4),
+                     bf16_vs_float64={str(n): d for n, d in bf34.items()},
+                     weight_gradient_pass=_wgrad_line(k34["bfloat16"], wg4, "bf16"),
+                     **scratch4),
     ]
     print(json.dumps({"kernels": kernels, "slices": {
         "tanabata": {"ms_per_iter": ms_iter, "rays_per_sec": rays_s,

@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1/K2 and K3/K4 (both modes) on the card, against
-the plain PyTorch version (models/nerf.apply), and the MLP dispatcher's
+the plain PyTorch version (models/nerf.apply), their weight-gradient pass
+alone against the float64 product of its scratch, and the MLP dispatcher's
 card routes. CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
@@ -189,6 +190,38 @@ def test_staged_weight_gradients_do_not_depend_on_the_split_count(card):
     for a, b in zip(grads(1), grads(13)):
         scale = max(b.abs().max().item(), 1.0)
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+def _filled_scratch(view_pe, n, C=3, seed=0):
+    if view_pe:
+        n_pad, x_scr, d_scr = fused_mlp.bwd_scratch(n, "cuda")
+    else:
+        n_pad, x_scr, d_scr, _ = staged_mlp.bwd_scratch(n, C, "cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return n_pad, x_scr.normal_(generator=g), d_scr.normal_(generator=g)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("view_pe", [True, False], ids=["K2", "K4"])
+@pytest.mark.parametrize("n", [111, 320, 4000])
+def test_weight_gradient_pass_matches_float64(card, n, view_pe, compute_dtype):
+    """The TMA + wgmma weight-gradient pass alone, K2's and K4's job tables,
+    against the float64 product of the same scratch (bf16 mode: of its
+    bf16-rounded operands), every job within chip_smoke.py's WGRAD_TOL
+    (1e-5) x max |ref|, at split counts that leave chunks empty (111 points
+    at 32 splits), ragged or whole."""
+    C = 3
+    n_pad, x_scr, d_scr = _filled_scratch(view_pe, n, C)
+    ref = fused_mlp.wgrad_plain(x_scr, d_scr, n_pad, C, view_pe, compute_dtype)
+    for splits in (1, 7, 32):
+        got = fused_mlp.run_wgrad(x_scr, d_scr, n_pad, C, splits, compute_dtype,
+                                  view_pe)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        for name, off, size in fused_mlp.wgrad_ranges(C, view_pe):
+            a, b = got[off:off + size].double(), ref[off:off + size]
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
 
 
 def test_card_path_raises_where_the_kernel_does_not_apply(card):

@@ -4,7 +4,8 @@ oracle `accumulate_events_numpy`.
 Both ETA paths are covered: the full-stream mask and the `cap` path that
 takes a fixed number of events from the window start (start clamped to
 N - cap) and reports how many events a too-small cap dropped. The scene
-entry points put their events on the card unless asked for the CPU.
+entry points and the parameter bridge put their tensors on the card unless
+asked for the CPU.
 """
 
 import types
@@ -147,3 +148,17 @@ def test_scene_entry_points_default_to_the_card(monkeypatch):
     assert scene.image.shape == (1, H, W, 3)
     lo, hi = tev.sample_time_window(torch.Generator().manual_seed(0), 0.1)
     assert lo.device.type == hi.device.type == "cpu"
+
+
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    """The parameter bridge puts the JAX package's parameters on the card
+    unless asked for the CPU, and raises without a card."""
+    from benerf_tpu_torch.models import bridge
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"w": np.ones((2, 3), np.float32), "b": [np.zeros(3, np.float64)]}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bridge.params_from_numpy(tree)
+    got = bridge.params_from_numpy(tree, device="cpu")
+    assert got["w"].device.type == "cpu" and got["w"].dtype == torch.float32
+    assert got["b"][0].dtype == torch.float64

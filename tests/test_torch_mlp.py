@@ -58,7 +58,7 @@ def _j(x):
 
 
 def _port_grads(fn, params_np, pts, vd, bw, bwv):
-    params = bridge.params_from_numpy(params_np)
+    params = bridge.params_from_numpy(params_np, device="cpu")
     leaves = bridge.tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
@@ -97,7 +97,7 @@ def test_forward_matches_jax(C, S, barf):
     want = np.asarray(jnerf.apply(jax.tree.map(jnp.asarray, params),
                                   jnp.asarray(pts), jnp.asarray(vd),
                                   barf_weights=_j(bw), barf_weights_views=_j(bwv)))
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     for fn in (tnerf.apply, fused_mlp.fused_nerf_mlp, tmlp.mlp_forward):
         got = fn(tp, torch.as_tensor(pts), torch.as_tensor(vd),
                  barf_weights=_t(bw), barf_weights_views=_t(bwv)).numpy()
@@ -112,7 +112,7 @@ def test_forward_matches_pallas_kernel(C, S, barf, interpret_mode):
         jax.tree.map(jnp.asarray, params), jnp.asarray(pts), jnp.asarray(vd),
         barf_weights=_j(bw), barf_weights_views=_j(bwv)))
     got = fused_mlp.fused_nerf_mlp(
-        bridge.params_from_numpy(params), torch.as_tensor(pts),
+        bridge.params_from_numpy(params, device="cpu"), torch.as_tensor(pts),
         torch.as_tensor(vd), barf_weights=_t(bw), barf_weights_views=_t(bwv))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-4)
 
@@ -137,7 +137,7 @@ def test_gradients_match_pallas_kernel(interpret_mode):
 
 def test_mlp_forward_families_is_one_call_split():
     params, pts, vd, _, _ = _inputs(6, 64, 3, seed=5, barf=False)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     p, v = torch.as_tensor(pts), torch.as_tensor(vd)
     outs = tmlp.mlp_forward_families(tp, [(p[:2], v[:2]), (p[2:], v[2:])])
     whole = tmlp.mlp_forward(tp, p, v)
@@ -147,7 +147,7 @@ def test_mlp_forward_families_is_one_call_split():
 
 def test_bfloat16_plain_path_runs_on_cpu():
     params, pts, vd, _, _ = _inputs(2, 64, 3, seed=1, barf=False)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     f32 = tmlp.mlp_forward(tp, torch.as_tensor(pts), torch.as_tensor(vd))
     bf16 = tmlp.mlp_forward(tp, torch.as_tensor(pts), torch.as_tensor(vd),
                             compute_dtype="bfloat16")
@@ -159,7 +159,7 @@ def test_bfloat16_plain_path_runs_on_cpu():
 
 def test_bridge_round_trip():
     params, _, _, _, _ = _inputs(1, 1, 3, seed=0, barf=False)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     assert isinstance(tp["pts"], list) and set(tp) == set(params)
     back = bridge.params_to_numpy(tp)
     flat_a, flat_b = bridge.tree_leaves(params), bridge.tree_leaves(back)
@@ -180,7 +180,7 @@ def test_packed_layouts(C):
     packing inverts through unpack, and K3/K4's vector (view_pe=False) is
     K1/K2's without the view-encoding weights and bias."""
     params, _, _, _, _ = _inputs(1, 1, C, seed=C, barf=False)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     packed = fused_mlp.pack_params(tp)
     v = fused_mlp.unpack(packed, C)
     assert packed.numel() == fused_mlp._offsets(fused_mlp._layout(C))[-1]
@@ -204,9 +204,9 @@ def test_packed_layouts(C):
 
 def test_supports_predicate():
     params, _, _, _, _ = _inputs(1, 1, 3, seed=0, barf=False)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     assert fused_mlp.supports(tp)
     assert not fused_mlp.supports({k: v for k, v in tp.items() if k != "views"})
     narrow = bridge.params_from_numpy(jax.tree.map(
-        np.asarray, jnerf.init_params(jax.random.PRNGKey(0), width=64)))
+        np.asarray, jnerf.init_params(jax.random.PRNGKey(0), width=64)), device="cpu")
     assert not fused_mlp.supports(narrow)

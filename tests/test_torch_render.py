@@ -233,7 +233,7 @@ def test_render_pose_families_matches_jax(C, barf, out_rtol, grad_rel):
         jax.tree.map(jnp.asarray, pc), jax.tree.map(jnp.asarray, pf),
         [jnp.asarray(s["poses"]) for s in specs])
 
-    tpc, tpf = bridge.params_from_numpy(pc), bridge.params_from_numpy(pf)
+    tpc, tpf = bridge.params_from_numpy(pc, device="cpu"), bridge.params_from_numpy(pf, device="cpu")
     leaves = bridge.tree_leaves(tpc) + bridge.tree_leaves(tpf)
     for t in leaves:
         t.requires_grad_(True)
@@ -267,7 +267,7 @@ def test_render_pose_families_matches_jax(C, barf, out_rtol, grad_rel):
 def test_joint_family_render_matches_separate():
     """One coarse + one fine MLP call over both families gives each family
     what rendering it alone gives, on the generator (merge) path too."""
-    pc, pf = [bridge.params_from_numpy(p) for p in _small_mlps(3, seed=5)]
+    pc, pf = [bridge.params_from_numpy(p, device="cpu") for p in _small_mlps(3, seed=5)]
     settings = trenderer.RenderSettings(n_samples=8, n_importance=8, channels=3)
     rng = np.random.default_rng(6)
 

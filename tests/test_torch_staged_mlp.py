@@ -80,7 +80,7 @@ def _jax_grads(fn, params, pts, vd, Lv):
 
 
 def _port_grads(fn, params, pts, vd, Lv):
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(tp)]
     x = torch.tensor(pts, requires_grad=True)
     v = torch.tensor(vd, requires_grad=True)
@@ -110,7 +110,7 @@ def test_staged_forward_matches_jax(views_ch, C, S, interpret_mode):
                                               jnp.asarray(vd),
                                               num_freqs_views=Lv))
     got = staged_mlp.staged_nerf_mlp(
-        bridge.params_from_numpy(params), torch.as_tensor(pts),
+        bridge.params_from_numpy(params, device="cpu"), torch.as_tensor(pts),
         torch.as_tensor(vd), num_freqs_views=Lv).numpy()
     assert got.shape == want.shape == (13, S, C + 1)
     np.testing.assert_allclose(got, want, rtol=0, atol=FWD_ATOL)
@@ -131,7 +131,7 @@ RELU_TIE = 1e-5
 def _min_relu_input(params, pts, vd, Lv):
     """Per point, the smallest |ReLU input| of nerf.apply in float64
     (trunk and views layer)."""
-    p = bridge.tree_map(lambda t: t.double(), bridge.params_from_numpy(params))
+    p = bridge.tree_map(lambda t: t.double(), bridge.params_from_numpy(params, device="cpu"))
     x = torch.as_tensor(pts, dtype=torch.float64).reshape(-1, 3)
     pe = temb.positional_encoding(x, 10)
     h, mins = pe, []
@@ -221,7 +221,7 @@ def test_emulated_staged_network_matches_jax(compute_dtype, interpret_mode):
     params, pts, vd, Lv = _inputs(13, 64, 3, 39, seed=11)
     pts = _away_from_relu_ties(params, pts, vd, Lv, seed=12)
     emu = _emulated_staged(compute_dtype)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     got = emu(tp, torch.as_tensor(pts), torch.as_tensor(vd), Lv).numpy()
     got_g = _port_grads(emu, params, pts, vd, Lv)
     jp = jax.tree.map(jnp.asarray, params)
@@ -231,7 +231,7 @@ def test_emulated_staged_network_matches_jax(compute_dtype, interpret_mode):
         np.testing.assert_allclose(got, want, rtol=0, atol=FWD_ATOL)
         _assert_grads_close(got_g, _jax_grads(jnerf.apply, params, pts, vd, Lv))
         f64 = jax.tree.map(lambda a: a.astype(np.float64), (params, pts, vd))
-        want64 = tnerf.apply(bridge.params_from_numpy(f64[0]),
+        want64 = tnerf.apply(bridge.params_from_numpy(f64[0], device="cpu"),
                              torch.as_tensor(f64[1]), torch.as_tensor(f64[2]),
                              num_freqs_views=Lv).numpy()
         assert np.abs(got - want64).max() <= F64_TOL * max(np.abs(want64).max(), 1.0)
@@ -304,7 +304,7 @@ def test_staged_packed_layout(C):
     aligned, unpack inverting pack; the weights and their gradient share
     it."""
     params, _, _, _ = _inputs(1, 1, C, 39, seed=C)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     packed = fused_mlp.pack_params(tp, view_pe=False)
     offs = fused_mlp._offsets(fused_mlp._layout(C, view_pe=False))
     assert packed.numel() == offs[-1]
@@ -363,7 +363,7 @@ def test_route_matches_the_jax_dispatcher(width, depth, use_viewdirs):
                 input_ch_views=views_ch, channels=C,
                 use_viewdirs=use_viewdirs))
             jparams = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
-            tparams = bridge.params_from_numpy(jparams)
+            tparams = bridge.params_from_numpy(jparams, device="cpu")
             vd = np.zeros((2, 3), np.float32) if use_viewdirs else None
             Lv = (views_ch - 3) // 6
             for barf in (False, True):
@@ -380,7 +380,7 @@ def test_route_matches_the_jax_dispatcher(width, depth, use_viewdirs):
 
 def test_cpu_tensors_take_the_plain_version_on_every_route():
     params, pts, vd, Lv = _inputs(2, 8, 3, 39, seed=4)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     assert tmlp.route(tp, torch.as_tensor(vd), 10, Lv, False) == "staged"
     plain_before = tmlp.ROUTES["plain"]
     got = tmlp.mlp_forward(tp, torch.as_tensor(pts), torch.as_tensor(vd),
@@ -474,7 +474,7 @@ def test_staged_op_refuses_an_encoding_the_jax_kernel_misreads(interpret_mode):
     assert out.shape == (2, 64, 4)
     with pytest.raises(TypeError):
         jnerf.apply(jp, jnp.asarray(pts), jnp.asarray(vd), num_freqs=6)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     with pytest.raises(ValueError, match="num_freqs=6"):
         staged_mlp.staged_nerf_mlp(tp, torch.as_tensor(pts),
                                    torch.as_tensor(vd), num_freqs=6)

@@ -120,7 +120,7 @@ def _jax_side(jcfg, seed, C, knots, transform):
 def _port_side(jparams, seed, C, dtype=torch.float32):
     ev, img, K = _scene_np(seed, C)
     params = bridge.tree_map(lambda t: t.to(dtype).requires_grad_(True),
-                             bridge.params_from_numpy(_np_tree(jparams)))
+                             bridge.params_from_numpy(_np_tree(jparams), device="cpu"))
     batch = tstep.SceneBatch(
         events=tevents.prepare(*ev, width=W_EVT, device="cpu", dtype=dtype),
         image_flat=torch.as_tensor(img, dtype=dtype),
@@ -361,7 +361,7 @@ def _golden_inputs(g, case, cfg, dtype):
         # param_gen draws float32 values: a cast to float64 is exact
         sd = gg.param_gen.nerf_state_dict(case, tag, C)
         return bridge.params_from_numpy(_np_tree(
-            torch_compat.nerf_params_from_state_dict(sd)))
+            torch_compat.nerf_params_from_state_dict(sd)), device="cpu")
 
     params = tstep.build_params(cfg, device="cpu")
     params = {k: bridge.tree_map(lambda t: t.detach().to(dtype), v)
@@ -373,7 +373,7 @@ def _golden_inputs(g, case, cfg, dtype):
         for crf in ("rgb_crf", "event_crf"):
             params[crf] = bridge.params_from_numpy(_crf_np(
                 {k[len(p + crf) + 2:]: g[k] for k in g.files
-                 if k.startswith(f"{p}{crf}::")}))
+                 if k.startswith(f"{p}{crf}::")}), device="cpu")
     params = bridge.tree_map(lambda t: t.to(dtype).requires_grad_(True), params)
 
     events = tevents.EventArrays(
@@ -582,7 +582,7 @@ def test_adam_groups_match_optax_on_equal_gradients():
         optimize_trans=True, pose_lrate_warmup=2, lrate_decay=1)
     jparams = _np_tree(jstep.build_params(jcfg, jax.random.PRNGKey(0)))
     tparams = bridge.tree_map(lambda t: t.requires_grad_(True),
-                              bridge.params_from_numpy(jparams))
+                              bridge.params_from_numpy(jparams, device="cpu"))
     opt = toptim.build_optimizer(_port_cfg(jcfg), tparams)
     tx = joptim.build_optimizer(jcfg)
     jp = jax.tree.map(jnp.asarray, jparams)
@@ -640,7 +640,7 @@ def test_crf_matches_jax():
                                    bias_init=1.0))
     x = np.random.default_rng(0).random((20, 1)).astype(np.float32)
     np.testing.assert_allclose(
-        tcrf.apply(bridge.params_from_numpy(jp), torch.as_tensor(x)).numpy(),
+        tcrf.apply(bridge.params_from_numpy(jp, device="cpu"), torch.as_tensor(x)).numpy(),
         np.asarray(jcrf.apply(jax.tree.map(jnp.asarray, jp), jnp.asarray(x))),
         rtol=1e-6, atol=1e-7)
     g = torch.Generator()

@@ -176,7 +176,7 @@ def test_emulated_network_matches_jax(compute_dtype):
     kernel's bf16 mode (interpret mode) at test_bfloat16_mode's 2e-2 x
     scale."""
     params, pts, vd, band = _inputs(4, 64, 3, seed=1)
-    w = fused_mlp.unpack(fused_mlp.pack_params(bridge.params_from_numpy(params)), 3)
+    w = fused_mlp.unpack(fused_mlp.pack_params(bridge.params_from_numpy(params, device="cpu")), 3)
     x = torch.as_tensor(pts).reshape(-1, 3)
     v = torch.as_tensor(vd).repeat_interleave(64, dim=0)
     got = emulated_forward(w, x, v, torch.as_tensor(band), MODES[compute_dtype])
@@ -186,7 +186,7 @@ def test_emulated_network_matches_jax(compute_dtype):
         np.testing.assert_allclose(got.numpy().reshape(want.shape), want,
                                    rtol=0, atol=2e-4)
         f64 = tnerf.apply(bridge.tree_map(lambda t: t.double(),
-                                          bridge.params_from_numpy(params)),
+                                          bridge.params_from_numpy(params, device="cpu")),
                           torch.as_tensor(pts).double(), torch.as_tensor(vd).double())
         assert _rel(got.reshape(f64.shape), f64) < 1e-5
     else:
@@ -201,7 +201,7 @@ def test_emulated_network_matches_jax(compute_dtype):
                                    rtol=0, atol=2e-2 * scale)
         # and the port's own plain bf16 version, which K1/K2 are held to on
         # the card
-        plain = tnerf.apply(bridge.params_from_numpy(params), torch.as_tensor(pts),
+        plain = tnerf.apply(bridge.params_from_numpy(params, device="cpu"), torch.as_tensor(pts),
                             torch.as_tensor(vd), compute_dtype=torch.bfloat16)
         assert _rel(got.reshape(plain.shape), plain) < 2e-2
 
@@ -239,7 +239,7 @@ def test_natural_layout_round_trip(C):
     with rows of a multiple of 4 floats (cp.async copies 16 bytes), and
     unpack inverts pack."""
     params, _, _, _ = _inputs(1, 1, C, seed=C)
-    tp = bridge.params_from_numpy(params)
+    tp = bridge.params_from_numpy(params, device="cpu")
     packed = fused_mlp.pack_params(tp)
     offs = fused_mlp._offsets(fused_mlp._layout(C))
     assert offs == _c_offsets(C) and packed.numel() == offs[-1]
@@ -306,7 +306,7 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
                if barf else (None, None))
 
     def grads(fn):
-        tp = bridge.params_from_numpy(params)
+        tp = bridge.params_from_numpy(params, device="cpu")
         leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(tp)]
         x = torch.tensor(pts, requires_grad=True)
         v = torch.tensor(vd, requires_grad=True)
@@ -347,9 +347,9 @@ def test_compute_dtype_routes_on_the_card(monkeypatch):
     monkeypatch.setattr(staged_mlp, "staged_nerf_mlp",
                         lambda *a, **k: calls.append(("staged", k["compute_dtype"])))
     card = types.SimpleNamespace(device=torch.device("cuda"))
-    std = bridge.params_from_numpy(_inputs(1, 1, 3, seed=0)[0])
+    std = bridge.params_from_numpy(_inputs(1, 1, 3, seed=0)[0], device="cpu")
     l6 = bridge.params_from_numpy(jax.tree.map(np.asarray, jnerf.init_params(
-        jax.random.PRNGKey(0), input_ch_views=39)))
+        jax.random.PRNGKey(0), input_ch_views=39)), device="cpu")
     vd = torch.zeros(1, 3)
     for cd in MODES:
         tmlp.mlp_forward(std, card, vd, compute_dtype=cd)

@@ -10,7 +10,10 @@ process of its own, in the order parent, change, change, parent, at the
 training path's n = 195,520 and 391,040. Prints one JSON line per run and
 the median per side (ms, CUDA events): K1/K2 and K3/K4 in fp32 mode (k1,
 k2, k3, k4), in bf16 mode where the tree has it (k1_bf16, k2_bf16,
-k3_bf16, k4_bf16), and the plain versions (plain_*).
+k3_bf16, k4_bf16), the plain versions (plain_*), and the weight-gradient
+pass of K2/K4 alone (chip_smoke.time_wgrad) in both modes on K2's job
+table (wgrad, wgrad_bf16) and, where the tree can run it alone, on K4's
+(wgrad_k4, wgrad_k4_bf16).
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
 
@@ -42,6 +45,12 @@ for S in (64, 128):  # what both trees have first, in the same order
         r.update(zip(("k3_bf16", "plain_fwd_l6_bf16", "k4_bf16",
                       "plain_fwd_bwd_l6_bf16"),
                      cs.time_staged_kernels(torch, S, compute_dtype="bfloat16")))
+    r["wgrad"] = cs.time_wgrad(torch, S)[0]
+    r["wgrad_bf16"] = cs.time_wgrad(torch, S, compute_dtype="bfloat16")[0]
+    if "view_pe" in inspect.signature(cs.time_wgrad).parameters:
+        r["wgrad_k4"] = cs.time_wgrad(torch, S, view_pe=False)[0]
+        r["wgrad_k4_bf16"] = cs.time_wgrad(torch, S, compute_dtype="bfloat16",
+                                           view_pe=False)[0]
     res[str(cs.RAYS * S)] = r
 print(json.dumps(res))
 """
