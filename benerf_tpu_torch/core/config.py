@@ -4,9 +4,10 @@ parser for the reference's `key = value` .txt scene configs so that every
 shipped config under configs/ runs unmodified.
 
 This is the PyTorch port's own copy of benerf_tpu/core/config.py: the port
-imports nothing from the JAX package. Fields that only the JAX package reads
-(use_pallas, mesh_devices, profile_*) parse the same way; the port's train
-loop raises on the ones it cannot honour yet.
+imports nothing from the JAX package. Fields the port cannot honour yet
+(mesh_devices > 1, profile_iter, log_knot_grad_terms) parse the same way,
+and the port's train loop raises on them; use_pallas keeps its JAX name
+and, off, sends every MLP call to the plain route.
 
 Parsing rules (configargparse compatibility):
   - lines `key = value`; `#` starts a comment; booleans are True/False;

@@ -27,13 +27,19 @@ CONSUMERS = (
 )
 
 
-def step_generators(seed: int, step: int, device) -> dict:
-    """{consumer: torch.Generator on `device`} for one train step."""
-    states = np.random.SeedSequence([seed, step]).generate_state(
-        len(CONSUMERS), np.uint64)
+def generators(entropy, names, device) -> dict:
+    """{name: torch.Generator on `device`}, seeded from the ints `entropy`
+    through numpy's SeedSequence, one stream per name."""
+    states = np.random.SeedSequence(list(entropy)).generate_state(
+        len(names), np.uint64)
     gens = {}
-    for name, s in zip(CONSUMERS, states):
+    for name, s in zip(names, states):
         g = torch.Generator(device=device)
         g.manual_seed(int(s) & 0x7FFF_FFFF_FFFF_FFFF)
         gens[name] = g
     return gens
+
+
+def step_generators(seed: int, step: int, device) -> dict:
+    """{consumer: torch.Generator on `device`} for one train step."""
+    return generators((seed, step), CONSUMERS, device)

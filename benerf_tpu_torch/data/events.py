@@ -6,10 +6,14 @@ the normalized-time stream is selected, by TIME or by COUNT; the window's
 polarities are scatter-added into an (H*W,) "ETA" map with index_add_ on
 the device; the window's (start, end) times parameterize the spline poses.
 Windows are built on the device from index arithmetic (no .item() sync).
+Host-side helpers (raw ingest, the TUM-VIE h5 slicer, visualization and the
+accumulation oracle) are numpy, as in the JAX package; the JAX package's
+C++ ingest engine is not copied, because its numpy branch computes the same.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +46,27 @@ def prepare(x, y, ts, pol, width: int, device=None,
         pix_idx=torch.as_tensor(pix[order], device=device),
         ts=torch.as_tensor(ts[order], device=device, dtype=dtype),
         pol=torch.as_tensor(np.asarray(pol)[order], device=device, dtype=dtype),
+    )
+
+
+def prepare_raw(x, y, t_raw, pol, width: int, t_lo: float, t_hi: float,
+                device=None) -> EventArrays:
+    """One-pass ingest of a RAW stream: crop to [t_lo, t_hi], normalize time
+    to [0,1] over that range, flatten, stable time-sort (in float64, as the
+    numpy branch of benerf_tpu/data/_native.py prepare_events), then move to
+    `device` (None: the card, see resolve_device)."""
+    device = resolve_device(device)
+    x, y, t, p = (np.ascontiguousarray(a, np.float64) for a in (x, y, t_raw, pol))
+    keep = (t >= t_lo) & (t <= t_hi)
+    xs, ys, tt, pp = x[keep], y[keep], t[keep], p[keep]
+    order = np.argsort(tt, kind="stable")
+    span = (t_hi - t_lo) or 1.0
+    pix = (ys[order].astype(np.int64) * width + xs[order]).astype(np.int32)
+    return EventArrays(
+        pix_idx=torch.as_tensor(pix.astype(np.int64), device=device),
+        ts=torch.as_tensor(((tt[order] - t_lo) / span).astype(np.float32),
+                           device=device),
+        pol=torch.as_tensor(pp[order].astype(np.float32), device=device),
     )
 
 
@@ -143,3 +168,73 @@ def eta_count_window(events: EventArrays, hw: int, generator, frac: float,
     ts = events.ts[idx]
     eta = _scatter(events.pol[idx], events.pix_idx[idx], hw)
     return eta, ts[0], ts[n_window - 1]
+
+
+class EventSlicer:
+    """Time-window access into a TUM-VIE-format event h5 file (an open
+    h5py.File; h5py stays the caller's import).
+
+    File layout: groups events/{p,x,y,t} plus an ms_to_idx array mapping
+    milliseconds to event indices such that t[ms_to_idx[ms]] >= ms*1000 and
+    t[ms_to_idx[ms]-1] < ms*1000, with optional t_offset (reference
+    utils/event_utils.py:11-102). The conservative ms window is refined
+    with searchsorted over the in-window slice.
+    """
+
+    def __init__(self, h5f):
+        self.h5f = h5f
+        self.events = {k: h5f[f"events/{k}"] for k in ("p", "x", "y", "t")}
+        self.ms_to_idx = np.asarray(h5f["ms_to_idx"], dtype="int64")
+        self.t_offset = int(h5f["t_offset"][()]) if "t_offset" in h5f else 0
+        self.t_final = int(self.events["t"][-1]) + self.t_offset
+
+    def get_start_time_us(self) -> int:
+        return self.t_offset
+
+    def get_final_time_us(self) -> int:
+        return self.t_final
+
+    def ms2idx(self, t_ms: int):
+        if t_ms < 0 or t_ms >= len(self.ms_to_idx):
+            return None
+        return int(self.ms_to_idx[t_ms])
+
+    def get_events(self, t_start_us: int, t_end_us: int):
+        """{p,x,y,t} arrays with t_start_us <= t < t_end_us, or None when
+        the window leaves the recording."""
+        if t_start_us >= t_end_us:
+            raise ValueError(f"empty window [{t_start_us}, {t_end_us})")
+        t_start_us -= self.t_offset
+        t_end_us -= self.t_offset
+        lo_idx = self.ms2idx(math.floor(t_start_us / 1000))
+        hi_idx = self.ms2idx(math.ceil(t_end_us / 1000))
+        if lo_idx is None or hi_idx is None:
+            return None
+        t_cons = np.asarray(self.events["t"][lo_idx:hi_idx])
+        a = int(np.searchsorted(t_cons, t_start_us, side="left"))
+        b = int(np.searchsorted(t_cons, t_end_us, side="left"))
+        out = {"t": t_cons[a:b] + self.t_offset}
+        for k in ("p", "x", "y"):
+            out[k] = np.asarray(self.events[k][lo_idx + a:lo_idx + b])
+        return out
+
+
+def polarity_image(x, y, pol, height: int, width: int) -> np.ndarray:
+    """(H, W, 3) uint8 visualization: positive events red, negative blue, on
+    white (reference event_data_visualization, event_utils.py:228-244)."""
+    img = np.full((height, width, 3), 255, np.uint8)
+    x = np.asarray(x, np.int64)
+    y = np.asarray(y, np.int64)
+    pos = np.asarray(pol) > 0
+    img[y[pos], x[pos]] = (255, 0, 0)
+    img[y[~pos], x[~pos]] = (0, 0, 255)
+    return img
+
+
+def accumulate_events_numpy(x, y, pol, height: int, width: int):
+    """Host-side scatter-add of polarities into an (H, W) float64 map (tests,
+    visualization, the motion-scale pose init); reference
+    accumulate_events_no_numba (event_utils.py:276-279)."""
+    out = np.zeros((height, width), np.float64)
+    np.add.at(out, (np.asarray(y, np.int64), np.asarray(x, np.int64)), pol)
+    return out

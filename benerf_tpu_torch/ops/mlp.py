@@ -9,8 +9,9 @@ ops/mlp.py:67-82):
   - "staged": K3/K4 (ops/staged_mlp.py), the standard trunk with any view
     encoding, BARF off, compute_dtype "float32" or "bfloat16";
   - "plain": models/nerf.apply, every other architecture (other widths or
-    depths, no viewdirs, BARF with a view encoding other than 27 rows),
-    where the JAX package runs plain XLA too; counted in ROUTES["plain"].
+    depths, no viewdirs, BARF with a view encoding other than 27 rows) and
+    every call with use_pallas off, where the JAX package runs plain XLA
+    too; counted in ROUTES["plain"].
 A CPU tensor always takes models/nerf.apply. A kernel that fails to build
 or launch raises: nothing falls back.
 """
@@ -26,10 +27,11 @@ from benerf_tpu_torch.ops import fused_mlp, staged_mlp
 ROUTES = {"plain": 0}
 
 
-def route(params, viewdirs, num_freqs, num_freqs_views, barf_on) -> str:
+def route(params, viewdirs, num_freqs, num_freqs_views, barf_on,
+          use_pallas=True) -> str:
     """"fused", "staged" or "plain": the implementation of the MLP on the
     card, as benerf_tpu/ops/mlp.py picks its kernel."""
-    if viewdirs is None:
+    if not use_pallas or viewdirs is None:
         return "plain"
     if fused_mlp.supports(params) and (num_freqs, num_freqs_views) == (10, 4):
         return "fused"
@@ -47,12 +49,16 @@ def mlp_forward(
     num_freqs_views: int = 4,
     barf_weights=None,
     barf_weights_views=None,
+    use_pallas: bool = True,
     compute_dtype: str = "float32",
 ):
-    """Evaluate the NeRF MLP on (R, S, 3) points. See models.nerf.apply."""
+    """Evaluate the NeRF MLP on (R, S, 3) points. See models.nerf.apply.
+    use_pallas: the JAX package's flag; off, every card call takes the
+    plain route."""
     if pts.device.type == "cuda":
         which = route(params, viewdirs, num_freqs, num_freqs_views,
-                      barf_weights is not None or barf_weights_views is not None)
+                      barf_weights is not None or barf_weights_views is not None,
+                      use_pallas)
         if which == "fused":
             return fused_mlp.fused_nerf_mlp(
                 params, pts, viewdirs, num_freqs=num_freqs,

@@ -39,6 +39,7 @@ class RenderSettings:
     near: float = 0.0
     far: float = 1.0
     sigma_noise_std: float = 1.0  # reference quirk: on at train AND eval
+    use_pallas: bool = True  # the JAX name: False runs the plain MLP route
     compute_dtype: str = "float32"
     use_barf_c2f: bool = False
     barf_c2f_start: float = 0.1
@@ -56,6 +57,7 @@ class RenderSettings:
             use_viewdirs=cfg.use_viewdirs,
             ndc=cfg.ndc,
             sigma_noise_std=cfg.sigma_noise_std,
+            use_pallas=cfg.use_pallas,
             compute_dtype=cfg.compute_dtype,
             use_barf_c2f=cfg.use_barf_c2f,
             barf_c2f_start=cfg.barf_c2f_start,
@@ -111,6 +113,7 @@ def render_ray_families(nerf_params, nerf_fine_params, families,
             num_freqs=settings.multires,
             num_freqs_views=settings.multires_views,
             barf_weights=bw, barf_weights_views=bwv,
+            use_pallas=settings.use_pallas,
             compute_dtype=settings.compute_dtype,
         )
 
@@ -161,6 +164,19 @@ def render_ray_families(nerf_params, nerf_fine_params, families,
     return outs
 
 
+def render_rays(nerf_params, nerf_fine_params, rays_o, rays_d,
+                settings: RenderSettings, H: int, W: int, focal, keys=None,
+                step=None):
+    """Render one batch of (R, 3) world-space rays through the coarse+fine
+    pipeline; H, W, focal drive the NDC warp of their camera. keys as in
+    render_ray_families (None: the deterministic variant). Returns the
+    per-ray maps; rgb0/disp0/acc0 are the coarse outputs."""
+    return render_ray_families(
+        nerf_params, nerf_fine_params,
+        [dict(rays_o=rays_o, rays_d=rays_d, H=H, W=W, focal=focal, keys=keys)],
+        settings, step=step)[0]
+
+
 def _pose_family(poses, ray_idx, K, H, W, keys, remap):
     """Every pose sees the same pixel subset; rows pose-major:
     [pose0 x all idx, pose1 x all idx, ...] (the loss slicing relies on it)."""
@@ -171,6 +187,16 @@ def _pose_family(poses, ray_idx, K, H, W, keys, remap):
                                               remap)
     return dict(rays_o=rays_o, rays_d=rays_d, H=H, W=W, focal=K[0, 0],
                 keys=keys)
+
+
+def render_poses_with_ray_idx(nerf_params, nerf_fine_params, poses, ray_idx,
+                              K, H: int, W: int, settings: RenderSettings,
+                              keys=None, remap=None, step=None):
+    """Every pose (P, 3, 4) sees the same pixel subset ray_idx (R,); rows
+    pose-major: [pose0 x all idx, pose1 x all idx, ...]."""
+    fam = _pose_family(poses, ray_idx, K, H, W, keys, remap)
+    return render_ray_families(nerf_params, nerf_fine_params, [fam],
+                               settings, step=step)[0]
 
 
 def render_pose_families_with_ray_idx(nerf_params, nerf_fine_params,

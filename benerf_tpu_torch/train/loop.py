@@ -1,17 +1,23 @@
-"""The step loop of a BeNeRF training run.
+"""The training run: load -> train -> eval -> checkpoint, as BeNeRF runs it.
 
-Port of the step loop of benerf_tpu/train/loop.py: per-iteration JSONL
-records, the non-finite-loss guard, the event-window overflow warning and
-rays/s accounting. Periodic eval, video, checkpoints, pose initialisation
-from files or from the motion-scale estimate, the mesh and the dataset
-loaders belong to later slices of the port; a config that asks for one of
-them raises NotImplementedError instead of being quietly run without it.
+Port of benerf_tpu/train/loop.py (reference train.py:20-461): the scene
+from disk (or the caller's), the undistortion remaps, the trajectory init
+(reference draw, loaded poses or the motion-scale estimate), resume from
+the latest checkpoint, one train step per iteration with its JSONL record,
+the non-finite-loss guard, the event-window overflow warning and rays/s
+accounting, periodic eval of the recovered trajectory (images, KITTI poses,
+PSNR / SSIM / LPIPS of the mid frame, and on synthetic scenes ATE / RPE and
+the reprojection-flow error against the ground truth), the video and
+checkpoints. PyTorch runs eagerly, so the JAX package's lax.scan of several
+steps per dispatch is one Python call per step here. A multi-device mesh,
+the profiler trace and per-term knot gradients are not ported; a config
+that asks for one of them raises NotImplementedError instead of being
+quietly run without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import os
 import time
 
@@ -19,7 +25,16 @@ import numpy as np
 import torch
 
 from benerf_tpu_torch import resolve_device
+from benerf_tpu_torch.data import datasets, undistort
 from benerf_tpu_torch.data import events as events_util
+from benerf_tpu_torch.eval import frames as frames_mod
+from benerf_tpu_torch.eval import io as io_mod
+from benerf_tpu_torch.eval import metrics as metrics_mod
+from benerf_tpu_torch.eval import pose_metrics
+from benerf_tpu_torch.geometry import spline as spline_mod
+from benerf_tpu_torch.render import renderer as renderer_mod
+from benerf_tpu_torch.train import checkpoint as ckpt_mod
+from benerf_tpu_torch.train import pose_init as pose_init_mod
 from benerf_tpu_torch.train import step as step_mod
 
 
@@ -63,26 +78,14 @@ def make_batch(scene, cfg, K_rgb, K_evt, device, img_remap=None,
     )
 
 
-def _unported(cfg, scene):
+def _unported(cfg):
     """Names of the features this config asks for that the port lacks."""
     asks = {
-        "periodic eval (render_image_iter > 0; eval slice)":
-            cfg.render_image_iter > 0,
-        "video (render_video_iter > 0; eval slice)": cfg.render_video_iter > 0,
-        "checkpoints (save_model_iter > 0 / load_checkpoint; checkpoint "
-        "slice)": cfg.save_model_iter > 0 or cfg.load_checkpoint,
-        "loadpose (pose-init slice)": cfg.loadpose,
-        "pose_init=motion_scale (pose-init slice)":
-            cfg.pose_init == "motion_scale",
         "a multi-device mesh (mesh_devices > 1; multi-GPU slice)":
             cfg.mesh_devices > 1,
         "profiling (profile_iter > 0)": cfg.profile_iter > 0,
         "per-term knot gradients (log_knot_grad_terms)":
             cfg.log_knot_grad_terms,
-        "undistortion LUTs (nonzero rgb_dist / event_dist; data slice)":
-            any(cfg.rgb_dist) or any(cfg.event_dist),
-        "loading a scene from disk (scene=None; data-loader slice)":
-            scene is None,
     }
     return [name for name, on in asks.items() if on]
 
@@ -92,36 +95,125 @@ def _write_run_config(cfg, logdir):
     with open(os.path.join(logdir, "args.txt"), "w") as f:
         for k in sorted(vars(cfg)):
             f.write(f"{k} = {getattr(cfg, k)}\n")
+    if cfg.config and os.path.exists(cfg.config):
+        with open(cfg.config, "rb") as src, open(
+                os.path.join(logdir, "config.txt"), "wb") as dst:
+            dst.write(src.read())
+
+
+def rgb_pose_trajectory(params, cfg, rgb_exp_ts, seg_num) -> np.ndarray:
+    """(seg_num, 3, 4) poses of the rgb camera over its exposure
+    (reference get_pose_rgb, model/optimize.py:84-111)."""
+    with torch.no_grad():
+        knots = params["knots"] + params["transform"][None, :]
+        return spline_mod.interpolate_poses(
+            knots, float(rgb_exp_ts[0]), float(rgb_exp_ts[1]), seg_num,
+            cfg.traj).cpu().numpy()
+
+
+def periodic_eval(params, cfg, scene, settings_eval, K_render, H_r, W_r,
+                  logdir, step, logger, device):
+    """Render num_interpolated_pose frames along the recovered trajectory;
+    PSNR / SSIM / LPIPS of the middle frame against the sharp GT
+    (train.py:403-430) and, on synthetic scenes, the pose metrics against
+    the generator's trajectory. Returns (images, results)."""
+    poses = rgb_pose_trajectory(params, cfg, scene.rgb_exp_ts,
+                                cfg.num_interpolated_pose)
+    io_mod.save_poses_kitti(step, logdir, poses)
+
+    imgs = []
+    img_dir = os.path.join(logdir, "images_test", f"img_test_{step:06d}")
+    for j, fr in enumerate(frames_mod.render_trajectory(
+            params, poses, K_render, H_r, W_r, settings_eval, chunk=cfg.chunk,
+            key=(cfg.seed + step,), deterministic=not cfg.sigma_noise_eval,
+            device=device)):
+        io_mod.save_image(os.path.join(img_dir, f"test{j:03d}.png"), fr["rgb"])
+        if cfg.depth:
+            disp = fr["disp"] / max(fr["disp"].max(), 1e-9)
+            io_mod.save_image(os.path.join(img_dir, f"depth_{j:03d}.png"), disp)
+        imgs.append(fr["rgb"])
+
+    results = {}
+    if scene.imgtest is not None:
+        mid = imgs[len(imgs) // 2]
+        gt = scene.imgtest[0]
+        results["test_mid_psnr"] = metrics_mod.psnr(mid, gt)
+        results["test_mid_ssim"] = metrics_mod.ssim(mid, gt)
+        lp = metrics_mod.lpips(mid, gt)
+        if lp is not None:
+            results["test_mid_lpips"] = lp
+        logger.write_img("test_mid_img", mid, step)
+    if scene.gt_knots is not None:
+        # pose recovery against the generator's ground-truth trajectory
+        # (synthetic scenes only; the reference has no in-train pose metric)
+        gt_us = scene.gt_exp_us if scene.gt_exp_us is not None else scene.rgb_exp_ts
+        gt_poses = spline_mod.interpolate_poses(
+            torch.as_tensor(scene.gt_knots), float(gt_us[0]), float(gt_us[1]),
+            len(poses), cfg.traj).numpy()
+        results["pose_ate_rmse"] = pose_metrics.ate_rmse(poses, gt_poses)
+        r = pose_metrics.rpe(poses, gt_poses)
+        results["pose_rpe_trans"] = r["trans_rmse"]
+        results["pose_rpe_rot_deg"] = r["rot_rmse_deg"]
+        if scene.gt_plane_depth is not None:
+            fl = pose_metrics.reproj_flow_error(
+                poses, gt_poses, K_render, scene.gt_plane_depth, H_r, W_r)
+            results["pose_flow_rmse_px"] = fl["flow_rmse_px"]
+            results["gt_flow_rms_px"] = fl["gt_flow_rms_px"]
+    for k, v in results.items():
+        logger.write(k, v)
+    return imgs, results
 
 
 def train(cfg, scene=None, init_knots=None, device=None):
-    """Run the step loop for cfg.max_iter iterations; returns the final
-    TrainState. scene: an in-memory SceneData. device: "cuda" unless given;
-    with no device and no card this raises."""
-    missing = _unported(cfg, scene)
+    """Run a full training; returns the final TrainState.
+
+    scene: an in-memory SceneData, or None to load cfg.datadir. init_knots:
+    an optional (4, 6) se(3) knot override for the trajectory init (default:
+    the reference draw, scene.ev_poses under loadpose, or the motion-scale
+    estimate under pose_init = motion_scale). device: "cuda" unless given;
+    with no device and no card this raises.
+    """
+    missing = _unported(cfg)
     if missing:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(missing))
+        raise NotImplementedError("not ported yet: " + "; ".join(missing))
     device = resolve_device(device)
 
     logdir = os.path.join(os.path.expanduser(cfg.logdir), str(cfg.index))
     _write_run_config(cfg, logdir)
-    log_path = cfg.log_file or os.path.join(logdir, "metrics.jsonl")
+    logger = io_mod.JsonlLogger(
+        cfg.log_file or os.path.join(logdir, "metrics.jsonl"),
+        wandb_project=cfg.project if cfg.viewer == "wandb" else None,
+        config=vars(cfg))
 
+    if scene is None:
+        scene = datasets.load_scene(cfg.datadir, cfg, device=device)
     H, W = scene.image.shape[1:3]
-    K_rgb, K_evt, _, _, _ = intrinsics(cfg)
-    batch = make_batch(scene, cfg, K_rgb, K_evt, device)
+    K_rgb, K_evt, K_render, H_r, W_r = intrinsics(cfg)
+    if H_r is None:
+        H_r, W_r = H, W
+    img_remap, evt_remap = undistort.luts_for_config(cfg)
+    batch = make_batch(scene, cfg, K_rgb, K_evt, device, img_remap, evt_remap)
+
+    if init_knots is None and cfg.loadpose:
+        init_knots = scene.ev_poses
+    if init_knots is None and cfg.pose_init == "motion_scale":
+        init_knots, d_px = pose_init_mod.initial_knots(cfg, scene)
+        print(f"[INFO] motion-scale pose init: estimated apparent motion "
+              f"{d_px:.2f}px -> mean |knot| {np.abs(init_knots).mean():.4f}")
+    state = step_mod.init_state(
+        cfg, cfg.seed, device=device, init_knots=init_knots,
+        init_transform=scene.trans if cfg.loadtrans else None,
+    )
+    if cfg.load_checkpoint and ckpt_mod.latest_step(logdir) is not None:
+        state = ckpt_mod.restore(logdir, state, device=device)
+        print(f"[INFO] resumed from step {state.step}")
 
     if cfg.event_time_window and cfg.event_window_cap == 0:
         cap = events_util.window_cap(scene.events.ts.cpu().numpy(),
                                      cfg.accumulate_time_length)
         cfg = dataclasses.replace(cfg, event_window_cap=cap)
         print(f"[INFO] event window cap: {cap} of {scene.events.num} events")
-
-    state = step_mod.init_state(
-        cfg, cfg.seed, device=device, init_knots=init_knots,
-        init_transform=scene.trans if cfg.loadtrans else None,
-    )
+    settings_eval = renderer_mod.RenderSettings.from_config(cfg)
     step_fn = step_mod.make_train_step(cfg, H, W)
 
     rays_per_iter = (
@@ -129,42 +221,65 @@ def train(cfg, scene=None, init_knots=None, device=None):
         + cfg.num_interpolated_pose
         * (cfg.sampling_rgb_rays // cfg.num_interpolated_pose)
     )
-    t_last = time.time()
-    n_since = 0
-    with open(log_path, "a") as log, \
-            torch.autograd.set_detect_anomaly(cfg.debug_nans):
-        while state.step < cfg.max_iter:
-            state, metrics = step_fn(state, batch, cfg.seed)
-            i = state.step
-            n_since += 1
-            # one host sync per iteration: the record, the guard, the log
-            last = {k: v.item() for k, v in metrics.items()}
-            log.write(json.dumps(
-                {"step": i, **{"train_" + k: float(v) for k, v in last.items()}}
-            ) + "\n")
-            log.flush()
+    # rays/s over the train steps' own wall time (eval, video and
+    # checkpoints excluded), since the last console record
+    train_s, n_since = 0.0, 0
+    try:
+        with torch.autograd.set_detect_anomaly(cfg.debug_nans):
+            while state.step < cfg.max_iter:
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch, cfg.seed)
+                i = state.step
+                n_since += 1
+                # one host sync per iteration: the record, the guard, the log
+                last = {k: v.item() for k, v in metrics.items()}
+                train_s += time.perf_counter() - t0
+                logger.write_record(i, {"train_" + k: v for k, v in last.items()})
+                logger.flush()
 
-            if not np.isfinite(last["loss"]):
-                raise FloatingPointError(
-                    f"non-finite loss at iter {i}: {last['loss']}. Re-run "
-                    "with debug_nans=True to locate the faulting op "
-                    "(torch anomaly detection).")
-            overflow = int(last.get("eta_window_overflow", 0))
-            if overflow > 0:
-                print(f"[WARN] iter {i}: event window overflowed its static "
-                      f"cap by {overflow} events — the ETA target dropped "
-                      "events; raise event_window_cap (or 0 for the exact "
-                      "full-stream path).")
+                if not np.isfinite(last["loss"]):
+                    raise FloatingPointError(
+                        f"non-finite loss at iter {i}: {last['loss']}. Re-run "
+                        "with debug_nans=True to locate the faulting op "
+                        "(torch anomaly detection).")
+                overflow = int(last.get("eta_window_overflow", 0))
+                if overflow > 0:
+                    print(f"[WARN] iter {i}: event window overflowed its static "
+                          f"cap by {overflow} events — the ETA target dropped "
+                          "events; raise event_window_cap (or 0 for the exact "
+                          "full-stream path).")
 
-            if ((cfg.console_log_iter > 0 and i % cfg.console_log_iter == 0)
-                    or i == cfg.max_iter):
-                dt = time.time() - t_last
-                rays_s = rays_per_iter * n_since / max(dt, 1e-9)
-                log.write(json.dumps({"step": i, "time": time.time(),
-                                      "rays_per_sec": rays_s}) + "\n")
-                print(f"[TRAIN] iter {i} loss {last['loss']:.5f} "
-                      f"event {last.get('event_loss', 0.0):.5f} "
-                      f"rgb {last.get('rgb_loss', 0.0):.5f} "
-                      f"({rays_s:,.0f} rays/s)")
-                t_last, n_since = time.time(), 0
+                if ((cfg.console_log_iter > 0 and i % cfg.console_log_iter == 0)
+                        or i == cfg.max_iter):
+                    rays_s = rays_per_iter * n_since / max(train_s, 1e-9)
+                    logger.write("rays_per_sec", rays_s)
+                    print(f"[TRAIN] iter {i} loss {last['loss']:.5f} "
+                          f"event {last.get('event_loss', 0.0):.5f} "
+                          f"rgb {last.get('rgb_loss', 0.0):.5f} "
+                          f"({rays_s:,.0f} rays/s)")
+                    train_s, n_since = 0.0, 0
+
+                if cfg.render_image_iter > 0 and i % cfg.render_image_iter == 0:
+                    _, results = periodic_eval(
+                        state.params, cfg, scene, settings_eval, K_render, H_r,
+                        W_r, logdir, i, logger, device)
+                    if results:
+                        print(f"[EVAL] iter {i}: {results}")
+
+                if cfg.render_video_iter > 0 and i % cfg.render_video_iter == 0:
+                    poses = rgb_pose_trajectory(state.params, cfg,
+                                                scene.rgb_exp_ts, 90)
+                    io_mod.save_video(
+                        os.path.join(logdir, f"{cfg.index}_spiral_{i:06d}_rgb.mp4"),
+                        [fr["rgb"] for fr in frames_mod.render_trajectory(
+                            state.params, poses, K_render, H_r, W_r, settings_eval,
+                            chunk=cfg.chunk, device=device)])
+
+                if cfg.save_model_iter > 0 and i % cfg.save_model_iter == 0:
+                    path = ckpt_mod.save(logdir, state)
+                    print(f"[INFO] saved checkpoint {path}")
+
+                logger.update_buffer(i)
+    finally:
+        logger.close()
     return state

@@ -57,6 +57,11 @@ def build_params(cfg, seed: int = 0, init_knots=None, init_transform=None,
     with other encodings builds its MLPs with nerf.init_params and passes
     them to init_state."""
     device = resolve_device(device)
+    if init_knots is not None and tuple(torch.as_tensor(init_knots).shape) != (4, 6):
+        raise ValueError(
+            "init_knots must be (4, 6) se(3) knots, got shape "
+            f"{tuple(torch.as_tensor(init_knots).shape)} (loadpose hands over "
+            "(n, 3, 5) poses; their conversion to knots is not implemented)")
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     params = {

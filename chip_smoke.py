@@ -40,7 +40,18 @@ an exception):
   8. the card routes: a width-128 MLP and one without viewdirs take the
      plain route (as in the JAX package); bf16 runs K1 on the fused route
      and K3 on the staged one, each in its bf16 mode;
-  9. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
+  9. configs/demo.txt as a user runs it: the 80x80 scene written by the
+     port's writer (seconds printed), `benerf_tpu_torch.cli.train.main` on
+     the card for DEMO_ITERS iterations with periodic eval and checkpoints
+     at DEMO_ITERS / 2 and DEMO_ITERS and the video at DEMO_ITERS, then
+     resumed from the last checkpoint for DEMO_RESUME more; the launch
+     counters show K1/K2 in fp32 mode on every train MLP call, K1 alone on
+     every eval chunk, no K3/K4 and no plain route; the run directory holds
+     args.txt, config.txt, finite eval metrics (PSNR, SSIM, ATE, pose
+     flow), the KITTI poses, the eval PNGs, the video and both
+     checkpoints, and the checkpoint equals the state it saved; one
+     periodic eval timed alone; K1 timed at the eval chunk's shapes;
+  10. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -59,6 +70,10 @@ from pathlib import Path
 import numpy as np
 
 TANABATA = Path(__file__).resolve().parent / "configs/benerf_blender/tanabata.txt"
+DEMO = Path(__file__).resolve().parent / "configs/demo.txt"
+DEMO_ITERS = 300             # evals and checkpoints at DEMO_ITERS / 2 and DEMO_ITERS
+DEMO_RESUME = 20             # iterations after resuming at DEMO_ITERS
+EVAL_RAYS = 4096             # rays of one eval chunk (cfg.chunk)
 ITERS = 25
 BF16_ITERS = 10
 LOG_EVERY = 5
@@ -360,6 +375,39 @@ def time_kernels(torch, S, C=3, compute_dtype="float32"):
     return k1, p1, k2, p2
 
 
+def time_eval_k1(torch, C=3):
+    """K1 in fp32 mode (TF32X3) at the eval chunk's shapes, n = EVAL_RAYS x
+    64 (coarse) and x 128 (fine), no grad: {n: times and bound}. Bytes and
+    operations as _per_n_fused counts them for the forward."""
+    from benerf_tpu_torch.models import nerf
+    from benerf_tpu_torch.ops import fused_mlp
+
+    weights = fused_mlp._offsets(fused_mlp._layout(C))[-1]
+    out = {}
+    for S in (64, 128):
+        params, pts, vd, _, _ = _inputs(torch, EVAL_RAYS, S, C, 4, False)
+        n = EVAL_RAYS * S
+        packed = fused_mlp.pack_params(params).contiguous()
+        band = fused_mlp.band_weights(None, None, "cuda")
+        x = pts.reshape(n, 3).contiguous()
+
+        def plain():
+            with torch.no_grad():
+                nerf.apply(params, pts, vd)
+
+        d = dict(fwd_ms=time_ms(torch, lambda: fused_mlp.launch_fwd(
+            packed, x, vd, band, S, C, "float32")),
+            fwd_plain_ms=time_ms(torch, plain))
+        d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(
+            flops_fwd_per_point() * n, TC_PEAK["float32"],
+            (n * (3 + C + 1) + EVAL_RAYS * 3 + weights) * 4)
+        out[n] = d
+        print(f"  eval chunk n={n}: K1 {d['fwd_ms']:.3f} ms (plain "
+              f"{d['fwd_plain_ms']:.3f}, bound {d['fwd_bound_ms']:.3f} "
+              f"{d['fwd_bound_by']})")
+    return out
+
+
 def wgrad_scratch(torch, view_pe, n, C=3, seed=3):
     """A backward scratch for n points (K2's rows with view_pe, else K4's),
     filled with normal numbers: (n_pad, X, D). The pass's work does not
@@ -637,6 +685,155 @@ def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32"):
     return ms_iter, 1e3 * RAYS / ms_iter, launches, losses
 
 
+def _records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_demo(torch, smi, device=None):
+    """configs/demo.txt through the CLI, as a user runs it: the scene written
+    by the port's writer (80x80, as the config's header says), DEMO_ITERS
+    iterations with evals and checkpoints at DEMO_ITERS / 2 and DEMO_ITERS
+    and the video at DEMO_ITERS, then resumed for DEMO_RESUME iterations;
+    then one periodic eval of the final state timed alone. Checks the launch
+    counts (K1/K2 in fp32 mode on every train MLP call, K1 alone on every
+    eval chunk, no K3/K4, no plain route), the run directory and the
+    resumed state -> {measurements, launch counts per path}. device: None
+    runs where the CLI puts a run, the card."""
+    from benerf_tpu_torch.cli import train as cli
+    from benerf_tpu_torch.core.config import config_from_cli
+    from benerf_tpu_torch.data import datasets, synthetic
+    from benerf_tpu_torch.eval import io as io_mod
+    from benerf_tpu_torch.models import bridge
+    from benerf_tpu_torch.render import renderer
+    from benerf_tpu_torch.train import checkpoint, loop
+    from benerf_tpu_torch.train import step as step_mod
+
+    fwd, bwd = "fused_mlp_fwd", "fused_mlp_bwd"
+    with tempfile.TemporaryDirectory() as root:
+        scene_dir = f"{root}/demo"
+        t0 = time.perf_counter()
+        synthetic.write_benerf_blender_scene(scene_dir, H=80, W=80)
+        write_s = time.perf_counter() - t0
+        print(f"  scene written by the port's writer in {write_s:.1f} s")
+        argv = ["--config", str(DEMO), "--datadir", scene_dir,
+                "--logdir", f"{root}/logs", "--max_iter", str(DEMO_ITERS),
+                "--render_image_iter", str(DEMO_ITERS // 2),
+                "--save_model_iter", str(DEMO_ITERS // 2),
+                "--render_video_iter", str(DEMO_ITERS)]
+        cfg = config_from_cli(argv)
+        run = Path(root) / "logs" / "0"
+        chunks = -(-80 * 80 // cfg.chunk)
+        eval_k1 = cfg.num_interpolated_pose * chunks * 2
+        video_k1 = 90 * chunks * 2
+
+        reset_counts()
+        t0 = time.perf_counter()
+        state = cli.main(argv, device=device)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_counts = counts()
+        want = {k: 0 for k in run_counts}
+        want[fwd] = 2 * DEMO_ITERS + 2 * eval_k1 + video_k1
+        want[bwd] = 2 * DEMO_ITERS
+        if run_counts != want:
+            raise AssertionError(f"demo run: counts {run_counts}, expected {want}")
+
+        reset_counts()
+        resumed = cli.main(argv + ["--load_checkpoint", "True", "--max_iter",
+                                   str(DEMO_ITERS + DEMO_RESUME)], device=device)
+        torch.cuda.synchronize()
+        resume_counts = counts()
+        want = {k: 2 * DEMO_RESUME if k in (fwd, bwd) else 0 for k in resume_counts}
+        if resume_counts != want or resumed.step != DEMO_ITERS + DEMO_RESUME:
+            raise AssertionError(f"resume: counts {resume_counts}, expected "
+                                 f"{want}; step {resumed.step}")
+
+        # the checkpoint the resume started from holds the first run's state
+        dev = device or "cuda"
+        saved = checkpoint.restore(str(run), step_mod.init_state(
+            cfg, cfg.seed + 1, device=dev), step=DEMO_ITERS, device=dev)
+        pairs = list(zip(bridge.tree_leaves(saved.params),
+                         bridge.tree_leaves(state.params)))
+        for g_s, g_r in zip(saved.optimizer.param_groups,
+                            state.optimizer.param_groups):
+            for a, b in zip(g_s["params"], g_r["params"]):
+                sa, sb = saved.optimizer.state[a], state.optimizer.state[b]
+                pairs += [(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq", "step")]
+        if saved.step != DEMO_ITERS or not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError("the checkpoint differs from the state it saved")
+
+        recs = _records(run / "metrics.jsonl")
+        steps = [r["step"] for r in recs if "train_loss" in r]
+        if steps != list(range(1, DEMO_ITERS + DEMO_RESUME + 1)):
+            raise AssertionError(f"train records at steps {steps[:3]}...{steps[-3:]}")
+        if not all(np.isfinite(r["train_loss"]) for r in recs if "train_loss" in r):
+            raise AssertionError("a non-finite train loss")
+        evals = [r for r in recs if "test_mid_psnr" in r]
+        keys = ("test_mid_psnr", "test_mid_ssim", "pose_ate_rmse",
+                "pose_flow_rmse_px", "gt_flow_rms_px")
+        if ([r["step"] for r in evals] != [DEMO_ITERS // 2, DEMO_ITERS]
+                or not all(np.isfinite(r[k]) for r in evals for k in keys)):
+            raise AssertionError(f"eval records {evals}")
+        if (run / "config.txt").read_bytes() != DEMO.read_bytes() or not (
+                run / "args.txt").is_file():
+            raise AssertionError("run directory: config.txt or args.txt")
+        for step in (DEMO_ITERS // 2, DEMO_ITERS):
+            poses = np.loadtxt(run / "poses_test" / f"poses_test_{step:06d}.txt")
+            pngs = list((run / "images_test" / f"img_test_{step:06d}").glob(
+                "test*.png"))
+            n = cfg.num_interpolated_pose
+            if poses.shape != (n, 12) or len(pngs) != n:
+                raise AssertionError(
+                    f"eval files at {step}: {poses.shape}, {len(pngs)} images")
+        video = run / f"0_spiral_{DEMO_ITERS:06d}_rgb.mp4"
+        frames = list((run / f"0_spiral_{DEMO_ITERS:06d}_rgb_frames").glob("*.png"))
+        if not video.is_file() and len(frames) != 90:
+            raise AssertionError(f"video: no mp4 and {len(frames)} frames")
+        ckpts = sorted(p.name for p in run.glob("*.ckpt.npz"))
+        if ckpts != [f"{DEMO_ITERS // 2:06d}.ckpt.npz", f"{DEMO_ITERS:06d}.ckpt.npz"]:
+            raise AssertionError(f"checkpoints {ckpts}")
+
+        # one periodic eval of the resumed state, timed alone
+        scene = datasets.load_scene(scene_dir, cfg, device=dev)
+        K_render = loop.intrinsics(cfg)[2]
+        logger = io_mod.JsonlLogger(None)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, results = loop.periodic_eval(
+            resumed.params, cfg, scene, renderer.RenderSettings.from_config(cfg),
+            K_render, 80, 80, f"{root}/eval", DEMO_ITERS + DEMO_RESUME, logger,
+            dev)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = counts()
+        want = {k: eval_k1 if k == fwd else 0 for k in eval_counts}
+        if eval_counts != want or not np.isfinite(results["test_mid_psnr"]):
+            raise AssertionError(f"eval: counts {eval_counts}, expected {want}")
+
+    rates = [r["rays_per_sec"] for r in recs if "rays_per_sec" in r]
+    rays_s = statistics.median(rates[1:])  # the first window holds the warm-up
+    rays = 2 * cfg.sampling_event_rays + cfg.num_interpolated_pose * (
+        cfg.sampling_rgb_rays // cfg.num_interpolated_pose)
+    out = dict(write_s=write_s, run_s=run_s, rays_per_sec=rays_s,
+               ms_per_iter=1e3 * rays / rays_s, eval_s=eval_s,
+               evals={r["step"]: {k: r[k] for k in keys} for r in evals},
+               final_eval=results)
+    print(f"  {DEMO_ITERS} + {DEMO_RESUME} iterations: {out['ms_per_iter']:.2f} "
+          f"ms/iter, {rays_s:,.0f} rays/s (train steps alone); run {run_s:.1f} s; "
+          f"one periodic eval ({cfg.num_interpolated_pose} frames) {eval_s:.2f} s; "
+          f"on {smi}")
+    for step, r in out["evals"].items():
+        print(f"  eval at {step}: PSNR {r['test_mid_psnr']:.2f} dB, SSIM "
+              f"{r['test_mid_ssim']:.4f}, pose flow {r['pose_flow_rmse_px']:.3f} "
+              f"px of {r['gt_flow_rms_px']:.3f}, ATE {r['pose_ate_rmse']:.2e}")
+    print(f"  launches: run {run_counts}, resume {resume_counts}, one eval "
+          f"{eval_counts}")
+    return out, {"demo_run": run_counts, "demo_resume": resume_counts,
+                 "demo_periodic_eval": eval_counts}
+
+
 def check_routes(torch):
     """Routes on the card: the plain route where the JAX package has no
     kernel (counted, no kernel launched); bf16 launches K1 in bf16 mode on
@@ -912,7 +1109,13 @@ def main():
     print("[8] MLP routes on the card")
     check_routes(torch)
 
-    # 9. results
+    # 9. configs/demo.txt through the CLI: train, eval, save, resume
+    print(f"[9] configs/demo.txt through benerf_tpu_torch.cli.train, "
+          f"{DEMO_ITERS} + {DEMO_RESUME} iterations, fp32 mode")
+    demo, demo_launches = run_demo(torch, smi)
+    k1_eval = time_eval_k1(torch)
+
+    # 10. results
     fwd_tol = f"{FWD_TOL} x max(|plain|, 1)"
     bwd_tol = (f"{GRAD_TOL} x max(|plain grad|, 1) per gradient; per-point "
                f"grads: at most {KINK_FRAC} of elements past it (ReLU kinks)")
@@ -937,16 +1140,21 @@ def main():
                       "benerf_tpu_torch/csrc/staged_mlp_bwd.cu")
     k3_rep = "benerf_tpu/ops/pallas_mlp.py:155 _fwd_kernel"
     k4_rep = "benerf_tpu/ops/pallas_mlp.py:174 _bwd_kernel"
+    k1_paths = {"tanabata": launches["fused_mlp_fwd"],
+                **{k: v["fused_mlp_fwd"] for k, v in demo_launches.items()}}
+    k2_paths = {"tanabata": launches["fused_mlp_bwd"],
+                **{k: v["fused_mlp_bwd"] for k, v in demo_launches.items()}}
     kernels = [
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "tf32x3",
-                     launches["fused_mlp_fwd"], k1_err, fwd_tol, k12["float32"],
-                     "fwd"),
+                     sum(k1_paths.values()), k1_err, fwd_tol, k12["float32"],
+                     "fwd", launches_by_path=k1_paths,
+                     eval_chunk={str(n): d for n, d in k1_eval.items()}),
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "bf16",
                      bf_launches["fused_mlp_fwd_bf16"], k1_bf, bf_fwd_tol,
                      k12["bfloat16"], "fwd"),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "tf32x3",
-                     launches["fused_mlp_bwd"], k2_err, bwd_tol, k12["float32"],
-                     "bwd",
+                     sum(k2_paths.values()), k2_err, bwd_tol, k12["float32"],
+                     "bwd", launches_by_path=k2_paths,
                      pointwise_outside_tol={str(n): v for n, v in k2_outside.items()},
                      weight_gradient_pass=_wgrad_line(k12["float32"], wg2, "tf32x3"),
                      **scratch),
@@ -984,7 +1192,9 @@ def main():
             "iters": L6_ITERS, "launches": l6_launches},
         "tanabata_multires_views_6_bf16": {
             "ms_per_iter": l6bf_ms, "rays_per_sec": l6bf_rays_s,
-            "iters": BF16_ITERS, "launches": l6bf_launches}}}))
+            "iters": BF16_ITERS, "launches": l6bf_launches},
+        "demo_cli": {**demo, "iters": DEMO_ITERS, "resumed_iters": DEMO_RESUME,
+                     "launches": demo_launches}}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """The port's CUDA kernels K1/K2 and K3/K4 (both modes) on the card, against
 the plain PyTorch version (models/nerf.apply), their weight-gradient pass
 alone against the float64 product of its scratch, and the MLP dispatcher's
-card routes. CUDA kernels have no CPU mode: every test here
+card routes (use_pallas off included). CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX; skip it there):
@@ -251,3 +251,24 @@ def test_card_path_raises_where_the_kernel_does_not_apply(card):
     assert out.shape == (2, 8, 4)
     assert mlp_ops.ROUTES["plain"] == plain + 1
     assert dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES) == kernels
+
+
+def test_use_pallas_off_sends_card_calls_to_the_plain_route(card):
+    """use_pallas = False (the JAX package's flag) runs nerf.apply on the
+    card, counted in ROUTES["plain"], and launches no kernel, for both the
+    fused and the staged architecture; RenderSettings carries the flag."""
+    from benerf_tpu_torch.core.config import Config
+    from benerf_tpu_torch.render import renderer
+
+    assert not renderer.RenderSettings.from_config(Config(use_pallas=False)).use_pallas
+    params, pts, vd, _ = _inputs(2, 8, 3, False)
+    l6, _, _, _ = _inputs(2, 8, 3, False, views_ch=39)
+    kernels = dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES)
+    plain = mlp_ops.ROUTES["plain"]
+    out = mlp_ops.mlp_forward(params, pts, vd, use_pallas=False)
+    out6 = mlp_ops.mlp_forward(l6, pts, vd, num_freqs_views=6, use_pallas=False)
+    assert mlp_ops.ROUTES["plain"] == plain + 2
+    assert dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES) == kernels
+    torch.testing.assert_close(out, nerf.apply(params, pts, vd), rtol=0, atol=0)
+    torch.testing.assert_close(out6, nerf.apply(l6, pts, vd, num_freqs_views=6),
+                               rtol=0, atol=0)

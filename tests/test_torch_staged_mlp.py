@@ -337,10 +337,10 @@ def test_staged_packed_layout(C):
 
 
 def _jax_route(params, pts, viewdirs, num_freqs, num_freqs_views,
-               barf_weights):
+               barf_weights, use_pallas):
     """benerf_tpu/ops/mlp.py:67-82 on a Pallas backend, with its own
     predicates."""
-    if viewdirs is None:
+    if not use_pallas or viewdirs is None:
         return "plain"
     if (pallas_mlp_t.supports(params, pts)
             and num_freqs == 10 and num_freqs_views == 4):
@@ -368,10 +368,12 @@ def test_route_matches_the_jax_dispatcher(width, depth, use_viewdirs):
             Lv = (views_ch - 3) // 6
             for barf in (False, True):
                 bw = np.ones(10, np.float32) if barf else None
-                want = _jax_route(jparams, pts, vd, 10, Lv, bw)
-                got = tmlp.route(tparams, vd, 10, Lv, barf)
-                assert got == want, (views_ch, C, barf, got, want)
-                routes.add(got)
+                for use_pallas in (True, False):
+                    want = _jax_route(jparams, pts, vd, 10, Lv, bw, use_pallas)
+                    got = tmlp.route(tparams, vd, 10, Lv, barf, use_pallas)
+                    assert got == want, (views_ch, C, barf, use_pallas, got,
+                                         want)
+                    routes.add(got)
     if (width, depth, use_viewdirs) == (256, 8, True):
         assert routes == {"fused", "staged", "plain"}
     else:

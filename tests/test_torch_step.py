@@ -730,9 +730,8 @@ def test_train_without_device_raises_without_a_card(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides", [
-    dict(render_image_iter=10), dict(save_model_iter=10), dict(loadpose=True),
-    dict(pose_init="motion_scale"), dict(mesh_devices=2),
-    dict(log_knot_grad_terms=True)], ids=lambda d: next(iter(d)))
+    dict(mesh_devices=2), dict(log_knot_grad_terms=True),
+    dict(profile_iter=5)], ids=lambda d: next(iter(d)))
 def test_train_refuses_unported_features(tmp_path, overrides):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tloop.train(_tiny_train_cfg(tmp_path, **overrides), _tiny_scene(),
