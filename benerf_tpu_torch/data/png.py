@@ -1,12 +1,13 @@
-"""8-bit (and 16-bit) PNG reading and writing on the standard library.
+"""8-bit PNG reading and writing on the standard library.
 
 The port reads and writes every .png through this module (the scene
 loaders, the synthetic writer, eval images and video frames), so a machine
 without imageio runs the whole port. Reading handles gray, gray + alpha,
-RGB and RGBA images at bit depth 8 or 16 and palette images at 1, 2, 4 or
-8 bits, non-interlaced, and undoes all five filter types (None, Sub, Up,
-Average, Paeth). Anything else raises ValueError instead of being misread.
-Writing stores gray, RGB or RGBA uint8 images with filter 0 on every row.
+RGB and RGBA images at bit depth 8, non-interlaced, and undoes all five
+filter types (None, Sub, Up, Average, Paeth). Anything else (palette
+images, 16-bit samples, interlacing) raises ValueError instead of being
+misread. Writing stores gray, RGB or RGBA uint8 images with filter 0 on
+every row.
 """
 
 from __future__ import annotations
@@ -17,8 +18,8 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# colour type -> samples a pixel
-_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# colour type -> samples a pixel (no palette type 3)
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
 _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
 
 
@@ -94,53 +95,26 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode(data: bytes) -> np.ndarray:
-    """PNG bytes -> (H, W) or (H, W, C) array: uint16 at bit depth 16, else
-    uint8; palette images come back as RGB (RGBA with a tRNS chunk)."""
-    header, palette, trns, idat = None, None, None, []
+    """8-bit PNG bytes -> (H, W) or (H, W, C) uint8 array."""
+    header, idat = None, []
     for kind, body in _chunks(data):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
-        elif kind == b"tRNS":
-            trns = np.frombuffer(body, np.uint8)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError("PNG file has no IHDR chunk")
     width, height, depth, ctype, comp, filt, interlace = header
     if ctype not in _CHANNELS or comp != 0 or filt != 0:
-        raise ValueError(f"unsupported PNG header {header}")
+        raise ValueError(f"unsupported PNG header {header} (palette images "
+                         "are not supported)")
     if interlace:
         raise ValueError("interlaced PNG files are not supported")
-    if depth not in ((1, 2, 4, 8) if ctype == 3 else (8, 16)):
-        raise ValueError(f"PNG bit depth {depth} with colour type {ctype} "
-                         "is not supported")
+    if depth != 8:
+        raise ValueError(f"PNG bit depth {depth} is not supported (8 only)")
     nch = _CHANNELS[ctype]
-    bpp = max(nch * depth // 8, 1)
-    stride = (width * nch * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, stride, bpp)
-    if depth == 16:
-        img = rows.view(">u2").astype(np.uint16).reshape(height, width, nch)
-    elif depth < 8:  # palette indices packed several to a byte, high bits first
-        bits = np.unpackbits(rows, axis=1)[:, :width * depth]
-        weights = 1 << np.arange(depth - 1, -1, -1)
-        img = (bits.reshape(height, width, depth) * weights).sum(
-            -1, dtype=np.uint8)[..., None]
-    else:
-        img = rows.reshape(height, width, nch)
-    if ctype == 3:
-        if palette is None:
-            raise ValueError("palette PNG without a PLTE chunk")
-        idx = img[..., 0]
-        if idx.max(initial=0) >= len(palette):
-            raise ValueError("PNG palette index out of range")
-        rgb = palette[idx]
-        if trns is None:
-            return rgb
-        alpha = np.full(len(palette), 255, np.uint8)
-        alpha[:len(trns)] = trns[:len(palette)]
-        return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
+    rows = _unfilter(zlib.decompress(b"".join(idat)), height, width * nch, nch)
+    img = rows.reshape(height, width, nch)
     return img[..., 0] if nch == 1 else img
 
 

@@ -221,19 +221,17 @@ def train(cfg, scene=None, init_knots=None, device=None):
         + cfg.num_interpolated_pose
         * (cfg.sampling_rgb_rays // cfg.num_interpolated_pose)
     )
-    # rays/s over the train steps' own wall time (eval, video and
-    # checkpoints excluded), since the last console record
-    train_s, n_since = 0.0, 0
+    # rays/s as the JAX loop logs it: wall time since the last console
+    # record, so a window that holds an eval, video or checkpoint counts it
+    t_last, n_since = time.time(), 0
     try:
         with torch.autograd.set_detect_anomaly(cfg.debug_nans):
             while state.step < cfg.max_iter:
-                t0 = time.perf_counter()
                 state, metrics = step_fn(state, batch, cfg.seed)
                 i = state.step
                 n_since += 1
                 # one host sync per iteration: the record, the guard, the log
                 last = {k: v.item() for k, v in metrics.items()}
-                train_s += time.perf_counter() - t0
                 logger.write_record(i, {"train_" + k: v for k, v in last.items()})
                 logger.flush()
 
@@ -251,13 +249,14 @@ def train(cfg, scene=None, init_knots=None, device=None):
 
                 if ((cfg.console_log_iter > 0 and i % cfg.console_log_iter == 0)
                         or i == cfg.max_iter):
-                    rays_s = rays_per_iter * n_since / max(train_s, 1e-9)
+                    dt = time.time() - t_last
+                    rays_s = rays_per_iter * n_since / max(dt, 1e-9)
                     logger.write("rays_per_sec", rays_s)
                     print(f"[TRAIN] iter {i} loss {last['loss']:.5f} "
                           f"event {last.get('event_loss', 0.0):.5f} "
                           f"rgb {last.get('rgb_loss', 0.0):.5f} "
                           f"({rays_s:,.0f} rays/s)")
-                    train_s, n_since = 0.0, 0
+                    t_last, n_since = time.time(), 0
 
                 if cfg.render_image_iter > 0 and i % cfg.render_image_iter == 0:
                     _, results = periodic_eval(

@@ -50,7 +50,9 @@ an exception):
      args.txt, config.txt, finite eval metrics (PSNR, SSIM, ATE, pose
      flow), the KITTI poses, the eval PNGs, the video and both
      checkpoints, and the checkpoint equals the state it saved; one
-     periodic eval timed alone; K1 timed at the eval chunk's shapes;
+     periodic eval timed alone; K1 held against nerf.apply at the eval
+     chunks' shapes (a full chunk of EVAL_RAYS rays and the frame's last
+     2,304, x 64 and x 128 points), and timed at the full chunk's;
   10. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
@@ -74,6 +76,7 @@ DEMO = Path(__file__).resolve().parent / "configs/demo.txt"
 DEMO_ITERS = 300             # evals and checkpoints at DEMO_ITERS / 2 and DEMO_ITERS
 DEMO_RESUME = 20             # iterations after resuming at DEMO_ITERS
 EVAL_RAYS = 4096             # rays of one eval chunk (cfg.chunk)
+DEMO_PIXELS = 80 * 80        # configs/demo.txt: rays of one eval frame
 ITERS = 25
 BF16_ITERS = 10
 LOG_EVERY = 5
@@ -685,9 +688,51 @@ def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32"):
     return ms_iter, 1e3 * RAYS / ms_iter, launches, losses
 
 
-def _records(path):
+def read_records(path):
     with open(path) as f:
         return [json.loads(line) for line in f]
+
+
+def write_demo_scene(scene_dir):
+    """The 80x80 demo scene, written by the port's writer as
+    configs/demo.txt's header says -> seconds it took."""
+    from benerf_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    synthetic.write_benerf_blender_scene(scene_dir, H=80, W=80)
+    return time.perf_counter() - t0
+
+
+def demo_argv(scene_dir, logdir, **flags):
+    """CLI arguments of configs/demo.txt, unchanged but for its paths and
+    `flags` (name -> value)."""
+    argv = ["--config", str(DEMO), "--datadir", scene_dir, "--logdir", logdir]
+    for k, v in flags.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def train_rays_per_sec(recs, cfg):
+    """Median of the loop's rays_per_sec records over the console windows
+    that hold train steps alone -> (rays/s, ms/iter, windows). A record at step b covers the steps after
+    the one before it, a; the eval, video and checkpoint of a step s run
+    after its record, so a window holds them for every s in [a, b). Step 0,
+    a run's start and a resume (at a checkpoint) are such s, so no window
+    holds a warm-up."""
+    periods = [p for p in (cfg.render_image_iter, cfg.render_video_iter,
+                           cfg.save_model_iter) if p > 0]
+    rates, a = [], 0
+    for r in recs:
+        if "rays_per_sec" in r:
+            if not any(s % p == 0 for s in range(a, r["step"]) for p in periods):
+                rates.append(r["rays_per_sec"])
+            a = r["step"]
+    if not rates:
+        raise AssertionError("no console window holds train steps alone")
+    rays_s = statistics.median(rates)
+    rays = 2 * cfg.sampling_event_rays + cfg.num_interpolated_pose * (
+        cfg.sampling_rgb_rays // cfg.num_interpolated_pose)
+    return rays_s, 1e3 * rays / rays_s, len(rates)
 
 
 def run_demo(torch, smi, device=None):
@@ -702,7 +747,7 @@ def run_demo(torch, smi, device=None):
     runs where the CLI puts a run, the card."""
     from benerf_tpu_torch.cli import train as cli
     from benerf_tpu_torch.core.config import config_from_cli
-    from benerf_tpu_torch.data import datasets, synthetic
+    from benerf_tpu_torch.data import datasets
     from benerf_tpu_torch.eval import io as io_mod
     from benerf_tpu_torch.models import bridge
     from benerf_tpu_torch.render import renderer
@@ -712,18 +757,15 @@ def run_demo(torch, smi, device=None):
     fwd, bwd = "fused_mlp_fwd", "fused_mlp_bwd"
     with tempfile.TemporaryDirectory() as root:
         scene_dir = f"{root}/demo"
-        t0 = time.perf_counter()
-        synthetic.write_benerf_blender_scene(scene_dir, H=80, W=80)
-        write_s = time.perf_counter() - t0
+        write_s = write_demo_scene(scene_dir)
         print(f"  scene written by the port's writer in {write_s:.1f} s")
-        argv = ["--config", str(DEMO), "--datadir", scene_dir,
-                "--logdir", f"{root}/logs", "--max_iter", str(DEMO_ITERS),
-                "--render_image_iter", str(DEMO_ITERS // 2),
-                "--save_model_iter", str(DEMO_ITERS // 2),
-                "--render_video_iter", str(DEMO_ITERS)]
+        argv = demo_argv(scene_dir, f"{root}/logs", max_iter=DEMO_ITERS,
+                         render_image_iter=DEMO_ITERS // 2,
+                         save_model_iter=DEMO_ITERS // 2,
+                         render_video_iter=DEMO_ITERS)
         cfg = config_from_cli(argv)
         run = Path(root) / "logs" / "0"
-        chunks = -(-80 * 80 // cfg.chunk)
+        chunks = -(-DEMO_PIXELS // cfg.chunk)
         eval_k1 = cfg.num_interpolated_pose * chunks * 2
         video_k1 = 90 * chunks * 2
 
@@ -763,7 +805,7 @@ def run_demo(torch, smi, device=None):
         if saved.step != DEMO_ITERS or not all(torch.equal(a, b) for a, b in pairs):
             raise AssertionError("the checkpoint differs from the state it saved")
 
-        recs = _records(run / "metrics.jsonl")
+        recs = read_records(run / "metrics.jsonl")
         steps = [r["step"] for r in recs if "train_loss" in r]
         if steps != list(range(1, DEMO_ITERS + DEMO_RESUME + 1)):
             raise AssertionError(f"train records at steps {steps[:3]}...{steps[-3:]}")
@@ -812,16 +854,15 @@ def run_demo(torch, smi, device=None):
         if eval_counts != want or not np.isfinite(results["test_mid_psnr"]):
             raise AssertionError(f"eval: counts {eval_counts}, expected {want}")
 
-    rates = [r["rays_per_sec"] for r in recs if "rays_per_sec" in r]
-    rays_s = statistics.median(rates[1:])  # the first window holds the warm-up
-    rays = 2 * cfg.sampling_event_rays + cfg.num_interpolated_pose * (
-        cfg.sampling_rgb_rays // cfg.num_interpolated_pose)
+    rays_s, ms_iter, windows = train_rays_per_sec(recs, cfg)
     out = dict(write_s=write_s, run_s=run_s, rays_per_sec=rays_s,
-               ms_per_iter=1e3 * rays / rays_s, eval_s=eval_s,
+               ms_per_iter=ms_iter, rate_windows=windows,
+               eval_s=eval_s,
                evals={r["step"]: {k: r[k] for k in keys} for r in evals},
                final_eval=results)
     print(f"  {DEMO_ITERS} + {DEMO_RESUME} iterations: {out['ms_per_iter']:.2f} "
-          f"ms/iter, {rays_s:,.0f} rays/s (train steps alone); run {run_s:.1f} s; "
+          f"ms/iter, {rays_s:,.0f} rays/s (median of {windows} console windows "
+          f"without eval, video or checkpoint); run {run_s:.1f} s; "
           f"one periodic eval ({cfg.num_interpolated_pose} frames) {eval_s:.2f} s; "
           f"on {smi}")
     for step, r in out["evals"].items():
@@ -1113,6 +1154,11 @@ def main():
     print(f"[9] configs/demo.txt through benerf_tpu_torch.cli.train, "
           f"{DEMO_ITERS} + {DEMO_RESUME} iterations, fp32 mode")
     demo, demo_launches = run_demo(torch, smi)
+    print("  K1 vs plain at the eval chunks' shapes (a full chunk and the "
+          "frame's last, partial one)")
+    k1_eval_err = {R * S: check_fwd(torch, "K1/K2", R, S, 3, False)
+                   for R in (EVAL_RAYS, DEMO_PIXELS - EVAL_RAYS)
+                   for S in (64, 128)}
     k1_eval = time_eval_k1(torch)
 
     # 10. results
@@ -1124,7 +1170,8 @@ def main():
                   f"per-point: RMS) between {BF16_GRAD_FLOOR} and "
                   f"{BF16_GRAD_FACTOR} x the plain version's with bf16 "
                   "operands; max_abs_err vs float64")
-    k1_err = {n: (e, e / s) for n, (e, s) in k1_err.items()}
+    k1_eval_err = {n: (e, e / s) for n, (e, s) in k1_eval_err.items()}
+    k1_err = {**{n: (e, e / s) for n, (e, s) in k1_err.items()}, **k1_eval_err}
     k3_err = {n: (e, e / s) for n, (e, s) in k3_err.items()}
     k1_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf.items()}
     k2_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf.items()}
@@ -1148,7 +1195,10 @@ def main():
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "tf32x3",
                      sum(k1_paths.values()), k1_err, fwd_tol, k12["float32"],
                      "fwd", launches_by_path=k1_paths,
-                     eval_chunk={str(n): d for n, d in k1_eval.items()}),
+                     eval_chunk={str(n): {
+                         **k1_eval.get(n, {}), "max_abs_err": e,
+                         "max_err_over_scale": r}
+                         for n, (e, r) in k1_eval_err.items()}),
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "bf16",
                      bf_launches["fused_mlp_fwd_bf16"], k1_bf, bf_fwd_tol,
                      k12["bfloat16"], "fwd"),

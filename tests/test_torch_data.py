@@ -2,8 +2,8 @@
 
 - data/png.py: decodes what imageio writes and imageio decodes what it
   writes, for gray, gray + alpha, RGB and RGBA; every filter type (rows
-  filtered here, decoded by both); palette and 16-bit files as imageio
-  reads them; malformed or unsupported files raise;
+  filtered here, decoded by both); palette and 16-bit files, which imageio
+  writes, raise as malformed or unsupported files do;
 - the scene loaders on the same files for the five formats of SURVEY.md
   §2.2, `loadpose` and `loadtrans`: equal arrays (events: equal times, and
   each equal-time group as a multiset, since the JAX ingest runs its C++
@@ -143,6 +143,9 @@ def test_png_undoes_every_filter_type(ftype, channels):
 
 
 def test_png_palette_and_16_bit_files_read_as_imageio_reads_them():
+    """The reader takes 8-bit gray / RGB files only: palette and 16-bit
+    files, which imageio reads, raise rather than being misread (the
+    loaders scale every image by 1/255)."""
     from PIL import Image
     import io
 
@@ -152,14 +155,14 @@ def test_png_palette_and_16_bit_files_read_as_imageio_reads_them():
         buf = io.BytesIO()
         Image.fromarray(rgb).convert("P", palette=Image.ADAPTIVE,
                                      colors=colors).save(buf, format="PNG")
-        data = buf.getvalue()
-        np.testing.assert_array_equal(png.decode(data),
-                                      imread(data, extension=".png"))
+        assert imread(buf.getvalue(), extension=".png").shape == (9, 11, 3)
+        with pytest.raises(ValueError, match="palette"):
+            png.decode(buf.getvalue())
     g16 = rng.integers(0, 65535, (9, 11)).astype(np.uint16)
     data = imwrite("<bytes>", g16, extension=".png")
-    got = png.decode(data)
-    assert got.dtype == np.uint16
-    np.testing.assert_array_equal(got, imread(data, extension=".png"))
+    np.testing.assert_array_equal(imread(data, extension=".png"), g16)
+    with pytest.raises(ValueError, match="bit depth 16"):
+        png.decode(data)
 
 
 def test_png_refuses_what_it_cannot_read():

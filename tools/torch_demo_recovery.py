@@ -21,10 +21,13 @@ and prints:
     estimate; ATE, RPE);
   - the blurry input's PSNR / SSIM against the sharp ground truth, and the
     pose flow of the motion-scale init (the knots the run starts from);
-  - ms/iter and rays/s of the train steps (the loop's rays_per_sec records,
-    eval excluded), the run's wall time, the scene writer's seconds;
+  - ms/iter and rays/s: the median of the loop's rays_per_sec records over
+    the console windows without an eval, video or checkpoint; the run's wall
+    time, the scene writer's seconds;
   - the card's name and power limit (nvidia-smi) and the torch version.
-Imports nothing of JAX or of the JAX package. Needs one CUDA card.
+The scene, the arguments and the rate come from chip_smoke.py's demo phase
+(write_demo_scene, demo_argv, train_rays_per_sec), so both run the demo the
+same way. Imports nothing of JAX or of the JAX package. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -42,14 +44,14 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-RAYS = 3055  # configs/demo.txt: 2 x 1024 event rays + 19 x 53 rgb rays
+import chip_smoke  # noqa: E402
 
 
 def main():
     import torch
 
-    from benerf_tpu_torch.core.config import load_config
-    from benerf_tpu_torch.data import datasets, synthetic
+    from benerf_tpu_torch.core.config import config_from_cli
+    from benerf_tpu_torch.data import datasets
     from benerf_tpu_torch.eval import metrics, pose_metrics
     from benerf_tpu_torch.geometry import spline
     from benerf_tpu_torch.train import pose_init
@@ -62,29 +64,23 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("torch_demo_recovery: torch sees no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    smi = chip_smoke.nvidia_smi_line()
 
-    config = REPO / "configs" / "demo.txt"
     with tempfile.TemporaryDirectory() as root:
         scene_dir, logdir = f"{root}/demo", f"{root}/logs"
-        t0 = time.perf_counter()
-        synthetic.write_benerf_blender_scene(scene_dir, H=80, W=80)
-        write_s = time.perf_counter() - t0
-        cmd = [sys.executable, "-m", "benerf_tpu_torch.cli.train", "--config",
-               str(config), "--datadir", scene_dir, "--logdir", logdir,
-               "--render_image_iter", str(args.render_image_iter)]
+        write_s = chip_smoke.write_demo_scene(scene_dir)
+        flags = {"render_image_iter": args.render_image_iter}
         if args.max_iter:
-            cmd += ["--max_iter", str(args.max_iter)]
+            flags["max_iter"] = args.max_iter
+        argv = chip_smoke.demo_argv(scene_dir, logdir, **flags)
+        cmd = [sys.executable, "-m", "benerf_tpu_torch.cli.train", *argv]
         print(" ".join(cmd), flush=True)
         t0 = time.perf_counter()
         subprocess.run(cmd, check=True, cwd=REPO)
         run_s = time.perf_counter() - t0
-        with open(f"{logdir}/0/metrics.jsonl") as f:
-            recs = [json.loads(line) for line in f]
+        recs = chip_smoke.read_records(f"{logdir}/0/metrics.jsonl")
 
-        cfg = load_config(str(config), {"datadir": scene_dir})
+        cfg = config_from_cli(argv)
         scene = datasets.load_scene(scene_dir, cfg, device="cpu")
         blurry, sharp = scene.image[0], scene.imgtest[0]
         knots0, d_px = pose_init.initial_knots(cfg, scene)
@@ -106,15 +102,14 @@ def main():
             "pose_rpe_rot_deg")
     evals = [{"step": r["step"], **{k: r[k] for k in keys if k in r}}
              for r in recs if "test_mid_psnr" in r]
-    rates = [r["rays_per_sec"] for r in recs if "rays_per_sec" in r]
-    steady = statistics.median(rates[1:]) if len(rates) > 1 else rates[0]
+    rays_s, ms_iter, windows = chip_smoke.train_rays_per_sec(recs, cfg)
     losses = [r["train_loss"] for r in recs if "train_loss" in r]
     out = {
         "device": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "command": " ".join(cmd[1:]), "iters": len(losses),
         "scene_write_s": write_s, "run_wall_s": run_s,
-        "ms_per_iter": 1e3 * RAYS / steady, "rays_per_sec": steady,
-        "ms_per_iter_first_window": 1e3 * RAYS / rates[0],
+        "ms_per_iter": ms_iter, "rays_per_sec": rays_s,
+        "rate_windows": windows,
         "blurry_input": {"psnr": metrics.psnr(blurry, sharp),
                          "ssim": metrics.ssim(blurry, sharp)},
         "motion_scale_init": {"d_px": d_px, **init_flow},
@@ -129,8 +124,8 @@ def main():
     for e in evals:
         print(f"iter {e['step']}: PSNR {e['test_mid_psnr']:.2f} dB, flow "
               f"{e['pose_flow_rmse_px']:.3f} px of {e['gt_flow_rms_px']:.3f}")
-    print(f"{out['ms_per_iter']:.2f} ms/iter ({steady:,.0f} rays/s) over "
-          f"{len(losses)} iterations; wall {run_s:.0f} s; on {smi}")
+    print(f"{ms_iter:.2f} ms/iter ({rays_s:,.0f} rays/s, median of {windows} "
+          f"windows) over {len(losses)} iterations; wall {run_s:.0f} s; on {smi}")
     print(json.dumps(out))
 
 
