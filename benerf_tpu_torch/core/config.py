@@ -4,10 +4,10 @@ parser for the reference's `key = value` .txt scene configs so that every
 shipped config under configs/ runs unmodified.
 
 This is the PyTorch port's own copy of benerf_tpu/core/config.py: the port
-imports nothing from the JAX package. Fields the port cannot honour yet
-(mesh_devices > 1, profile_iter, log_knot_grad_terms) parse the same way,
-and the port's train loop raises on them; use_pallas keeps its JAX name
-and, off, sends every MLP call to the plain route.
+imports nothing from the JAX package. The field the port cannot honour yet
+(mesh_devices > 1) parses the same way, and the port's train loop raises
+on it; use_pallas keeps its JAX name and, off, sends every MLP call to the
+plain route.
 
 Parsing rules (configargparse compatibility):
   - lines `key = value`; `#` starts a comment; booleans are True/False;
@@ -174,9 +174,9 @@ class Config:
     # reported at the cost of per-op checks; the training loop always
     # finite-guards the loss on the host and aborts with a pointer here.
     debug_nans: bool = False
-    # profiling (SURVEY.md §5): capture a jax.profiler trace (TensorBoard /
-    # xprof format) of the dispatch that crosses `profile_iter`, written to
-    # profile_dir. 0 = off.
+    # profiling (SURVEY.md §5): a torch.profiler Chrome trace of the
+    # dispatch that crosses `profile_iter`, written to profile_dir (the JAX
+    # package writes a jax.profiler trace). 0 = off.
     profile_iter: int = 0
     profile_dir: str = "/tmp/benerf_trace"
     # deterministic per-step RNG folding

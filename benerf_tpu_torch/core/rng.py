@@ -4,7 +4,9 @@ Port of benerf_tpu/core/rng.py. The JAX package folds the step into one
 root key and splits a subkey per named consumer; here each (seed, step,
 consumer) triple seeds its own torch.Generator on the step's device, through
 numpy's SeedSequence so nearby seeds give unrelated streams. torch and JAX
-streams differ, so parity tests inject draws instead of seeds.
+streams differ, so parity tests inject draws instead of seeds. A re-seeded
+generator restarts its stream, so a persistent set re-seeded before each
+step draws what a new set would.
 """
 
 from __future__ import annotations
@@ -27,19 +29,22 @@ CONSUMERS = (
 )
 
 
-def generators(entropy, names, device) -> dict:
+def generators(entropy, names, device, out=None) -> dict:
     """{name: torch.Generator on `device`}, seeded from the ints `entropy`
-    through numpy's SeedSequence, one stream per name."""
+    through numpy's SeedSequence, one stream per name. out: such a dict to
+    re-seed in place instead of making new generators."""
     states = np.random.SeedSequence(list(entropy)).generate_state(
         len(names), np.uint64)
-    gens = {}
+    gens = {} if out is None else out
     for name, s in zip(names, states):
-        g = torch.Generator(device=device)
-        g.manual_seed(int(s) & 0x7FFF_FFFF_FFFF_FFFF)
-        gens[name] = g
+        if out is None:
+            gens[name] = torch.Generator(device=device)
+        gens[name].manual_seed(int(s) & 0x7FFF_FFFF_FFFF_FFFF)
     return gens
 
 
-def step_generators(seed: int, step: int, device) -> dict:
-    """{consumer: torch.Generator on `device`} for one train step."""
-    return generators((seed, step), CONSUMERS, device)
+def step_generators(seed: int, step: int, device, out=None) -> dict:
+    """{consumer: torch.Generator on `device`} for one train step; with
+    `out` (an earlier call's dict) its generators are re-seeded in place,
+    so a CUDA graph that registered them draws this step's streams."""
+    return generators((seed, step), CONSUMERS, device, out)

@@ -29,7 +29,10 @@ def positional_encoding(x, num_freqs: int, include_input: bool = True):
 
 def barf_c2f_weights(step, max_iter, num_freqs, start, end, device=None,
                      dtype=torch.float32):
-    """Per-frequency-band BARF weights in [0,1], shape (num_freqs,)."""
+    """Per-frequency-band BARF weights in [0,1], shape (num_freqs,).
+
+    step: an int, or a 0-d tensor on `device` (the train step's own counter,
+    which a step captured in a CUDA graph advances on the card)."""
     step = torch.as_tensor(step, dtype=dtype, device=device)
     progress = step / max_iter
     alpha = (progress - start) / (end - start) * num_freqs

@@ -25,6 +25,29 @@ from benerf_tpu_torch.ops import fused_mlp, staged_mlp
 
 # card calls that took the plain route (the kernels count their launches)
 ROUTES = {"plain": 0}
+# every launch and route counter of the card path. The wrappers count on the
+# host where they launch, which a CUDA graph's replay does not pass through:
+# train/step.py counts what a captured step launched (counts_since) and adds
+# it at each replay (add_counts), so the counters count launches on the card
+# whether a graph replays them or not.
+COUNTERS = (fused_mlp.LAUNCHES, staged_mlp.LAUNCHES, ROUTES)
+
+
+def counts():
+    """A copy of every counter of COUNTERS."""
+    return [dict(c) for c in COUNTERS]
+
+
+def counts_since(before):
+    """What each counter gained since `before` (a `counts()`)."""
+    return [{k: c[k] - b[k] for k in c} for c, b in zip(COUNTERS, before)]
+
+
+def add_counts(delta, times=1):
+    """Add `times` x `delta` (a `counts_since`) to the counters."""
+    for c, d in zip(COUNTERS, delta):
+        for k, v in d.items():
+            c[k] += v * times
 
 
 def route(params, viewdirs, num_freqs, num_freqs_views, barf_on,

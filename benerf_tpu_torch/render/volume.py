@@ -17,9 +17,29 @@ from __future__ import annotations
 import torch
 
 
+class _PositiveCumprod(torch.autograd.Function):
+    """torch.cumprod along the last axis of inputs with no zero, with the
+    gradient torch's own backward takes for such inputs (the reversed
+    cumulative sum of output x cotangent, over the input). torch's backward
+    first asks the host whether an input is zero, a device-to-host read
+    that a CUDA graph cannot capture."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.cumprod(x, dim=-1)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        return (out * g).flip(-1).cumsum(-1).flip(-1).div(x)
+
+
 def exclusive_cumprod_one_minus(alpha, eps=1e-10):
-    """cumprod([1, 1-a_0+eps, ...])[:-1] along the sample axis (last)."""
-    t = torch.cumprod(1.0 - alpha + eps, dim=-1)
+    """cumprod([1, 1-a_0+eps, ...])[:-1] along the sample axis (last).
+    alpha lies in [0, 1], so no factor is below eps: none is zero."""
+    t = _PositiveCumprod.apply(1.0 - alpha + eps)
     return torch.cat([torch.ones_like(t[..., :1]), t[..., :-1]], dim=-1)
 
 

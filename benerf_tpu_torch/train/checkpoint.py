@@ -10,6 +10,9 @@ every optimizer group with its parameters' paths; restore refuses a file
 whose signature differs from the template state's (most often from changed
 optimize_* flags), so arrays are never loaded into the wrong places. A
 checkpoint of the JAX package fails that check the same way.
+Adam's step is saved from either device and restored onto the device the
+restored optimizer keeps it on (the card when it is capturable), so a
+checkpoint written on the card resumes on the CPU and the reverse.
 """
 
 from __future__ import annotations
@@ -119,7 +122,17 @@ def restore(logdir: str, template, step: Optional[int] = None, device=None):
                 if key + "step" in data:
                     sd["state"][i] = {k: torch.as_tensor(data[key + k])
                                       for k in _MOMENTS}
+                    # Adam's step: on the parameter's device for a
+                    # capturable Adam, on the CPU otherwise, float32 both
+                    sd["state"][i]["step"] = sd["state"][i]["step"].to(
+                        device=t.device if g["capturable"] else "cpu",
+                        dtype=torch.float32)
                 i += 1
+        lrs = [g["lr"] for g in opt.param_groups]
         opt.load_state_dict(sd)
+        # load_state_dict copies the groups: keep the lr tensors a captured
+        # step reads
+        for g, lr in zip(opt.param_groups, lrs):
+            g["lr"] = lr
         saved_step = int(data["step"])
     return step_mod.TrainState(template.params, opt, saved_step)

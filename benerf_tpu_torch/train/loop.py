@@ -3,21 +3,27 @@
 Port of benerf_tpu/train/loop.py (reference train.py:20-461): the scene
 from disk (or the caller's), the undistortion remaps, the trajectory init
 (reference draw, loaded poses or the motion-scale estimate), resume from
-the latest checkpoint, one train step per iteration with its JSONL record,
-the non-finite-loss guard, the event-window overflow warning and rays/s
-accounting, periodic eval of the recovered trajectory (images, KITTI poses,
-PSNR / SSIM / LPIPS of the mid frame, and on synthetic scenes ATE / RPE and
-the reprojection-flow error against the ground truth), the video and
-checkpoints. PyTorch runs eagerly, so the JAX package's lax.scan of several
-steps per dispatch is one Python call per step here. A multi-device mesh,
-the profiler trace and per-term knot gradients are not ported; a config
-that asks for one of them raises NotImplementedError instead of being
-quietly run without it.
+the latest checkpoint, g train steps per dispatch (g the gcd of the
+periodic-event intervals, as the JAX loop) with one JSONL record per
+iteration, the non-finite-loss guard, the event-window overflow warning and
+rays/s accounting, a profiler trace of one dispatch, periodic eval of the
+recovered trajectory (images, KITTI poses, PSNR / SSIM / LPIPS of the mid
+frame, and on synthetic scenes ATE / RPE and the reprojection-flow error
+against the ground truth), the video and checkpoints.
+
+A dispatch of g steps is train/step.py make_multi_step: on the card one
+captured CUDA graph of the step, replayed g times, its stacked metrics read
+back once per dispatch. A shorter tail runs single steps (make_train_step),
+as the JAX loop does. Under debug_nans (torch anomaly detection, which a
+graph cannot capture) every step is a single uncaptured one. A multi-device
+mesh is not ported; a config that asks for one raises NotImplementedError
+instead of being quietly run without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
 
@@ -83,11 +89,18 @@ def _unported(cfg):
     asks = {
         "a multi-device mesh (mesh_devices > 1; multi-GPU slice)":
             cfg.mesh_devices > 1,
-        "profiling (profile_iter > 0)": cfg.profile_iter > 0,
-        "per-term knot gradients (log_knot_grad_terms)":
-            cfg.log_knot_grad_terms,
     }
     return [name for name, on in asks.items() if on]
+
+
+def _start_profiler(device):
+    """A started torch.profiler of the host and, on the card, the device."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
 
 
 def _write_run_config(cfg, logdir):
@@ -214,7 +227,18 @@ def train(cfg, scene=None, init_knots=None, device=None):
         cfg = dataclasses.replace(cfg, event_window_cap=cap)
         print(f"[INFO] event window cap: {cap} of {scene.events.num} events")
     settings_eval = renderer_mod.RenderSettings.from_config(cfg)
+    # g steps per dispatch: the largest chunk that respects every
+    # periodic-event boundary (benerf_tpu/train/loop.py)
+    g = math.gcd(math.gcd(cfg.console_log_iter, cfg.render_image_iter),
+                 math.gcd(cfg.render_video_iter, cfg.save_model_iter))
+    g = max(1, min(g, cfg.max_iter))
     step_fn = step_mod.make_train_step(cfg, H, W)
+    multi_fn = None
+    if g > 1 and cfg.debug_nans:
+        print("[INFO] debug_nans: anomaly detection cannot run inside a CUDA "
+              "graph, so every step runs alone and uncaptured")
+    elif g > 1:
+        multi_fn = step_mod.make_multi_step(cfg, H, W, g)
 
     rays_per_iter = (
         2 * cfg.sampling_event_rays
@@ -227,20 +251,44 @@ def train(cfg, scene=None, init_knots=None, device=None):
     try:
         with torch.autograd.set_detect_anomaly(cfg.debug_nans):
             while state.step < cfg.max_iter:
-                state, metrics = step_fn(state, batch, cfg.seed)
                 i = state.step
-                n_since += 1
-                # one host sync per iteration: the record, the guard, the log
-                last = {k: v.item() for k, v in metrics.items()}
-                logger.write_record(i, {"train_" + k: v for k, v in last.items()})
+                n = min(g, cfg.max_iter - i)
+                if n != g or multi_fn is None:
+                    n = 1
+                prof = None
+                if cfg.profile_iter > 0 and i <= cfg.profile_iter < i + n:
+                    # the dispatch that crosses profile_iter under the
+                    # profiler, as the JAX loop traces one scan chunk
+                    prof = _start_profiler(device)
+                if n > 1:
+                    state, metrics = multi_fn(state, batch, cfg.seed)
+                else:
+                    state, metrics = step_fn(state, batch, cfg.seed)
+                i = state.step
+                # the dispatch's one host sync: its stacked metrics
+                host = step_mod.metrics_to_host(metrics)
+                if prof is not None:
+                    prof.stop()
+                    path = os.path.join(cfg.profile_dir,
+                                        f"trace_iter{i - n + 1:06d}.json")
+                    os.makedirs(cfg.profile_dir, exist_ok=True)
+                    prof.export_chrome_trace(path)
+                    print(f"[INFO] wrote profiler trace to {path}")
+                n_since += n
+                for j in range(n):
+                    logger.write_record(i - n + 1 + j, {
+                        "train_" + k: v[j] for k, v in host.items()})
                 logger.flush()
+                last = {k: float(v[-1]) for k, v in host.items()}
 
-                if not np.isfinite(last["loss"]):
+                bad = np.flatnonzero(~np.isfinite(host["loss"]))
+                if bad.size:
+                    at = i - n + 1 + int(bad[0])
                     raise FloatingPointError(
-                        f"non-finite loss at iter {i}: {last['loss']}. Re-run "
-                        "with debug_nans=True to locate the faulting op "
-                        "(torch anomaly detection).")
-                overflow = int(last.get("eta_window_overflow", 0))
+                        f"non-finite loss at iter {at}: "
+                        f"{host['loss'][bad[0]]}. Re-run with debug_nans=True "
+                        "to locate the faulting op (torch anomaly detection).")
+                overflow = int(np.max(host.get("eta_window_overflow", 0)))
                 if overflow > 0:
                     print(f"[WARN] iter {i}: event window overflowed its static "
                           f"cap by {overflow} events — the ETA target dropped "

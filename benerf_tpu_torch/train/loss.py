@@ -13,6 +13,7 @@ Port of benerf_tpu/train/loss.py (reference train.py:204-331):
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -20,10 +21,17 @@ import torch
 GRAY_WEIGHTS = (0.299, 0.587, 0.114)  # ITU-R BT.601
 
 
+@functools.lru_cache(maxsize=None)
+def _gray_weights(device, dtype):
+    """GRAY_WEIGHTS as a tensor, made once per device and dtype: a step
+    captured in a CUDA graph may not copy from the host."""
+    return torch.tensor(GRAY_WEIGHTS, device=device, dtype=dtype)
+
+
 def rgb_to_gray(rgb):
     """(..., 3) -> (..., 1) luma."""
-    w = torch.tensor(GRAY_WEIGHTS, device=rgb.device, dtype=rgb.dtype)
-    return torch.sum(rgb * w, dim=-1, keepdim=True)
+    return torch.sum(rgb * _gray_weights(rgb.device, rgb.dtype), dim=-1,
+                     keepdim=True)
 
 
 def safe_log(x, eps: float = 1e-9):

@@ -10,6 +10,14 @@ lr(i) choice (the reference steps with lr(i-1)) — after a linear 0 -> lr0
 ramp of `pose_lrate_warmup` updates on knots and transform, as
 optax.join_schedules does. A disabled group is not in the optimizer: it is
 never stepped and has no Adam state (optax.set_to_zero).
+
+Each group's lr is a 0-d float32 tensor on the parameters' device that
+set_learning_rates overwrites in place, so a step captured in a CUDA graph
+(train/step.py make_multi_step) reads the current value at every replay.
+On the card the Adam is built capturable (its per-parameter `step` lives on
+the card too); torch's capturable Adam takes no CPU tensors, so on the CPU
+it is not. Both run Adam's update; they round its scalar factors in
+different orders.
 """
 
 from __future__ import annotations
@@ -48,18 +56,22 @@ def learning_rate(group, step: int) -> float:
 
 
 def build_optimizer(cfg, params):
-    """torch.optim.Adam over the enabled groups of the train-state params."""
+    """torch.optim.Adam over the enabled groups of the train-state params,
+    capturable on the card."""
     groups = []
+    device = params["knots"].device
     for name, (enabled, lr0, rate, warmup) in _group_settings(cfg).items():
         if not enabled:
             continue
         leaves = [t for c in _COLLECTIONS[name] for t in tree_leaves(params[c])]
-        groups.append({"params": leaves, "name": name, "lr": lr0, "lr0": lr0,
-                       "rate": rate, "warmup": warmup,
+        groups.append({"params": leaves, "name": name,
+                       "lr": torch.tensor(lr0, dtype=torch.float32, device=device),
+                       "lr0": lr0, "rate": rate, "warmup": warmup,
                        "decay_steps": cfg.lrate_decay * 1000})
-    return torch.optim.Adam(groups)
+    return torch.optim.Adam(groups, capturable=device.type == "cuda")
 
 
 def set_learning_rates(optimizer, step: int) -> None:
+    """Write each group's lr before update `step` into its tensor."""
     for group in optimizer.param_groups:
-        group["lr"] = learning_rate(group, step)
+        group["lr"].fill_(learning_rate(group, step))

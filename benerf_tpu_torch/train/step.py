@@ -5,8 +5,9 @@ Port of benerf_tpu/train/step.py. The loss keeps the JAX package's split:
 loss_fn(params, batch, draws, step) is a pure function of the `draws` dict,
 and draw_fn(generators) makes that dict from the step's torch.Generators,
 so parity tests inject recorded draws and compare loss and gradients
-through the production code path. PyTorch runs eagerly: the JAX package's
-jit and lax.scan of steps become a Python call per step.
+through the production code path. The JAX package's jit of one step is an
+eager call here (make_train_step); its lax.scan of several steps per
+dispatch (make_multi_step) is a CUDA graph of one step, replayed.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from benerf_tpu_torch.geometry import spline as spline_mod
 from benerf_tpu_torch.models import crf as crf_mod
 from benerf_tpu_torch.models import nerf as nerf_mod
 from benerf_tpu_torch.models.bridge import tree_leaves
+from benerf_tpu_torch.ops import mlp as mlp_ops
 from benerf_tpu_torch.render import renderer as renderer_mod
 from benerf_tpu_torch.train import loss as loss_mod
 from benerf_tpu_torch.train import optim as optim_mod
@@ -224,19 +226,31 @@ def make_loss_fn(cfg, H: int, W: int):
     return loss_fn, draw_fn
 
 
-def make_train_step(cfg, H: int, W: int):
-    """step_fn(state, batch, seed) -> (state, metrics): one full iteration,
-    with its draws made from (seed, state.step)."""
+def _make_body(cfg, H: int, W: int):
+    """body(params, optimizer, batch, gens, step) -> metrics: one full
+    iteration (draws from the generators `gens`, loss, backward, grad norms,
+    Adam) with the optimizer's lrs already set for it. step: an int, or the
+    0-d tensor that a captured step advances on the card (BARF reads it)."""
     loss_fn, draw_fn = make_loss_fn(cfg, H, W)
+    # per-term knot gradients (log_knot_grad_terms, diagnostics only):
+    # (loss term, metric)
+    terms = [(m, k) for on, m, k in (
+        (cfg.event_loss, "event_loss", "knot_grad_event"),
+        (cfg.rgb_loss, "rgb_loss", "knot_grad_rgb")) if on]
 
-    def step_fn(state: TrainState, batch: SceneBatch, seed: int):
-        params = state.params
-        device = params["knots"].device
-        draws = draw_fn(rng_mod.step_generators(seed, state.step, device))
-        leaves = tree_leaves(params)
-        for t in leaves:
+    def body(params, optimizer, batch, gens, step):
+        draws = draw_fn(gens)
+        for t in tree_leaves(params):
             t.grad = None
-        total, metrics = loss_fn(params, batch, draws, state.step)
+        total, metrics = loss_fn(params, batch, draws, step)
+        knot_terms = {}
+        if cfg.log_knot_grad_terms:
+            # which loss steers the spline: each term's gradient w.r.t. the
+            # knots from this step's graph, before the total's backward
+            for term, key in terms:
+                g, = torch.autograd.grad(metrics[term], params["knots"],
+                                         retain_graph=True)
+                knot_terms[key] = torch.linalg.norm(g)
         total.backward()
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
@@ -245,8 +259,147 @@ def make_train_step(cfg, H: int, W: int):
                           for t in tree_leaves(params[c])]
             metrics["grad_norm_nerf"] = torch.sqrt(
                 sum(torch.sum(g * g) for g in nerf_grads))
+            metrics.update(knot_terms)
+        optimizer.step()
+        return metrics
+
+    return body
+
+
+def make_train_step(cfg, H: int, W: int):
+    """step_fn(state, batch, seed) -> (state, metrics): one full iteration,
+    with its draws made from (seed, state.step); each metric a 0-d tensor."""
+    body = _make_body(cfg, H, W)
+
+    def step_fn(state: TrainState, batch: SceneBatch, seed: int):
+        gens = rng_mod.step_generators(seed, state.step,
+                                       state.params["knots"].device)
         optim_mod.set_learning_rates(state.optimizer, state.step)
-        state.optimizer.step()
-        return TrainState(params, state.optimizer, state.step + 1), metrics
+        metrics = body(state.params, state.optimizer, batch, gens, state.step)
+        return TrainState(state.params, state.optimizer, state.step + 1), metrics
 
     return step_fn
+
+
+def make_multi_step(cfg, H: int, W: int, n_inner: int):
+    """multi_fn(state, batch, seed) -> (state, metrics): n_inner iterations
+    per dispatch, the counterpart of the JAX package's make_multi_step (its
+    lax.scan of the step body). Each metric is a tensor of shape (n_inner,),
+    row k that of iteration state.step + k, with make_train_step's dtype.
+
+    The iterations run through one persistent set of per-step generators
+    (re-seeded from (seed, step) before each), a step counter and a metrics
+    buffer on the parameters' device, so each draws and computes what
+    make_train_step does from the same state. On the CPU they run eagerly,
+    the plain version. On the card, the first dispatch (and the first after
+    the state's tensors moved, as a restore moves Adam's) takes one real
+    step eagerly on a side stream as warm-up, captures one step in a
+    torch.cuda.CUDAGraph and replays it for the rest; every later dispatch
+    replays it n_inner times. Between replays the host only re-seeds the
+    generators and writes the lr tensors; nothing syncs with the host until
+    the caller reads the metrics. A capture that fails raises."""
+    return _MultiStep(_make_body(cfg, H, W), n_inner)
+
+
+# CUDA graphs of the step captured and replayed on the card, over the
+# process (the warm-up step of a capture runs eagerly and is in neither)
+GRAPHS = {"captured": 0, "replayed": 0}
+
+
+class _MultiStep:
+    def __init__(self, body, n_inner: int):
+        if n_inner < 1:
+            raise ValueError(f"n_inner must be >= 1, got {n_inner}")
+        self.body, self.n_inner = body, n_inner
+        self.gens = self.step_t = self.row_t = self.buf = None
+        self.names = self.dtypes = None
+        self.graph, self.key, self.counts = None, None, None
+
+    def __call__(self, state: TrainState, batch: SceneBatch, seed: int):
+        device = state.params["knots"].device
+        if self.gens is None:
+            self.gens = rng_mod.step_generators(seed, state.step, device)
+            self.step_t = torch.zeros((), dtype=torch.int64, device=device)
+            self.row_t = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.step_t.fill_(state.step)
+        self.row_t.zero_()
+        step, done = state.step, 0
+        if device.type == "cuda" and (self.graph is None
+                                      or self.key != _addresses(state, batch)):
+            self.graph = None  # frees the old graph's memory pool
+            self._prepare(state, seed, step)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                self._step(state, batch)
+            torch.cuda.current_stream(device).wait_stream(side)
+            step, done = step + 1, 1
+            self._capture(state, batch)
+        for _ in range(done, self.n_inner):
+            self._prepare(state, seed, step)
+            if device.type == "cuda":
+                self.graph.replay()
+                mlp_ops.add_counts(self.counts)
+                GRAPHS["replayed"] += 1
+            else:
+                self._step(state, batch)
+            step += 1
+        metrics = {k: self.buf[:, j].to(self.dtypes[k], copy=True)
+                   for j, k in enumerate(self.names)}
+        return TrainState(state.params, state.optimizer, step), metrics
+
+    def _prepare(self, state, seed, step):
+        """The host's part of a step: its generators and its lrs."""
+        rng_mod.step_generators(seed, step, None, out=self.gens)
+        optim_mod.set_learning_rates(state.optimizer, step)
+
+    def _step(self, state, batch):
+        """One iteration on the persistent generators and step counter, its
+        metrics into row row_t of the buffer: what the graph captures."""
+        metrics = self.body(state.params, state.optimizer, batch, self.gens,
+                            self.step_t)
+        if self.buf is None:  # the first step, never under capture
+            self.names = list(metrics)
+            self.dtypes = {k: v.dtype for k, v in metrics.items()}
+            self.buf = torch.zeros((self.n_inner, len(self.names)),
+                                   dtype=torch.float64, device=self.step_t.device)
+        row = torch.stack([metrics[k].to(torch.float64) for k in self.names])
+        self.buf.index_copy_(0, self.row_t, row[None])
+        self.row_t.add_(1)
+        self.step_t.add_(1)
+
+    def _capture(self, state, batch):
+        before = mlp_ops.counts()
+        for t in tree_leaves(state.params):
+            t.grad = None
+        graph = torch.cuda.CUDAGraph()
+        for g in self.gens.values():
+            graph.register_generator_state(g)
+        with torch.cuda.graph(graph):
+            self._step(state, batch)
+        # the capture launched nothing: count its launches at each replay
+        self.counts = mlp_ops.counts_since(before)
+        mlp_ops.add_counts(self.counts, -1)
+        self.graph, self.key = graph, _addresses(state, batch)
+        GRAPHS["captured"] += 1
+
+
+def _addresses(state, batch):
+    """The device addresses a captured step reads and writes: every
+    parameter, Adam state tensor and lr, and the batch."""
+    opt = state.optimizer
+    tensors = tree_leaves(state.params)
+    tensors += [v for st in opt.state.values() for v in st.values()]
+    tensors += [g["lr"] for g in opt.param_groups]
+    tensors += [*batch.events] + [t for t in batch[1:] if t is not None]
+    return (id(opt),) + tuple(t.data_ptr() for t in tensors)
+
+
+def metrics_to_host(metrics) -> dict:
+    """{name: float64 numpy array of shape (n,)} from metrics of 0-d or
+    (n,) tensors, in one device-to-host copy: the train loop's one read of
+    a dispatch."""
+    names = list(metrics)
+    vals = torch.stack([metrics[k].reshape(-1).to(torch.float64)
+                        for k in names]).cpu().numpy()
+    return dict(zip(names, vals))

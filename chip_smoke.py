@@ -20,9 +20,11 @@ an exception):
      weight-gradient pass beside torch.matmul of the same products;
   3. the tanabata slice: the config at full width (400x600, 1024 event +
      1024 rgb rays over 19 poses, 64+64 samples, 8x256 MLPs) trained for
-     ITERS iterations on a scene made in memory from a seed, with the launch
-     counters showing every MLP call went through K1/K2 in fp32 mode and
-     none through K3/K4 or the plain route;
+     ITERS iterations on a scene made in memory from a seed through
+     train(), in dispatches of LOG_EVERY steps (one CUDA graph of the step,
+     captured once and replayed), with the launch counters showing every
+     MLP call went through K1/K2 in fp32 mode and none through K3/K4 or the
+     plain route, replays included;
   4. the same slice with compute_dtype = "bfloat16" for BF16_ITERS
      iterations, every MLP call through K1/K2 in bf16 mode;
   5. K3/K4 against their plain version (a view encoding of L = 6, 39 rows)
@@ -33,8 +35,9 @@ an exception):
      pass (K4's job table) against float64 as in phase 2; times of both
      modes beside their bounds;
   6. the L = 6 slice: tanabata with multires_views = 6 and caller-built
-     MLPs, L6_ITERS train steps through make_train_step on the same scene,
-     every MLP call through K3/K4 in fp32 mode;
+     MLPs, L6_WARMUP single steps (make_train_step) on the same scene, then
+     dispatches of L6_G steps (make_multi_step, one captured graph), every
+     MLP call through K3/K4 in fp32 mode, replays included;
   7. the same L = 6 slice with compute_dtype = "bfloat16" for BF16_ITERS
      steps, every MLP call through K3/K4 in bf16 mode;
   8. the card routes: a width-128 MLP and one without viewdirs take the
@@ -43,8 +46,10 @@ an exception):
   9. configs/demo.txt as a user runs it: the 80x80 scene written by the
      port's writer (seconds printed), `benerf_tpu_torch.cli.train.main` on
      the card for DEMO_ITERS iterations with periodic eval and checkpoints
-     at DEMO_ITERS / 2 and DEMO_ITERS and the video at DEMO_ITERS, then
-     resumed from the last checkpoint for DEMO_RESUME more; the launch
+     at DEMO_ITERS / 2 and DEMO_ITERS and the video at DEMO_ITERS (so
+     dispatches of 50 steps, one graph captured, DEMO_ITERS - 1 replays),
+     then resumed from the last checkpoint for DEMO_RESUME more (single
+     steps: fewer than a dispatch remain); the launch
      counters show K1/K2 in fp32 mode on every train MLP call, K1 alone on
      every eval chunk, no K3/K4 and no plain route; the run directory holds
      args.txt, config.txt, finite eval metrics (PSNR, SSIM, ATE, pose
@@ -53,7 +58,14 @@ an exception):
      periodic eval timed alone; K1 held against nerf.apply at the eval
      chunks' shapes (a full chunk of EVAL_RAYS rays and the frame's last
      2,304, x 64 and x 128 points), and timed at the full chunk's;
-  10. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
+  10. the captured dispatch against the uncaptured steps: from one state
+     and one seed, CMP_DISPATCHES dispatches of CMP_G steps through
+     make_multi_step against as many make_train_step calls, on tanabata
+     fp32 (K1/K2) and on the L = 6 slice (K3/K4): every loss and metric and
+     every parameter and Adam tensor held bit for bit; then one more
+     dispatch of each timed (ms/iter, one host read per dispatch against
+     one per step) and the card's peak memory of each;
+  11. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -80,8 +92,11 @@ DEMO_PIXELS = 80 * 80        # configs/demo.txt: rays of one eval frame
 ITERS = 25
 BF16_ITERS = 10
 LOG_EVERY = 5
-L6_ITERS = 16                # of which the first L6_WARMUP are not timed
-L6_WARMUP = 4
+L6_ITERS = 16                # L6_WARMUP single steps, then dispatches of L6_G;
+L6_WARMUP = 4                # the first dispatch (it captures) is not timed
+L6_G = 4
+CMP_G = 10                   # phase 10: steps per dispatch, dispatches held
+CMP_DISPATCHES = 2           # bit for bit, then one more timed
 N_EVENTS = 1_000_000
 RAYS = 3055                  # 2 x 1024 event rays + 19 x 53 rgb rays
 FWD_TOL = 2e-4               # x max(output scale, 1)
@@ -599,13 +614,26 @@ def expect_counts(got, iters, kernels):
         raise AssertionError(f"launch counts {got}, expected {want}")
 
 
+def expect_graphs(before, captured, replayed):
+    """step.GRAPHS gained `captured` captures and `replayed` replays since
+    `before` (a copy of it)."""
+    from benerf_tpu_torch.train import step as step_mod
+
+    got = {k: step_mod.GRAPHS[k] - before[k] for k in before}
+    want = {"captured": captured, "replayed": replayed}
+    if got != want:
+        raise AssertionError(f"CUDA graphs of the step: {got}, expected {want}")
+
+
 def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
     """tanabata at full width for `iters` iterations through the train loop
-    with the MLPs in `compute_dtype` -> (ms/iter, rays/s, launch counts,
-    wall s)."""
+    (console records every LOG_EVERY steps, nothing else periodic, so
+    dispatches of LOG_EVERY: one graph captured, iters - 1 replays) with the
+    MLPs in `compute_dtype` -> (ms/iter, rays/s, launch counts, wall s)."""
     from benerf_tpu_torch.core.config import load_config
     from benerf_tpu_torch.ops import fused_mlp
     from benerf_tpu_torch.train import loop
+    from benerf_tpu_torch.train import step as step_mod
 
     cfg = dataclasses.replace(load_config(str(TANABATA)),
                               compute_dtype=compute_dtype)
@@ -618,11 +646,13 @@ def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
             cfg, render_image_iter=0, save_model_iter=0, render_video_iter=0,
             max_iter=iters, console_log_iter=LOG_EVERY, logdir=logdir)
         reset_counts()
+        graphs = dict(step_mod.GRAPHS)
         t0 = time.perf_counter()
         loop.train(cfg, scene, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts()
+        expect_graphs(graphs, 1, iters - 1)
         with open(f"{logdir}/0/metrics.jsonl") as f:
             recs = [json.loads(line) for line in f]
     losses = [r["train_loss"] for r in recs if "train_loss" in r]
@@ -637,19 +667,19 @@ def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
     return 1e3 * RAYS / steady, steady, launches, wall
 
 
-def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32"):
-    """tanabata with multires_views = 6: both NeRFs built by the caller with
-    39 view-encoding rows, `iters` steps of make_train_step (one host sync
-    per step, as the train loop) with the MLPs in `compute_dtype`, the
-    first L6_WARMUP untimed -> (ms/iter, rays/s, launch counts, losses)."""
+def slice_setup(torch, scene, compute_dtype="float32", multires_views=6):
+    """tanabata with a view encoding of `multires_views` frequencies: the
+    config (window cap as loop.train sets it), the batch, H, W and a maker
+    of the step-0 state; at L != 4 both NeRFs are built by the caller (39
+    view rows at L = 6: build_params makes 27, as in the JAX package)."""
     from benerf_tpu_torch.core.config import load_config
     from benerf_tpu_torch.data import events as events_util
     from benerf_tpu_torch.models import bridge, nerf
-    from benerf_tpu_torch.ops import staged_mlp
     from benerf_tpu_torch.train import loop
     from benerf_tpu_torch.train import step as step_mod
 
-    cfg = dataclasses.replace(load_config(str(TANABATA)), multires_views=6,
+    cfg = dataclasses.replace(load_config(str(TANABATA)),
+                              multires_views=multires_views,
                               compute_dtype=compute_dtype)
     if cfg.event_time_window and cfg.event_window_cap == 0:  # as loop.train
         cfg = dataclasses.replace(cfg, event_window_cap=events_util.window_cap(
@@ -657,35 +687,145 @@ def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32"):
     H, W = scene.image.shape[1:3]
     K_rgb, K_evt, _, _, _ = loop.intrinsics(cfg)
     batch = loop.make_batch(scene, cfg, K_rgb, K_evt, "cuda")
-    params = step_mod.build_params(cfg, cfg.seed, device="cuda")
-    g = torch.Generator(device="cuda")
-    g.manual_seed(cfg.seed + 1)
-    for name in ("nerf", "nerf_fine"):
-        params[name] = bridge.tree_map(
-            lambda t: t.requires_grad_(True),
-            nerf.init_params(g, input_ch_views=39, channels=cfg.channels,
-                             device="cuda"))
-    state = step_mod.init_state(cfg, cfg.seed, device="cuda", params=params)
+
+    def make_state():
+        params = step_mod.build_params(cfg, cfg.seed, device="cuda")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(cfg.seed + 1)
+        for name in ("nerf", "nerf_fine") if multires_views != 4 else ():
+            params[name] = bridge.tree_map(
+                lambda t: t.requires_grad_(True),
+                nerf.init_params(g, input_ch_views=3 + 6 * multires_views,
+                                 channels=cfg.channels, device="cuda"))
+        return step_mod.init_state(cfg, cfg.seed, device="cuda", params=params)
+
+    return cfg, batch, H, W, make_state
+
+
+def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32",
+                 warmup=L6_WARMUP):
+    """tanabata with multires_views = 6: `warmup` single steps of
+    make_train_step, then dispatches of L6_G steps of make_multi_step (one
+    graph of the step captured, replayed), one host read per dispatch, the
+    MLPs in `compute_dtype`; the dispatches after the first are timed ->
+    (ms/iter, rays/s, launch counts, losses)."""
+    from benerf_tpu_torch.ops import staged_mlp
+    from benerf_tpu_torch.train import step as step_mod
+
+    if (iters - warmup) % L6_G or (iters - warmup) // L6_G < 2:
+        raise ValueError(f"{iters} - {warmup} iterations: not two or more "
+                         f"dispatches of {L6_G}")
+    cfg, batch, H, W, make_state = slice_setup(torch, scene, compute_dtype)
+    state = make_state()
     step_fn = step_mod.make_train_step(cfg, H, W)
+    multi_fn = step_mod.make_multi_step(cfg, H, W, L6_G)
 
     losses = []
     reset_counts()
-    for i in range(iters):
-        if i == L6_WARMUP:
+    graphs = dict(step_mod.GRAPHS)
+    for _ in range(warmup):
+        state, metrics = step_fn(state, batch, cfg.seed)
+        losses += step_mod.metrics_to_host(metrics)["loss"].tolist()
+    for d in range((iters - warmup) // L6_G):
+        if d == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch, cfg.seed)
-        losses.append(metrics["loss"].item())
+        state, metrics = multi_fn(state, batch, cfg.seed)
+        losses += step_mod.metrics_to_host(metrics)["loss"].tolist()
     torch.cuda.synchronize()
-    ms_iter = 1e3 * (time.perf_counter() - t0) / (iters - L6_WARMUP)
+    ms_iter = 1e3 * (time.perf_counter() - t0) / (iters - warmup - L6_G)
     launches = counts()
-    if not all(np.isfinite(losses)):
+    if len(losses) != iters or not all(np.isfinite(losses)):
         raise AssertionError(f"losses not all finite: {losses}")
     expect_counts(launches, iters, tuple(staged_mlp.launch_key(k, compute_dtype)
                                          for k in ("staged_mlp_fwd", "staged_mlp_bwd")))
-    print(f"  {iters} iterations; losses {losses[0]:.5f} -> {losses[-1]:.5f}; "
-          f"launches {launches}")
+    expect_graphs(graphs, 1, iters - warmup - 1)
+    print(f"  {iters} iterations ({warmup} single, then dispatches of {L6_G}); "
+          f"losses {losses[0]:.5f} -> {losses[-1]:.5f}; launches {launches}")
     return ms_iter, 1e3 * RAYS / ms_iter, launches, losses
+
+
+def check_capture(torch, scene, multires_views, smi):
+    """The captured dispatch against the uncaptured steps, from one state
+    and one seed: CMP_DISPATCHES dispatches of CMP_G steps through
+    make_multi_step (warm-up step, capture, replays) and as many
+    make_train_step calls on an equal state. Every metric of every step,
+    every parameter and every Adam tensor must be bit for bit equal. Then
+    one more dispatch of each, timed: ms/iter with one host read of the
+    stacked metrics per dispatch (captured) and one per step (uncaptured).
+    -> measurements, with the card's peak allocated memory of each run."""
+    from benerf_tpu_torch.models import bridge
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, H, W, make_state = slice_setup(
+        torch, scene, multires_views=multires_views)
+    step_fn = step_mod.make_train_step(cfg, H, W)
+
+    def uncaptured(state, batch, seed):
+        rows = []
+        for _ in range(CMP_G):
+            state, m = step_fn(state, batch, seed)
+            rows.append(m)
+            step_mod.metrics_to_host(m)  # the old loop's host read per step
+        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    def tensors(state):
+        out = [t.detach() for t in bridge.tree_leaves(state.params)]
+        for g in state.optimizer.param_groups:
+            out += [state.optimizer.state[t][k] for t in g["params"]
+                    for k in ("exp_avg", "exp_avg_sq", "step")]
+        return out
+
+    runs = {}
+    for name in ("uncaptured", "captured"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn = (uncaptured if name == "uncaptured"
+              else step_mod.make_multi_step(cfg, H, W, CMP_G))
+        state, stacked = make_state(), []
+        for _ in range(CMP_DISPATCHES):
+            state, m = fn(state, batch, cfg.seed)
+            step_mod.metrics_to_host(m)
+            stacked.append(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = fn(state, batch, cfg.seed)
+        step_mod.metrics_to_host(m)
+        ms = 1e3 * (time.perf_counter() - t0) / CMP_G
+        runs[name] = dict(state=state, metrics=stacked, ms=ms,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          reserved_gb=torch.cuda.max_memory_reserved() / 1e9)
+        del fn
+    a, b = runs["captured"], runs["uncaptured"]
+    metric_diff = max(float((x[k].double() - y[k].double()).abs().max())
+                      for x, y in zip(a["metrics"], b["metrics"]) for k in x)
+    same_metrics = all(torch.equal(x[k], y[k])
+                       for x, y in zip(a["metrics"], b["metrics"]) for k in x)
+    ta, tb = tensors(a["state"]), tensors(b["state"])
+    state_diff = max(float((x.double() - y.double()).abs().max())
+                     for x, y in zip(ta, tb))
+    same_state = all(torch.equal(x, y) for x, y in zip(ta, tb))
+    losses = [float(v) for m in a["metrics"] for v in m["loss"]]
+    out = dict(multires_views=multires_views, dispatch=CMP_G,
+               steps_held=CMP_G * CMP_DISPATCHES,
+               bit_equal_metrics=same_metrics, bit_equal_state=same_state,
+               max_abs_diff_metrics=metric_diff, max_abs_diff_state=state_diff,
+               captured_ms_per_iter=a["ms"], uncaptured_ms_per_iter=b["ms"],
+               captured_peak_allocated_gb=a["peak_gb"],
+               uncaptured_peak_allocated_gb=b["peak_gb"],
+               captured_peak_reserved_gb=a["reserved_gb"],
+               uncaptured_peak_reserved_gb=b["reserved_gb"],
+               losses=[losses[0], losses[-1]])
+    print(f"  L = {multires_views}: {CMP_G * CMP_DISPATCHES} steps, captured "
+          f"vs uncaptured bit-equal: metrics {same_metrics}, params and Adam "
+          f"{same_state} (max abs diff {metric_diff:.3e} / {state_diff:.3e}); "
+          f"ms/iter captured {a['ms']:.2f}, uncaptured {b['ms']:.2f}; peak "
+          f"allocated {a['peak_gb']:.2f} / {b['peak_gb']:.2f} GB, reserved "
+          f"{a['reserved_gb']:.2f} / {b['reserved_gb']:.2f} GB; on {smi}")
+    if not (same_metrics and same_state and all(np.isfinite(losses))):
+        raise AssertionError(f"the captured dispatch differs from the "
+                             f"uncaptured steps: {out}")
+    return out
 
 
 def read_records(path):
@@ -770,11 +910,14 @@ def run_demo(torch, smi, device=None):
         video_k1 = 90 * chunks * 2
 
         reset_counts()
+        graphs = dict(step_mod.GRAPHS)
         t0 = time.perf_counter()
         state = cli.main(argv, device=device)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         run_counts = counts()
+        # dispatches of gcd(100, 150, 300, 150) = 50 steps: one capture
+        expect_graphs(graphs, 1, DEMO_ITERS - 1)
         want = {k: 0 for k in run_counts}
         want[fwd] = 2 * DEMO_ITERS + 2 * eval_k1 + video_k1
         want[bwd] = 2 * DEMO_ITERS
@@ -782,10 +925,12 @@ def run_demo(torch, smi, device=None):
             raise AssertionError(f"demo run: counts {run_counts}, expected {want}")
 
         reset_counts()
+        graphs = dict(step_mod.GRAPHS)
         resumed = cli.main(argv + ["--load_checkpoint", "True", "--max_iter",
                                    str(DEMO_ITERS + DEMO_RESUME)], device=device)
         torch.cuda.synchronize()
         resume_counts = counts()
+        expect_graphs(graphs, 0, 0)  # 20 < 50 steps left: single steps
         want = {k: 2 * DEMO_RESUME if k in (fwd, bwd) else 0 for k in resume_counts}
         if resume_counts != want or resumed.step != DEMO_ITERS + DEMO_RESUME:
             raise AssertionError(f"resume: counts {resume_counts}, expected "
@@ -1135,16 +1280,17 @@ def main():
     # 6. the L = 6 slice, fp32 mode
     print(f"[6] tanabata, multires_views = 6, full width, {L6_ITERS} iterations")
     l6_ms, l6_rays_s, l6_launches, _ = run_l6_slice(torch, scene)
-    print(f"  steady state: {l6_ms:.2f} ms/iter, {l6_rays_s:,.0f} rays/s "
-          f"({RAYS} rays/iter, last {L6_ITERS - L6_WARMUP} iterations) on {smi}")
+    print(f"  captured dispatches: {l6_ms:.2f} ms/iter, {l6_rays_s:,.0f} rays/s "
+          f"({RAYS} rays/iter, last {L6_ITERS - L6_WARMUP - L6_G} iterations) "
+          f"on {smi}")
 
     # 7. the L = 6 slice, bf16 mode
     print(f"[7] tanabata, multires_views = 6, full width, {BF16_ITERS} "
           "iterations, compute_dtype = bfloat16")
     l6bf_ms, l6bf_rays_s, l6bf_launches, _ = run_l6_slice(
-        torch, scene, BF16_ITERS, "bfloat16")
-    print(f"  steady state: {l6bf_ms:.2f} ms/iter, {l6bf_rays_s:,.0f} rays/s "
-          f"(last {BF16_ITERS - L6_WARMUP} iterations) on {smi}")
+        torch, scene, BF16_ITERS, "bfloat16", warmup=BF16_ITERS - 2 * L6_G)
+    print(f"  captured dispatches: {l6bf_ms:.2f} ms/iter, {l6bf_rays_s:,.0f} "
+          f"rays/s (last {L6_G} iterations) on {smi}")
 
     # 8. routes on the card
     print("[8] MLP routes on the card")
@@ -1161,7 +1307,13 @@ def main():
                    for S in (64, 128)}
     k1_eval = time_eval_k1(torch)
 
-    # 10. results
+    # 10. the captured dispatch against the uncaptured steps
+    print(f"[10] captured dispatch vs uncaptured steps, {CMP_DISPATCHES} x "
+          f"{CMP_G} steps from one state and seed, then one dispatch timed")
+    capture = {"tanabata": check_capture(torch, scene, 4, smi),
+               "tanabata_multires_views_6": check_capture(torch, scene, 6, smi)}
+
+    # 11. results
     fwd_tol = f"{FWD_TOL} x max(|plain|, 1)"
     bwd_tol = (f"{GRAD_TOL} x max(|plain grad|, 1) per gradient; per-point "
                f"grads: at most {KINK_FRAC} of elements past it (ReLU kinks)")
@@ -1244,7 +1396,8 @@ def main():
             "ms_per_iter": l6bf_ms, "rays_per_sec": l6bf_rays_s,
             "iters": BF16_ITERS, "launches": l6bf_launches},
         "demo_cli": {**demo, "iters": DEMO_ITERS, "resumed_iters": DEMO_RESUME,
-                     "launches": demo_launches}}}))
+                     "launches": demo_launches}},
+        "captured_vs_uncaptured": capture}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,16 @@
 
 - save -> restore -> the next steps equal an uninterrupted run bit for bit
   (params, every Adam moment and Adam's own step), with one, four and all
-  five optimizer groups;
+  five optimizer groups, and in dispatches of two steps resumed at a
+  dispatch boundary;
 - restore refuses a checkpoint saved under other optimize_* flags and a
   checkpoint of the JAX package, with the JAX package's error;
 - the run directory: args.txt and config.txt, the latter byte for byte the
   config file (as benerf_tpu/train/loop.py _write_run_config);
 - cli.train.main(argv, device="cpu") on a scene written by the port's
-  writer with eval, video and checkpoints on, then resumed: its files, and
-  the keys of its metrics.jsonl records equal to those the JAX loop writes
-  for the same run; without a card and without device="cpu" it raises.
+  writer with eval, video and checkpoints on, in dispatches of two steps,
+  then resumed: its files, and the keys of its metrics.jsonl records equal
+  to those the JAX loop writes for the same run, at the same steps; without a card and without device="cpu" it raises.
 """
 
 import dataclasses
@@ -73,38 +74,50 @@ def _assert_bit_equal(a, b):
         assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("case,extra", [
-    ("synthetic_gray", {"optimize_pose": False}),
-    ("real_color", {"optimize_trans": True}),
-    ("crf_gray", {"optimize_trans": True, "optimize_rgb_crf": True,
-                  "optimize_event_crf": True})],
-    ids=["one_group", "four_groups", "five_groups"])
-def test_resume_is_bit_equal_to_an_uninterrupted_run(tmp_path, case, extra):
+_FIVE = {"optimize_trans": True, "optimize_rgb_crf": True,
+         "optimize_event_crf": True}
+
+
+@pytest.mark.parametrize("case,extra,g", [
+    ("synthetic_gray", {"optimize_pose": False}, 1),
+    ("real_color", {"optimize_trans": True}, 1),
+    ("crf_gray", _FIVE, 1),
+    ("crf_gray", _FIVE, 2)],
+    ids=["one_group", "four_groups", "five_groups",
+         "five_groups_dispatches_of_2"])
+def test_resume_is_bit_equal_to_an_uninterrupted_run(tmp_path, case, extra, g):
+    """g = 1: single steps (make_train_step); g = 2: dispatches of two
+    (make_multi_step), saved and resumed at a dispatch boundary, the resumed
+    run with a dispatch function of its own, as a new train() makes."""
     cfg = _cfg(case, **extra)
     C = cfg.channels
     scene = ts._tiny_scene(C)
     batch = tloop.make_batch(scene, cfg, *tloop.intrinsics(cfg)[:2], "cpu")
-    step_fn = tstep.make_train_step(cfg, ts.H_RGB, ts.W_RGB)
 
-    state = tstep.init_state(cfg, cfg.seed, device="cpu")
-    for _ in range(2):
-        state, _ = step_fn(state, batch, cfg.seed)
+    def stepper():
+        if g == 1:
+            return tstep.make_train_step(cfg, ts.H_RGB, ts.W_RGB)
+        return tstep.make_multi_step(cfg, ts.H_RGB, ts.W_RGB, g)
+
+    def run_to(state, step_fn, end):
+        losses = []
+        while state.step < end:
+            state, m = step_fn(state, batch, cfg.seed)
+            losses += m["loss"].reshape(-1).tolist()
+        return state, losses
+
+    step_fn = stepper()
+    state, _ = run_to(tstep.init_state(cfg, cfg.seed, device="cpu"), step_fn, 2)
     path = tckpt.save(str(tmp_path), state)
     assert path.endswith("000002.ckpt.npz") and tckpt.latest_step(str(tmp_path)) == 2
-    losses = []
-    for _ in range(2):
-        state, m = step_fn(state, batch, cfg.seed)
-        losses.append(m["loss"].item())
+    state, losses = run_to(state, step_fn, 4)
     want = _state_arrays(state)
 
     template = tstep.init_state(cfg, cfg.seed + 1, device="cpu")
     restored = tckpt.restore(str(tmp_path), template, device="cpu")
     assert restored.step == 2
-    got_losses = []
-    for _ in range(2):
-        restored, m = step_fn(restored, batch, cfg.seed)
-        got_losses.append(m["loss"].item())
-    assert got_losses == losses
+    restored, got_losses = run_to(restored, stepper(), 4)
+    assert len(got_losses) == 2 and got_losses == losses
     _assert_bit_equal(_state_arrays(restored), want)
     assert restored.step == state.step == 4
 
@@ -159,7 +172,7 @@ def test_run_directory_holds_args_and_the_config_file(tmp_path):
 def _argv(scene, logdir, *extra):
     hw = {"rgb": (40, 40, 50.0), "event": (40, 40, 50.0)}
     argv = ["--config", str(REPO / "configs" / "demo.txt"), "--datadir", scene,
-            "--logdir", logdir, "--max_iter", "4", "--console_log_iter", "1",
+            "--logdir", logdir, "--max_iter", "4", "--console_log_iter", "2",
             "--render_image_iter", "2", "--save_model_iter", "2",
             "--render_video_iter", "4", "--netwidth", "32", "--netwidth_fine",
             "32", "--N_samples", "8", "--N_importance", "8",
@@ -174,8 +187,10 @@ def _argv(scene, logdir, *extra):
 
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
-    """The port's CLI on the port's scene: 4 iterations, then resumed to 6;
-    the JAX loop for 2 iterations on the same files, for its keys."""
+    """The port's CLI on the port's scene: 4 iterations in dispatches of 2
+    (g = gcd(2, 2, 4, 2)), then resumed to 6; the JAX loop for 4 iterations
+    on the same files (without the video: g = 2, a scan of 2), for its
+    records."""
     root = tmp_path_factory.mktemp("cli")
     scene = str(root / "scene")
     tsynthetic.write_benerf_blender_scene(scene, H=40, W=40, focal=50.0,
@@ -187,8 +202,8 @@ def cli_run(tmp_path_factory):
                          device="cpu"), step=4, device="cpu")
     resumed = tcli.main(_argv(scene, str(root / "port"), "--load_checkpoint",
                               "True", "--max_iter", "6"), device="cpu")
-    jloop.train(jconfig_from_cli(_argv(scene, str(root / "jax"), "--max_iter",
-                                       "2", "--render_video_iter", "0")))
+    jloop.train(jconfig_from_cli(_argv(scene, str(root / "jax"),
+                                       "--render_video_iter", "0")))
     return root, first, saved, resumed
 
 
@@ -232,6 +247,23 @@ def test_cli_records_carry_the_keys_of_the_jax_loop(cli_run):
 
     assert kinds(root / "port" / "0" / "metrics.jsonl") == kinds(
         root / "jax" / "0" / "metrics.jsonl")
+
+
+def test_cli_dispatches_record_at_the_jax_loops_iterations(cli_run):
+    """The first run's records (4 iterations in dispatches of 2), in file
+    order, carry the keys of the JAX loop's records at the same steps:
+    one train record per iteration, then the console and eval record of
+    each dispatch's last step."""
+    root = cli_run[0]
+
+    def steps_and_keys(path, last):
+        return [(r["step"], sorted(r)) for r in _records(path)
+                if r["step"] <= last]
+
+    jax_recs = steps_and_keys(root / "jax" / "0" / "metrics.jsonl", 4)
+    port = steps_and_keys(root / "port" / "0" / "metrics.jsonl", 4)
+    assert [s for s, _ in jax_recs] == [1, 2, 2, 3, 4, 4]
+    assert port == jax_recs
 
 
 def test_cli_needs_a_card_unless_asked(tmp_path, monkeypatch):

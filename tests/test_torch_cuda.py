@@ -1,7 +1,9 @@
 """The port's CUDA kernels K1/K2 and K3/K4 (both modes) on the card, against
 the plain PyTorch version (models/nerf.apply), their weight-gradient pass
-alone against the float64 product of its scratch, and the MLP dispatcher's
-card routes (use_pallas off included). CUDA kernels have no CPU mode: every test here
+alone against the float64 product of its scratch, the MLP dispatcher's
+card routes (use_pallas off included), and the train step captured in a
+CUDA graph (train/step.py make_multi_step): equal to the uncaptured steps,
+counted per replay, checkpointed and resumed. CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX; skip it there):
@@ -272,3 +274,135 @@ def test_use_pallas_off_sends_card_calls_to_the_plain_route(card):
     torch.testing.assert_close(out, nerf.apply(params, pts, vd), rtol=0, atol=0)
     torch.testing.assert_close(out6, nerf.apply(l6, pts, vd, num_freqs_views=6),
                                rtol=0, atol=0)
+
+
+# ---- the captured train step (train/step.py make_multi_step) ---------------
+
+
+def _small_run(fast_ray_sampling=True, views_ch=27):
+    """A small BeNeRF step on the card with the 8x256 MLPs (so the kernels
+    run): configs/demo.txt at 40x40, 64 event + 38 rgb rays, 16 + 16
+    samples, on a random scene of 4,000 events -> (cfg, batch, make_state).
+    views_ch 39: both MLPs built with a view encoding of L = 6 (K3/K4)."""
+    import dataclasses
+    import pathlib
+
+    from benerf_tpu_torch.core.config import load_config
+    from benerf_tpu_torch.data import datasets
+    from benerf_tpu_torch.data import events as events_mod
+    from benerf_tpu_torch.train import loop
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg = load_config(str(pathlib.Path(__file__).resolve().parents[1]
+                          / "configs" / "demo.txt"))
+    cams = {f"{c}_{k}": v for c in ("rgb", "event") for k, v in (
+        ("height", 40), ("width", 40), ("fx", 50.0), ("fy", 50.0),
+        ("cx", 20.0), ("cy", 20.0))}
+    cfg = dataclasses.replace(
+        cfg, sampling_event_rays=64, sampling_rgb_rays=38, N_samples=16,
+        N_importance=16, fast_ray_sampling=fast_ray_sampling,
+        multires_views=(views_ch - 3) // 6, optimize_trans=True, **cams)
+    scene = datasets.random_scene(cfg, 4000, seed=1, device="cuda")
+    cfg = dataclasses.replace(cfg, event_window_cap=events_mod.window_cap(
+        scene.events.ts.cpu().numpy(), cfg.accumulate_time_length))
+    batch = loop.make_batch(scene, cfg, *loop.intrinsics(cfg)[:2], "cuda")
+
+    def make_state():
+        params = step_mod.build_params(cfg, cfg.seed, device="cuda")
+        if views_ch != 27:
+            g = torch.Generator(device="cuda")
+            g.manual_seed(cfg.seed + 1)
+            for name in ("nerf", "nerf_fine"):
+                params[name] = bridge.tree_map(
+                    lambda t: t.requires_grad_(True),
+                    nerf.init_params(g, input_ch_views=views_ch,
+                                     channels=cfg.channels, device="cuda"))
+        return step_mod.init_state(cfg, cfg.seed, device="cuda", params=params)
+
+    return cfg, batch, make_state
+
+
+def _state_tensors(state):
+    out = [t.detach().clone() for t in bridge.tree_leaves(state.params)]
+    for g in state.optimizer.param_groups:
+        for t in g["params"]:
+            st = state.optimizer.state[t]
+            out += [st[k].clone() for k in ("exp_avg", "exp_avg_sq", "step")]
+    return out
+
+
+@pytest.mark.parametrize("fast,views_ch", [(True, 27), (False, 27), (True, 39)],
+                         ids=["topk_K1K2", "randperm_K1K2", "topk_K3K4"])
+def test_captured_dispatch_equals_uncaptured_steps(card, fast, views_ch):
+    """Two dispatches of 4 (warm-up, capture and 3 replays; then 4 replays)
+    against 8 make_train_step calls from an equal state: every metric,
+    parameter and Adam tensor bit for bit (the step's scatters add integer
+    polarities, exact in any order). Adam's step lives on the card."""
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, make_state = _small_run(fast, views_ch)
+    multi_fn = step_mod.make_multi_step(cfg, 40, 40, 4)
+    step_fn = step_mod.make_train_step(cfg, 40, 40)
+    a, b = make_state(), make_state()
+    captured = step_mod.GRAPHS["captured"]
+    for _ in range(2):
+        a, stacked = multi_fn(a, batch, cfg.seed)
+        rows = []
+        for _ in range(4):
+            b, m = step_fn(b, batch, cfg.seed)
+            rows.append(m)
+        for k, v in stacked.items():
+            assert torch.equal(v, torch.stack([r[k] for r in rows])), k
+    assert a.step == b.step == 8
+    assert step_mod.GRAPHS["captured"] == captured + 1
+    assert a.optimizer.state[a.params["knots"]]["step"].device.type == "cuda"
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        assert torch.equal(x, y)
+
+
+def test_launch_counters_count_replays(card):
+    """2 launches of K1 and of K2 per iteration whether the step ran
+    eagerly or as a replay of its graph; the capture itself counts none."""
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, make_state = _small_run()
+    multi_fn = step_mod.make_multi_step(cfg, 40, 40, 4)
+    state = make_state()
+    before, graphs = mlp_ops.counts(), dict(step_mod.GRAPHS)
+    for _ in range(3):
+        state, _ = multi_fn(state, batch, cfg.seed)
+    fused, staged, routes = mlp_ops.counts_since(before)
+    assert fused == {"fused_mlp_fwd": 24, "fused_mlp_bwd": 24,
+                     "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
+    assert set(staged.values()) == {0} and routes == {"plain": 0}
+    assert step_mod.GRAPHS == {"captured": graphs["captured"] + 1,
+                               "replayed": graphs["replayed"] + 11}
+
+
+def test_card_checkpoint_resumes_on_the_card_and_the_cpu(card, tmp_path):
+    """A checkpoint of a run in dispatches of 4 on the card (Adam's step on
+    the card) restores onto the card and resumes bit for bit equal to the
+    uninterrupted run; onto the CPU it restores Adam's step on the CPU."""
+    from benerf_tpu_torch.train import checkpoint as ckpt
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, make_state = _small_run()
+    multi_fn = step_mod.make_multi_step(cfg, 40, 40, 4)
+    state, _ = multi_fn(make_state(), batch, cfg.seed)
+    ckpt.save(str(tmp_path), state)
+    state, want = multi_fn(state, batch, cfg.seed)
+
+    restored = ckpt.restore(str(tmp_path), make_state(), device="cuda")
+    assert restored.step == 4
+    restored, got = step_mod.make_multi_step(cfg, 40, 40, 4)(
+        restored, batch, cfg.seed)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for x, y in zip(_state_tensors(restored), _state_tensors(state)):
+        assert torch.equal(x, y)
+
+    template = step_mod.init_state(cfg, cfg.seed, device="cpu")
+    on_cpu = ckpt.restore(str(tmp_path), template, device="cpu")
+    st = on_cpu.optimizer.state[on_cpu.params["knots"]]["step"]
+    assert st.device.type == "cpu" and float(st) == 4.0
+    assert not on_cpu.optimizer.param_groups[0]["capturable"]

@@ -3,18 +3,24 @@
 
     python3 tools/torch_profile_step.py [--iters 5] [--multires-views L]
                                         [--compute-dtype bfloat16]
+                                        [--dispatch G]
+                                        [--config PATH] [--events N]
                                         [--out FILE.json]
 
-Builds the tanabata config at full width on an in-memory random scene of
-1,000,000 events (as chip_smoke.py does); with --multires-views L other
-than 4, both NeRF MLPs are built with a view encoding of 3 + 6 L rows (the
-path of the staged kernels K3/K4, as chip_smoke.py phase 6); with
---compute-dtype bfloat16 the MLPs run K1/K2 (or K3/K4) in their bf16 mode. Runs a few
-warm-up steps, then
-`--iters` steps under torch.profiler. Prints and writes (JSON, --out):
-  - the step's wall time (host clock, one host sync per step as in the
-    train loop, measured without the profiler), the device's busy time (sum
-    of kernel and copy times) and its idle share;
+Builds a config (default configs/benerf_blender/tanabata.txt) at full width
+on an in-memory random scene of --events events (default 1,000,000, as
+chip_smoke.py does); with --multires-views L other than 4, both NeRF MLPs
+are built with a view encoding of 3 + 6 L rows (the path of the staged
+kernels K3/K4, as chip_smoke.py phase 6); with --compute-dtype bfloat16 the
+MLPs run K1/K2 (or K3/K4) in their bf16 mode. Runs a few warm-up steps,
+then `--iters` uncaptured steps (make_train_step) under torch.profiler.
+With --dispatch G it then does the same for dispatches of G steps through
+make_multi_step (one CUDA graph of the step, captured once, replayed),
+after two untimed dispatches. Prints and writes (JSON, --out), for each:
+  - wall time per step (host clock, measured without the profiler; one
+    host read of the metrics per step uncaptured, per dispatch captured,
+    as the train loop reads them), the device's busy time (sum of kernel
+    and copy times) and its idle share;
   - device time per group: K1 or K3, K2's or K4's tile pass, their
     weight-gradient pass and partial-sum reduce, and every other kernel;
     launches per step;
@@ -69,11 +75,15 @@ def main():
     ap.add_argument("--multires-views", type=int, default=4)
     ap.add_argument("--compute-dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--dispatch", type=int, default=0,
+                    help="also profile captured dispatches of this many steps")
+    ap.add_argument("--config",
+                    default=str(REPO / "configs/benerf_blender/tanabata.txt"))
+    ap.add_argument("--events", type=int, default=N_EVENTS)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         sys.exit("torch_profile_step: torch sees no CUDA device")
@@ -89,8 +99,8 @@ def main():
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     fused_mlp.build()
 
-    cfg = load_config(str(REPO / "configs/benerf_blender/tanabata.txt"))
-    scene = datasets.random_scene(cfg, N_EVENTS, seed=0, device="cuda")
+    cfg = load_config(args.config)
+    scene = datasets.random_scene(cfg, args.events, seed=0, device="cuda")
     cap = events_mod.window_cap(scene.events.ts.cpu().numpy(),
                                 cfg.accumulate_time_length)
     cfg = dataclasses.replace(cfg, event_window_cap=cap,
@@ -115,20 +125,55 @@ def main():
 
     for _ in range(WARMUP):
         state, metrics = step_fn(state, batch, cfg.seed)
-        metrics["loss"].item()
+        step_mod.metrics_to_host(metrics)
 
-    # unprofiled wall time per step, one host sync per step as in train()
+    def run(fn, n_calls):
+        nonlocal state
+        for _ in range(n_calls):
+            state, metrics = fn(state, batch, cfg.seed)
+            step_mod.metrics_to_host(metrics)  # the loop's host read
+
+    result = {
+        "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+        "config": args.config, "events": args.events,
+        "multires_views": cfg.multires_views, "compute_dtype": cfg.compute_dtype,
+        "rays_per_iter": rays,
+        "uncaptured": profile_steps(lambda: run(step_fn, args.iters),
+                                    args.iters, rays),
+    }
+    print(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+          f"{args.config}, {args.events} events, L = {cfg.multires_views}, "
+          f"{cfg.compute_dtype}")
+    report("uncaptured step", result["uncaptured"])
+    if args.dispatch:
+        multi_fn = step_mod.make_multi_step(cfg, H, W, args.dispatch)
+        run(multi_fn, 2)  # warm-up step, capture, replays; then replays
+        result["dispatch"] = args.dispatch
+        result["captured"] = profile_steps(lambda: run(multi_fn, 1),
+                                           args.dispatch, rays)
+        report(f"captured dispatch of {args.dispatch}", result["captured"])
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+    print(json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "kernels"}
+                          if isinstance(v, dict) else v)
+                      for k, v in result.items()}))
+
+
+def profile_steps(fn, steps, rays):
+    """fn() runs `steps` train steps: its unprofiled wall time, then one run
+    under torch.profiler -> per-step wall, busy, idle share, groups and
+    kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(args.iters):
-        state, metrics = step_fn(state, batch, cfg.seed)
-        metrics["loss"].item()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / args.iters
+    fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(args.iters):
-            state, metrics = step_fn(state, batch, cfg.seed)
-            metrics["loss"].item()
+        fn()
     torch.cuda.synchronize()
 
     # device work: kernels and copies, not the GPU spans of annotations
@@ -136,8 +181,8 @@ def main():
             if e.device_type == torch.autograd.DeviceType.CUDA
             and _device_us(e) > 0 and not getattr(e, "is_user_annotation", False)
             and "#" not in e.key]
-    kernels = sorted(((e.key, e.count / args.iters,
-                       _device_us(e) / 1e3 / args.iters) for e in work),
+    kernels = sorted(((e.key, e.count / steps,
+                       _device_us(e) / 1e3 / steps) for e in work),
                      key=lambda k: -k[2])
     groups = {}
     for name, count, ms in kernels:
@@ -146,11 +191,8 @@ def main():
         g["ms_per_step"] += ms
         g["launches_per_step"] += count
     busy_ms = sum(k[2] for k in kernels)
-    result = {
-        "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "iters": args.iters, "multires_views": cfg.multires_views,
-        "compute_dtype": cfg.compute_dtype,
-        "rays_per_iter": rays,
+    return {
+        "steps": steps,
         "wall_ms_per_step": wall_ms, "rays_per_sec": rays / wall_ms * 1e3,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -159,20 +201,20 @@ def main():
         "kernels": [{"name": n, "launches_per_step": c, "ms_per_step": ms}
                     for n, c, ms in kernels],
     }
-    print(f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    print(f"wall {wall_ms:.2f} ms/step ({rays / wall_ms * 1e3:,.0f} rays/s), "
-          f"device busy {busy_ms:.2f} ms/step, idle share "
-          f"{result['device_idle_share']:.3f}, "
-          f"{result['launches_per_step']:.0f} launches/step")
-    for g, v in sorted(groups.items(), key=lambda kv: -kv[1]["ms_per_step"]):
+
+
+def report(title, r):
+    print(f"{title}: wall {r['wall_ms_per_step']:.2f} ms/step "
+          f"({r['rays_per_sec']:,.0f} rays/s), device busy "
+          f"{r['device_busy_ms_per_step']:.2f} ms/step, idle share "
+          f"{r['device_idle_share']:.3f}, {r['launches_per_step']:.0f} "
+          "launches/step")
+    for g, v in sorted(r["groups"].items(), key=lambda kv: -kv[1]["ms_per_step"]):
         print(f"  {g:28s} {v['ms_per_step']:9.3f} ms  "
               f"x{v['launches_per_step']:.0f}")
-    for n, c, ms in kernels[:25]:
-        print(f"  {ms:9.3f} ms  x{c:<6.0f} {n[:100]}")
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(json.dumps(result, indent=1))
-    print(json.dumps({k: v for k, v in result.items() if k != "kernels"}))
+    for k in r["kernels"][:25]:
+        print(f"  {k['ms_per_step']:9.3f} ms  x{k['launches_per_step']:<6.0f} "
+              f"{k['name'][:100]}")
 
 
 if __name__ == "__main__":
