@@ -25,3 +25,16 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path on the CPU"
         )
     return torch.device("cuda")
+
+
+def cli_device(index: int = 0, device=None) -> torch.device:
+    """The device a CLI runs on: `device` if given (tests pass "cpu"), else
+    the card cuda:`index`, made the current device so that the kernels
+    launch on its stream. Raises when no device is given and no card is
+    visible."""
+    if device is not None:
+        return torch.device(device)
+    resolve_device()  # raises without a card
+    device = torch.device("cuda", index)
+    torch.cuda.set_device(device)
+    return device

@@ -10,9 +10,7 @@ the card cuda:N; without a card the run raises.
 
 from __future__ import annotations
 
-import torch
-
-from benerf_tpu_torch import resolve_device
+from benerf_tpu_torch import cli_device
 from benerf_tpu_torch.core.config import config_from_cli
 from benerf_tpu_torch.train.loop import train
 
@@ -21,10 +19,7 @@ def main(argv=None, device=None):
     """Parse argv (None: sys.argv) and train; returns the final TrainState.
     device: None runs on cuda:<--device>; tests pass "cpu"."""
     cfg = config_from_cli(argv)
-    if device is None:
-        resolve_device()  # raises without a card
-        device = torch.device("cuda", cfg.device)
-        torch.cuda.set_device(device)  # the kernels launch on its stream
+    device = cli_device(cfg.device, device)
     print(f"[INFO] dataset={cfg.dataset} datadir={cfg.datadir} "
           f"index={cfg.index} device={device}")
     return train(cfg, device=device)

@@ -71,8 +71,8 @@ def _build(weights_path):
             )
 
         def forward(self, a, b):
-            shift = torch.tensor(_SHIFT).view(1, 3, 1, 1)
-            scale = torch.tensor(_SCALE).view(1, 3, 1, 1)
+            shift = torch.tensor(_SHIFT, device=a.device).view(1, 3, 1, 1)
+            scale = torch.tensor(_SCALE, device=a.device).view(1, 3, 1, 1)
             fa = self.net((a - shift) / scale)
             fb = self.net((b - shift) / scale)
             total = 0.0
@@ -97,8 +97,9 @@ def _build(weights_path):
     return model
 
 
-def compute(im1, im2, weights_path=None):
-    """im1, im2: (H,W,C) or (H,W) arrays in [0,1]. Returns float distance."""
+def compute(im1, im2, weights_path=None, device="cpu"):
+    """im1, im2: (H,W,C) or (H,W) arrays in [0,1]. Returns float distance,
+    computed on `device`."""
     import torch
 
     global _MODEL
@@ -109,6 +110,7 @@ def compute(im1, im2, weights_path=None):
         )
     if _MODEL is None:
         _MODEL = _build(weights_path)
+    _MODEL.to(device)
 
     def prep(x):
         x = np.asarray(x, np.float32)
@@ -117,7 +119,7 @@ def compute(im1, im2, weights_path=None):
         if x.shape[-1] == 1:
             x = np.repeat(x, 3, -1)
         x = np.clip(x * 2.0 - 1.0, -1, 1)  # metrics.py:51-52 domain
-        return torch.tensor(x).permute(2, 0, 1)[None]
+        return torch.tensor(x, device=device).permute(2, 0, 1)[None]
 
     with torch.no_grad():
         return float(_MODEL(prep(im1), prep(im2)).item())

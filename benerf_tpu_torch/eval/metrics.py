@@ -80,8 +80,9 @@ def ssim(im1, im2, full=False):
     return mean
 
 
-def lpips(im1, im2, weights_path=None):
-    """LPIPS (AlexNet/VGG) via the torch implementation in eval/lpips_torch.
+def lpips(im1, im2, weights_path=None, device="cpu"):
+    """LPIPS (AlexNet/VGG) via the torch implementation in eval/lpips_torch,
+    its network run on `device`.
 
     Requires pretrained weights on disk (zero-egress container); returns None
     with a warning if unavailable. Reference: metrics.py:36,90-99.
@@ -89,7 +90,8 @@ def lpips(im1, im2, weights_path=None):
     from benerf_tpu_torch.eval import lpips_torch
 
     try:
-        return lpips_torch.compute(im1, im2, weights_path=weights_path)
+        return lpips_torch.compute(im1, im2, weights_path=weights_path,
+                                   device=device)
     except FileNotFoundError as e:  # no weights on this machine
         import warnings
 

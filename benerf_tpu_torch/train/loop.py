@@ -152,7 +152,7 @@ def periodic_eval(params, cfg, scene, settings_eval, K_render, H_r, W_r,
         gt = scene.imgtest[0]
         results["test_mid_psnr"] = metrics_mod.psnr(mid, gt)
         results["test_mid_ssim"] = metrics_mod.ssim(mid, gt)
-        lp = metrics_mod.lpips(mid, gt)
+        lp = metrics_mod.lpips(mid, gt, device=device)
         if lp is not None:
             results["test_mid_lpips"] = lp
         logger.write_img("test_mid_img", mid, step)

@@ -65,7 +65,21 @@ an exception):
      every parameter and Adam tensor held bit for bit; then one more
      dispatch of each timed (ms/iter, one host read per dispatch against
      one per step) and the card's peak memory of each;
-  11. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
+  11. inference and evaluation on phase 9's run directory:
+     `benerf_tpu_torch.cli.test.main` from the checkpoint at DEMO_ITERS
+     (KITTI poses, the images and the 90-frame video; K1 alone, 2 launches
+     a chunk of every frame, no K2/K3/K4, no plain route), then
+     `cli.evaluate.evaluate` of the evals at DEMO_ITERS / 2 against those at
+     DEMO_ITERS, equal to eval/metrics over the same decoded PNGs; each timed;
+  12. the quality gates: `eval.quality.run_quality` on the card at the two
+     configurations of the JAX package's slow recovery tests (32x32; a 35%
+     perturbed ground-truth init for 220 iterations, the motion-scale init
+     for 400), held to those tests' bounds, K1/K2 counted (2 launches per
+     iteration and kernel plus the evals' K1, one graph captured per run),
+     BRISQUE features of the final mid frame; timed; then K1 and K2 held
+     against the plain version at the shapes this phase gave them (a step's
+     351 rays and an eval frame's 1,024, x 16 coarse and x 32 fine points);
+  13. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -74,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -875,7 +890,7 @@ def train_rays_per_sec(recs, cfg):
     return rays_s, 1e3 * rays / rays_s, len(rates)
 
 
-def run_demo(torch, smi, device=None):
+def run_demo(torch, smi, root, device=None):
     """configs/demo.txt through the CLI, as a user runs it: the scene written
     by the port's writer (80x80, as the config's header says), DEMO_ITERS
     iterations with evals and checkpoints at DEMO_ITERS / 2 and DEMO_ITERS
@@ -883,7 +898,8 @@ def run_demo(torch, smi, device=None):
     then one periodic eval of the final state timed alone. Checks the launch
     counts (K1/K2 in fp32 mode on every train MLP call, K1 alone on every
     eval chunk, no K3/K4, no plain route), the run directory and the
-    resumed state -> {measurements, launch counts per path}. device: None
+    resumed state -> {measurements, launch counts per path}. The scene and
+    the run directory stay under `root` (phase 11 reads them). device: None
     runs where the CLI puts a run, the card."""
     from benerf_tpu_torch.cli import train as cli
     from benerf_tpu_torch.core.config import config_from_cli
@@ -895,109 +911,108 @@ def run_demo(torch, smi, device=None):
     from benerf_tpu_torch.train import step as step_mod
 
     fwd, bwd = "fused_mlp_fwd", "fused_mlp_bwd"
-    with tempfile.TemporaryDirectory() as root:
-        scene_dir = f"{root}/demo"
-        write_s = write_demo_scene(scene_dir)
-        print(f"  scene written by the port's writer in {write_s:.1f} s")
-        argv = demo_argv(scene_dir, f"{root}/logs", max_iter=DEMO_ITERS,
-                         render_image_iter=DEMO_ITERS // 2,
-                         save_model_iter=DEMO_ITERS // 2,
-                         render_video_iter=DEMO_ITERS)
-        cfg = config_from_cli(argv)
-        run = Path(root) / "logs" / "0"
-        chunks = -(-DEMO_PIXELS // cfg.chunk)
-        eval_k1 = cfg.num_interpolated_pose * chunks * 2
-        video_k1 = 90 * chunks * 2
+    scene_dir = f"{root}/demo"
+    write_s = write_demo_scene(scene_dir)
+    print(f"  scene written by the port's writer in {write_s:.1f} s")
+    argv = demo_argv(scene_dir, f"{root}/logs", max_iter=DEMO_ITERS,
+                     render_image_iter=DEMO_ITERS // 2,
+                     save_model_iter=DEMO_ITERS // 2,
+                     render_video_iter=DEMO_ITERS)
+    cfg = config_from_cli(argv)
+    run = Path(root) / "logs" / "0"
+    chunks = -(-DEMO_PIXELS // cfg.chunk)
+    eval_k1 = cfg.num_interpolated_pose * chunks * 2
+    video_k1 = 90 * chunks * 2
 
-        reset_counts()
-        graphs = dict(step_mod.GRAPHS)
-        t0 = time.perf_counter()
-        state = cli.main(argv, device=device)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        run_counts = counts()
-        # dispatches of gcd(100, 150, 300, 150) = 50 steps: one capture
-        expect_graphs(graphs, 1, DEMO_ITERS - 1)
-        want = {k: 0 for k in run_counts}
-        want[fwd] = 2 * DEMO_ITERS + 2 * eval_k1 + video_k1
-        want[bwd] = 2 * DEMO_ITERS
-        if run_counts != want:
-            raise AssertionError(f"demo run: counts {run_counts}, expected {want}")
+    reset_counts()
+    graphs = dict(step_mod.GRAPHS)
+    t0 = time.perf_counter()
+    state = cli.main(argv, device=device)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_counts = counts()
+    # dispatches of gcd(100, 150, 300, 150) = 50 steps: one capture
+    expect_graphs(graphs, 1, DEMO_ITERS - 1)
+    want = {k: 0 for k in run_counts}
+    want[fwd] = 2 * DEMO_ITERS + 2 * eval_k1 + video_k1
+    want[bwd] = 2 * DEMO_ITERS
+    if run_counts != want:
+        raise AssertionError(f"demo run: counts {run_counts}, expected {want}")
 
-        reset_counts()
-        graphs = dict(step_mod.GRAPHS)
-        resumed = cli.main(argv + ["--load_checkpoint", "True", "--max_iter",
-                                   str(DEMO_ITERS + DEMO_RESUME)], device=device)
-        torch.cuda.synchronize()
-        resume_counts = counts()
-        expect_graphs(graphs, 0, 0)  # 20 < 50 steps left: single steps
-        want = {k: 2 * DEMO_RESUME if k in (fwd, bwd) else 0 for k in resume_counts}
-        if resume_counts != want or resumed.step != DEMO_ITERS + DEMO_RESUME:
-            raise AssertionError(f"resume: counts {resume_counts}, expected "
-                                 f"{want}; step {resumed.step}")
+    reset_counts()
+    graphs = dict(step_mod.GRAPHS)
+    resumed = cli.main(argv + ["--load_checkpoint", "True", "--max_iter",
+                               str(DEMO_ITERS + DEMO_RESUME)], device=device)
+    torch.cuda.synchronize()
+    resume_counts = counts()
+    expect_graphs(graphs, 0, 0)  # 20 < 50 steps left: single steps
+    want = {k: 2 * DEMO_RESUME if k in (fwd, bwd) else 0 for k in resume_counts}
+    if resume_counts != want or resumed.step != DEMO_ITERS + DEMO_RESUME:
+        raise AssertionError(f"resume: counts {resume_counts}, expected "
+                             f"{want}; step {resumed.step}")
 
-        # the checkpoint the resume started from holds the first run's state
-        dev = device or "cuda"
-        saved = checkpoint.restore(str(run), step_mod.init_state(
-            cfg, cfg.seed + 1, device=dev), step=DEMO_ITERS, device=dev)
-        pairs = list(zip(bridge.tree_leaves(saved.params),
-                         bridge.tree_leaves(state.params)))
-        for g_s, g_r in zip(saved.optimizer.param_groups,
-                            state.optimizer.param_groups):
-            for a, b in zip(g_s["params"], g_r["params"]):
-                sa, sb = saved.optimizer.state[a], state.optimizer.state[b]
-                pairs += [(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq", "step")]
-        if saved.step != DEMO_ITERS or not all(torch.equal(a, b) for a, b in pairs):
-            raise AssertionError("the checkpoint differs from the state it saved")
+    # the checkpoint the resume started from holds the first run's state
+    dev = device or "cuda"
+    saved = checkpoint.restore(str(run), step_mod.init_state(
+        cfg, cfg.seed + 1, device=dev), step=DEMO_ITERS, device=dev)
+    pairs = list(zip(bridge.tree_leaves(saved.params),
+                     bridge.tree_leaves(state.params)))
+    for g_s, g_r in zip(saved.optimizer.param_groups,
+                        state.optimizer.param_groups):
+        for a, b in zip(g_s["params"], g_r["params"]):
+            sa, sb = saved.optimizer.state[a], state.optimizer.state[b]
+            pairs += [(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq", "step")]
+    if saved.step != DEMO_ITERS or not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError("the checkpoint differs from the state it saved")
 
-        recs = read_records(run / "metrics.jsonl")
-        steps = [r["step"] for r in recs if "train_loss" in r]
-        if steps != list(range(1, DEMO_ITERS + DEMO_RESUME + 1)):
-            raise AssertionError(f"train records at steps {steps[:3]}...{steps[-3:]}")
-        if not all(np.isfinite(r["train_loss"]) for r in recs if "train_loss" in r):
-            raise AssertionError("a non-finite train loss")
-        evals = [r for r in recs if "test_mid_psnr" in r]
-        keys = ("test_mid_psnr", "test_mid_ssim", "pose_ate_rmse",
-                "pose_flow_rmse_px", "gt_flow_rms_px")
-        if ([r["step"] for r in evals] != [DEMO_ITERS // 2, DEMO_ITERS]
-                or not all(np.isfinite(r[k]) for r in evals for k in keys)):
-            raise AssertionError(f"eval records {evals}")
-        if (run / "config.txt").read_bytes() != DEMO.read_bytes() or not (
-                run / "args.txt").is_file():
-            raise AssertionError("run directory: config.txt or args.txt")
-        for step in (DEMO_ITERS // 2, DEMO_ITERS):
-            poses = np.loadtxt(run / "poses_test" / f"poses_test_{step:06d}.txt")
-            pngs = list((run / "images_test" / f"img_test_{step:06d}").glob(
-                "test*.png"))
-            n = cfg.num_interpolated_pose
-            if poses.shape != (n, 12) or len(pngs) != n:
-                raise AssertionError(
-                    f"eval files at {step}: {poses.shape}, {len(pngs)} images")
-        video = run / f"0_spiral_{DEMO_ITERS:06d}_rgb.mp4"
-        frames = list((run / f"0_spiral_{DEMO_ITERS:06d}_rgb_frames").glob("*.png"))
-        if not video.is_file() and len(frames) != 90:
-            raise AssertionError(f"video: no mp4 and {len(frames)} frames")
-        ckpts = sorted(p.name for p in run.glob("*.ckpt.npz"))
-        if ckpts != [f"{DEMO_ITERS // 2:06d}.ckpt.npz", f"{DEMO_ITERS:06d}.ckpt.npz"]:
-            raise AssertionError(f"checkpoints {ckpts}")
+    recs = read_records(run / "metrics.jsonl")
+    steps = [r["step"] for r in recs if "train_loss" in r]
+    if steps != list(range(1, DEMO_ITERS + DEMO_RESUME + 1)):
+        raise AssertionError(f"train records at steps {steps[:3]}...{steps[-3:]}")
+    if not all(np.isfinite(r["train_loss"]) for r in recs if "train_loss" in r):
+        raise AssertionError("a non-finite train loss")
+    evals = [r for r in recs if "test_mid_psnr" in r]
+    keys = ("test_mid_psnr", "test_mid_ssim", "pose_ate_rmse",
+            "pose_flow_rmse_px", "gt_flow_rms_px")
+    if ([r["step"] for r in evals] != [DEMO_ITERS // 2, DEMO_ITERS]
+            or not all(np.isfinite(r[k]) for r in evals for k in keys)):
+        raise AssertionError(f"eval records {evals}")
+    if (run / "config.txt").read_bytes() != DEMO.read_bytes() or not (
+            run / "args.txt").is_file():
+        raise AssertionError("run directory: config.txt or args.txt")
+    for step in (DEMO_ITERS // 2, DEMO_ITERS):
+        poses = np.loadtxt(run / "poses_test" / f"poses_test_{step:06d}.txt")
+        pngs = list((run / "images_test" / f"img_test_{step:06d}").glob(
+            "test*.png"))
+        n = cfg.num_interpolated_pose
+        if poses.shape != (n, 12) or len(pngs) != n:
+            raise AssertionError(
+                f"eval files at {step}: {poses.shape}, {len(pngs)} images")
+    video = run / f"0_spiral_{DEMO_ITERS:06d}_rgb.mp4"
+    frames = list((run / f"0_spiral_{DEMO_ITERS:06d}_rgb_frames").glob("*.png"))
+    if not video.is_file() and len(frames) != 90:
+        raise AssertionError(f"video: no mp4 and {len(frames)} frames")
+    ckpts = sorted(p.name for p in run.glob("*.ckpt.npz"))
+    if ckpts != [f"{DEMO_ITERS // 2:06d}.ckpt.npz", f"{DEMO_ITERS:06d}.ckpt.npz"]:
+        raise AssertionError(f"checkpoints {ckpts}")
 
-        # one periodic eval of the resumed state, timed alone
-        scene = datasets.load_scene(scene_dir, cfg, device=dev)
-        K_render = loop.intrinsics(cfg)[2]
-        logger = io_mod.JsonlLogger(None)
-        reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, results = loop.periodic_eval(
-            resumed.params, cfg, scene, renderer.RenderSettings.from_config(cfg),
-            K_render, 80, 80, f"{root}/eval", DEMO_ITERS + DEMO_RESUME, logger,
-            dev)
-        torch.cuda.synchronize()
-        eval_s = time.perf_counter() - t0
-        eval_counts = counts()
-        want = {k: eval_k1 if k == fwd else 0 for k in eval_counts}
-        if eval_counts != want or not np.isfinite(results["test_mid_psnr"]):
-            raise AssertionError(f"eval: counts {eval_counts}, expected {want}")
+    # one periodic eval of the resumed state, timed alone
+    scene = datasets.load_scene(scene_dir, cfg, device=dev)
+    K_render = loop.intrinsics(cfg)[2]
+    logger = io_mod.JsonlLogger(None)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, results = loop.periodic_eval(
+        resumed.params, cfg, scene, renderer.RenderSettings.from_config(cfg),
+        K_render, 80, 80, f"{root}/eval", DEMO_ITERS + DEMO_RESUME, logger,
+        dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    eval_counts = counts()
+    want = {k: eval_k1 if k == fwd else 0 for k in eval_counts}
+    if eval_counts != want or not np.isfinite(results["test_mid_psnr"]):
+        raise AssertionError(f"eval: counts {eval_counts}, expected {want}")
 
     rays_s, ms_iter, windows = train_rays_per_sec(recs, cfg)
     out = dict(write_s=write_s, run_s=run_s, rays_per_sec=rays_s,
@@ -1018,6 +1033,166 @@ def run_demo(torch, smi, device=None):
           f"{eval_counts}")
     return out, {"demo_run": run_counts, "demo_resume": resume_counts,
                  "demo_periodic_eval": eval_counts}
+
+
+def run_inference(torch, root, smi):
+    """Phase 11: the inference and evaluation CLIs on phase 9's run
+    directory under `root`. cli.test.main from the checkpoint at DEMO_ITERS
+    (KITTI poses, num_render_images images, the 90-frame video) with the
+    launch counts checked: K1 alone, 2 a chunk of every frame; then
+    cli.evaluate.evaluate of the periodic eval images at DEMO_ITERS / 2
+    against those at DEMO_ITERS, equal to eval/metrics over the same
+    decoded PNGs -> (measurements, K1 launches)."""
+    from benerf_tpu_torch.cli import evaluate as cli_evaluate
+    from benerf_tpu_torch.cli import test as cli_test
+    from benerf_tpu_torch.core.config import config_from_cli
+    from benerf_tpu_torch.data import png
+    from benerf_tpu_torch.eval import metrics
+
+    argv = demo_argv(f"{root}/demo", f"{root}/logs", checkpoint=DEMO_ITERS,
+                     extract_poses=True, render_images=True, render_video=True)
+    cfg = config_from_cli(argv)
+    chunks = -(-DEMO_PIXELS // cfg.chunk)
+    want = {k: 0 for k in counts()}
+    want["fused_mlp_fwd"] = (cfg.num_render_images + 90) * chunks * 2
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli_test.main(argv)
+    torch.cuda.synchronize()
+    test_s = time.perf_counter() - t0
+    got = counts()
+    if got != want:
+        raise AssertionError(f"cli.test: counts {got}, expected {want}")
+    out = Path(root) / "logs" / "0" / "test_results"
+    poses = np.loadtxt(out / "poses_test" / f"poses_test_{DEMO_ITERS:06d}.txt")
+    pngs = list((out / "image_test" / f"img_test_{DEMO_ITERS:06d}").glob("test*.png"))
+    frames = list((out / f"0_spiral_{DEMO_ITERS:06d}_rgb_frames").glob("*.png"))
+    video = out / f"0_spiral_{DEMO_ITERS:06d}_rgb.mp4"
+    if (poses.shape != (cfg.num_extract_poses, 12) or not np.all(np.isfinite(poses))
+            or len(pngs) != cfg.num_render_images
+            or not (video.is_file() or len(frames) == 90)):
+        raise AssertionError(f"cli.test files: poses {poses.shape}, {len(pngs)} "
+                             f"images, {len(frames)} video frames")
+
+    run = Path(root) / "logs" / "0" / "images_test"
+    res, gt = (run / f"img_test_{s:06d}" for s in (DEMO_ITERS // 2, DEMO_ITERS))
+    t0 = time.perf_counter()
+    summary = cli_evaluate.evaluate(str(res), str(gt))
+    evaluate_s = time.perf_counter() - t0
+
+    def decoded(d):
+        return [png.read(str(f)) / 255.0 for f in sorted(d.glob("*.png"))]
+
+    pairs = list(zip(decoded(res), decoded(gt)))
+    ref = {"psnr": float(np.mean([metrics.psnr(a, b) for a, b in pairs])),
+           "ssim": float(np.mean([metrics.ssim(a, b) for a, b in pairs]))}
+    if (len(pairs) != cfg.num_interpolated_pose
+            or {k: summary[k] for k in ref} != ref
+            or not all(np.isfinite(v) for v in summary.values())):
+        raise AssertionError(f"cli.evaluate: {summary}, eval/metrics {ref} over "
+                             f"{len(pairs)} pairs")
+    print(f"  cli.test from the checkpoint at {DEMO_ITERS}: {test_s:.2f} s for "
+          f"{cfg.num_extract_poses} poses, {cfg.num_render_images} images and "
+          f"90 video frames; launches {got}")
+    print(f"  cli.evaluate, evals at {DEMO_ITERS // 2} vs {DEMO_ITERS} "
+          f"({len(pairs)} pairs): {summary} in {evaluate_s:.2f} s, equal to "
+          f"eval/metrics; on {smi}")
+    return (dict(test_s=test_s, evaluate_s=evaluate_s, evaluate=summary),
+            got["fused_mlp_fwd"])
+
+
+def run_quality_gates(torch, smi):
+    """Phase 12: eval/quality.run_quality on the card at the two
+    configurations of the JAX package's slow recovery tests
+    (tests/test_train.py test_pose_recovery_regression and
+    test_motion_scale_recovery_gate), use_pallas at its default so the
+    kernels run, held to those tests' bounds; the K1/K2 launches and the
+    captured graphs counted; BRISQUE features of the final mid frame; K1
+    and K2 against the plain version at this phase's shapes ->
+    ({name: summary}, {name: launches}, K1 errors, K2 errors, K2 per-point
+    elements outside the bound), the errors keyed by "R x S"."""
+    from benerf_tpu_torch.data import png
+    from benerf_tpu_torch.eval import brisque, quality
+    from benerf_tpu_torch.train import step as step_mod
+
+    small = dict(evals=2, H=32, W=32, seed=0, target_blur_px=6.0,
+                 sampling_event_rays=128, sampling_rgb_rays=95,
+                 num_interpolated_pose=5, N_samples=16, N_importance=16)
+    runs = {"gt_init_0.35": dict(iters=220, init_from_gt=0.35,
+                                 console_log_iter=110),
+            "motion_scale": dict(iters=400, pose_init="motion_scale",
+                                 console_log_iter=200)}
+    out, launches = {}, {}
+    with tempfile.TemporaryDirectory() as root:  # one scene, a run-NNN each
+        for name, kw in runs.items():
+            iters = kw["iters"]
+            reset_counts()
+            graphs = dict(step_mod.GRAPHS)
+            art = quality.run_quality(root, **small, **kw)
+            got = counts()
+            expect_graphs(graphs, 1, iters - 1)
+            evals_k1 = small["evals"] * small["num_interpolated_pose"] * 2
+            want = {k: 0 for k in got}
+            want["fused_mlp_fwd"] = 2 * iters + evals_k1
+            want["fused_mlp_bwd"] = 2 * iters
+            if got != want:
+                raise AssertionError(f"quality {name}: counts {got}, expected {want}")
+            first, final = art["checkpoints"][0], art["checkpoints"][-1]
+            gt_motion = art["baseline"]["gt_flow_rms_px"]
+            flow = final["pose_flow_rmse_px"]
+            print(f"  {name}: {iters} iterations in {art['wall_s']} s; pose flow "
+                  f"{art['baseline']['pose_flow_rmse_px']:.3f} (init) -> "
+                  f"{first['pose_flow_rmse_px']:.3f} -> {flow:.3f} px of "
+                  f"{gt_motion:.3f}; PSNR {first['test_mid_psnr']:.2f} -> "
+                  f"{final['test_mid_psnr']:.2f} dB (blurry input "
+                  f"{art['baseline']['blurry_input_psnr']:.2f}); gates "
+                  f"{art['passed']}; launches {got}")
+            # the bounds of the JAX package's slow tests
+            if name == "gt_init_0.35":
+                ok = np.isfinite(flow) and flow < 0.25 * gt_motion
+            else:
+                ok = (flow < 0.65 * gt_motion and final["test_mid_psnr"]
+                      > first["test_mid_psnr"] + 3.0)
+            if not ok:
+                raise AssertionError(f"quality {name}: first {first}, final "
+                                     f"{final}, gt motion {gt_motion}")
+            mid = (Path(art["run_dir"]) / "0" / "images_test"
+                   / f"img_test_{iters:06d}"
+                   / f"test{small['num_interpolated_pose'] // 2:03d}.png")
+            img = png.read(str(mid)) / 255.0
+            feats = brisque.features(img)
+            score = brisque.score(img)
+            no_model = "BENERF_BRISQUE_MODEL" not in os.environ
+            if (feats.shape != (36,) or not np.all(np.isfinite(feats))
+                    or (no_model and score is not None)):
+                raise AssertionError(f"BRISQUE: {feats}, score {score}")
+            print(f"  BRISQUE features of the final mid frame: "
+                  f"{np.array2string(feats, precision=4, max_line_width=200)}; "
+                  f"score {score}")
+            out[name] = dict(wall_s=art["wall_s"], baseline=art["baseline"],
+                             checkpoints=art["checkpoints"], passed=art["passed"],
+                             brisque_features=feats.tolist(), brisque_score=score)
+            launches[f"quality_{name}"] = got
+    print(f"  on {smi}")
+    # the shapes K1/K2 saw above: a step renders both ray families in one
+    # coarse and one fine pass; an eval frame (H x W <= cfg.chunk) is one
+    # chunk, forward only
+    P = small["num_interpolated_pose"]
+    step_rays = (2 * small["sampling_event_rays"]
+                 + small["sampling_rgb_rays"] // P * P)
+    samples = (small["N_samples"], small["N_samples"] + small["N_importance"])
+    print(f"  K1/K2 vs plain at this phase's shapes: {step_rays} rays a step, "
+          f"{small['H'] * small['W']} an eval frame, x {samples} points")
+    k1_err, k2_err, k2_outside = {}, {}, {}
+    for S in samples:
+        for R in (step_rays, small["H"] * small["W"]):
+            e, scale = check_fwd(torch, "K1/K2", R, S, 3, False)
+            k1_err[f"{R}x{S}"] = (e, e / scale)
+        e, rel, k2_outside[f"{step_rays}x{S}"], _ = check_bwd(
+            torch, "K1/K2", step_rays, S, 3, False)
+        k2_err[f"{step_rays}x{S}"] = (e, rel)
+    return out, launches, k1_err, k2_err, k2_outside
 
 
 def check_routes(torch):
@@ -1190,6 +1365,7 @@ def main():
     from benerf_tpu_torch.data import datasets
     from benerf_tpu_torch.ops import fused_mlp
 
+    t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1299,7 +1475,8 @@ def main():
     # 9. configs/demo.txt through the CLI: train, eval, save, resume
     print(f"[9] configs/demo.txt through benerf_tpu_torch.cli.train, "
           f"{DEMO_ITERS} + {DEMO_RESUME} iterations, fp32 mode")
-    demo, demo_launches = run_demo(torch, smi)
+    demo_root = tempfile.TemporaryDirectory()  # phase 11 reads its run
+    demo, demo_launches = run_demo(torch, smi, demo_root.name)
     print("  K1 vs plain at the eval chunks' shapes (a full chunk and the "
           "frame's last, partial one)")
     k1_eval_err = {R * S: check_fwd(torch, "K1/K2", R, S, 3, False)
@@ -1313,7 +1490,25 @@ def main():
     capture = {"tanabata": check_capture(torch, scene, 4, smi),
                "tanabata_multires_views_6": check_capture(torch, scene, 6, smi)}
 
-    # 11. results
+    # 11. cli.test and cli.evaluate on phase 9's run directory
+    print(f"[11] benerf_tpu_torch.cli.test from phase 9's checkpoint at "
+          f"{DEMO_ITERS}, then cli.evaluate of its evals")
+    t0 = time.perf_counter()
+    inference, test_k1 = run_inference(torch, demo_root.name, smi)
+    demo_root.cleanup()
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+
+    # 12. the quality gates on the card through K1/K2
+    print("[12] eval.quality.run_quality at the JAX package's two slow-test "
+          "configurations, through K1/K2")
+    t0 = time.perf_counter()
+    gates, gate_launches, k1_q_err, k2_q_err, k2_q_outside = \
+        run_quality_gates(torch, smi)
+    gates_s = time.perf_counter() - t0
+    print(f"  phase 12: {gates_s:.1f} s")
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s")
+
+    # 13. results
     fwd_tol = f"{FWD_TOL} x max(|plain|, 1)"
     bwd_tol = (f"{GRAD_TOL} x max(|plain grad|, 1) per gradient; per-point "
                f"grads: at most {KINK_FRAC} of elements past it (ReLU kinks)")
@@ -1323,7 +1518,10 @@ def main():
                   f"{BF16_GRAD_FACTOR} x the plain version's with bf16 "
                   "operands; max_abs_err vs float64")
     k1_eval_err = {n: (e, e / s) for n, (e, s) in k1_eval_err.items()}
-    k1_err = {**{n: (e, e / s) for n, (e, s) in k1_err.items()}, **k1_eval_err}
+    k1_err = {**{n: (e, e / s) for n, (e, s) in k1_err.items()}, **k1_eval_err,
+              **k1_q_err}
+    k2_err = {**k2_err, **k2_q_err}
+    k2_outside = {**k2_outside, **k2_q_outside}
     k3_err = {n: (e, e / s) for n, (e, s) in k3_err.items()}
     k1_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf.items()}
     k2_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf.items()}
@@ -1339,10 +1537,12 @@ def main():
                       "benerf_tpu_torch/csrc/staged_mlp_bwd.cu")
     k3_rep = "benerf_tpu/ops/pallas_mlp.py:155 _fwd_kernel"
     k4_rep = "benerf_tpu/ops/pallas_mlp.py:174 _bwd_kernel"
+    path_launches = {**demo_launches, **gate_launches}
     k1_paths = {"tanabata": launches["fused_mlp_fwd"],
-                **{k: v["fused_mlp_fwd"] for k, v in demo_launches.items()}}
+                **{k: v["fused_mlp_fwd"] for k, v in path_launches.items()},
+                "cli_test": test_k1}
     k2_paths = {"tanabata": launches["fused_mlp_bwd"],
-                **{k: v["fused_mlp_bwd"] for k, v in demo_launches.items()}}
+                **{k: v["fused_mlp_bwd"] for k, v in path_launches.items()}}
     kernels = [
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "tf32x3",
                      sum(k1_paths.values()), k1_err, fwd_tol, k12["float32"],
@@ -1350,7 +1550,9 @@ def main():
                      eval_chunk={str(n): {
                          **k1_eval.get(n, {}), "max_abs_err": e,
                          "max_err_over_scale": r}
-                         for n, (e, r) in k1_eval_err.items()}),
+                         for n, (e, r) in k1_eval_err.items()},
+                     quality_shapes={k: {"max_abs_err": e, "max_err_over_scale": r}
+                                     for k, (e, r) in k1_q_err.items()}),
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "bf16",
                      bf_launches["fused_mlp_fwd_bf16"], k1_bf, bf_fwd_tol,
                      k12["bfloat16"], "fwd"),
@@ -1358,6 +1560,8 @@ def main():
                      sum(k2_paths.values()), k2_err, bwd_tol, k12["float32"],
                      "bwd", launches_by_path=k2_paths,
                      pointwise_outside_tol={str(n): v for n, v in k2_outside.items()},
+                     quality_shapes={k: {"max_abs_err": e, "max_err_over_scale": r}
+                                     for k, (e, r) in k2_q_err.items()},
                      weight_gradient_pass=_wgrad_line(k12["float32"], wg2, "tf32x3"),
                      **scratch),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "bf16",
@@ -1396,7 +1600,10 @@ def main():
             "ms_per_iter": l6bf_ms, "rays_per_sec": l6bf_rays_s,
             "iters": BF16_ITERS, "launches": l6bf_launches},
         "demo_cli": {**demo, "iters": DEMO_ITERS, "resumed_iters": DEMO_RESUME,
-                     "launches": demo_launches}},
+                     "launches": demo_launches},
+        "cli_test_evaluate": {**inference, "k1_launches": test_k1},
+        "quality_gates": {"wall_s": gates_s, "runs": gates,
+                          "launches": gate_launches}},
         "captured_vs_uncaptured": capture}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@ the plain PyTorch version (models/nerf.apply), their weight-gradient pass
 alone against the float64 product of its scratch, the MLP dispatcher's
 card routes (use_pallas off included), and the train step captured in a
 CUDA graph (train/step.py make_multi_step): equal to the uncaptured steps,
-counted per replay, checkpointed and resumed. CUDA kernels have no CPU mode: every test here
+counted per replay, checkpointed and resumed; cli/test.py and cli/evaluate.py
+on the card. CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX; skip it there):
@@ -406,3 +407,141 @@ def test_card_checkpoint_resumes_on_the_card_and_the_cpu(card, tmp_path):
     st = on_cpu.optimizer.state[on_cpu.params["knots"]]["step"]
     assert st.device.type == "cpu" and float(st) == 4.0
     assert not on_cpu.optimizer.param_groups[0]["capturable"]
+
+
+def _cli_test_argv(logdir, *extra):
+    """configs/demo.txt at _small_run's 40x40 cameras and 16 + 16 samples
+    (one chunk of cfg.chunk = 4,096 rays a frame)."""
+    import pathlib
+
+    argv = ["--config", str(pathlib.Path(__file__).resolve().parents[1]
+                            / "configs" / "demo.txt"),
+            "--logdir", str(logdir), "--N_samples", "16", "--N_importance", "16"]
+    for c in ("rgb", "event"):
+        argv += [f"--{c}_height", "40", f"--{c}_width", "40", f"--{c}_fx", "50",
+                 f"--{c}_fy", "50", f"--{c}_cx", "20", f"--{c}_cy", "20"]
+    return argv + list(extra)
+
+
+def test_cli_test_renders_a_card_run_through_k1(card, tmp_path):
+    """cli/test.py on the checkpoint of a short run on the card (one
+    dispatch of 4 steps): KITTI poses, 19 images and the 90 video frames,
+    rendered through K1 alone: 2 launches a chunk (one chunk a frame), no
+    K2, no other kernel, no plain route."""
+    import numpy as np
+
+    from benerf_tpu_torch.cli import test as cli_test
+    from benerf_tpu_torch.train import checkpoint as ckpt
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, make_state = _small_run()
+    state, _ = step_mod.make_multi_step(cfg, 40, 40, 4)(make_state(), batch,
+                                                        cfg.seed)
+    ckpt.save(str(tmp_path / "0"), state)
+    before = mlp_ops.counts()
+    # optimize_trans as in _small_run: restore's template has its Adam group
+    cli_test.main(_cli_test_argv(tmp_path, "--checkpoint", "4",
+                                 "--optimize_trans", "True",
+                                 "--extract_poses", "True", "--render_images",
+                                 "True", "--render_video", "True"))
+    fused, staged, routes = mlp_ops.counts_since(before)
+    assert fused == {"fused_mlp_fwd": 2 * (19 + 90), "fused_mlp_bwd": 0,
+                     "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
+    assert set(staged.values()) == {0} and routes == {"plain": 0}
+    out = tmp_path / "0" / "test_results"
+    poses = np.loadtxt(out / "poses_test" / "poses_test_000004.txt")
+    assert poses.shape == (19, 12) and np.all(np.isfinite(poses))
+    assert len(list((out / "image_test" / "img_test_000004").glob("test*.png"))) == 19
+    frames = list((out / "0_spiral_000004_rgb_frames").glob("*.png"))
+    assert (out / "0_spiral_000004_rgb.mp4").is_file() or len(frames) == 90
+
+
+def test_reference_tar_imports_onto_the_card(card, tmp_path):
+    """A .tar that torch.save wrote in the reference's layout (graph,
+    global_step, five optimizer state dicts) loads with weights_only=True
+    onto the card, equal to its import on the CPU, and renders through K1."""
+    from benerf_tpu_torch.cli import test as cli_test
+    from benerf_tpu_torch.core.config import config_from_cli
+    from benerf_tpu_torch.eval import frames
+    from benerf_tpu_torch.render import renderer
+
+    gen = torch.Generator().manual_seed(0)
+
+    def lin(prefix, o, i):
+        sd[prefix + ".weight"] = torch.randn(o, i, generator=gen) * (2 / i) ** 0.5
+        sd[prefix + ".bias"] = torch.randn(o, generator=gen) * 0.01
+
+    sd = {}
+    for net in ("nerf", "nerf_fine"):
+        for i in range(8):
+            lin(f"{net}.pts_linears.{i}", 256, 63 if i == 0 else 256 + 63 * (i == 5))
+        for name, (o, i) in {"feature_linear": (256, 256), "alpha_linear": (1, 256),
+                             "rgb_linear": (3, 128),
+                             "views_linears.0": (128, 256 + 27)}.items():
+            lin(f"{net}.{name}", o, i)
+    sd["evt_knot_pose_se3.params.weight"] = torch.randn(4, 6, generator=gen) * 0.02
+    sd["transform.params.weight"] = torch.zeros(1, 6)
+    for crf in ("rgb_crf.mlp_gray", "event_crf.mlp_luminance"):
+        for j, (o, i) in enumerate([(128, 1), (1, 128)]):
+            lin(f"{crf}.{2 * j}", o, i)
+    ckpt = {"global_step": 200000, "graph": sd}
+    for name in ("nerf", "pose", "trans", "rgb_crf", "event_crf"):
+        p = torch.nn.Parameter(torch.randn(5, generator=gen))
+        opt = torch.optim.Adam([p], lr=5e-4)
+        p.grad = torch.ones(5)
+        opt.step()
+        ckpt[f"optimizer_{name}_state_dict"] = opt.state_dict()
+    torch.save(ckpt, tmp_path / "200000.tar")
+
+    cfg = config_from_cli(_cli_test_argv(tmp_path, "--checkpoint", "200000"))
+    on_card, step = cli_test.load_params(cfg, str(tmp_path), torch.device("cuda"))
+    on_cpu, _ = cli_test.load_params(cfg, str(tmp_path), torch.device("cpu"))
+    assert step == 200000
+    for a, b in zip(bridge.tree_leaves(on_card), bridge.tree_leaves(on_cpu)):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    before = mlp_ops.counts()
+    poses = cli_test.pose_trajectory(on_card, cfg, 2)
+    fr = list(frames.render_trajectory(
+        on_card, poses, cli_test.intrinsics(cfg)[2], 40, 40,
+        renderer.RenderSettings.from_config(cfg), chunk=cfg.chunk,
+        device=torch.device("cuda")))
+    fused, _, routes = mlp_ops.counts_since(before)
+    assert fused["fused_mlp_fwd"] == 4 and fused["fused_mlp_bwd"] == 0
+    assert routes == {"plain": 0}
+    assert all(f["rgb"].shape == (40, 40, 3) for f in fr)
+    assert all(bool(torch.isfinite(torch.as_tensor(f["rgb"])).all()) for f in fr)
+
+
+def test_evaluate_runs_lpips_on_the_card(card, tmp_path, monkeypatch):
+    """cli/evaluate.py with LPIPS weights on disk: the network runs on the
+    card (cuDNN's TF32 off) and gives the CPU's summary within 1e-4
+    relative; PSNR / SSIM are host numpy and equal."""
+    import numpy as np
+
+    from benerf_tpu_torch.cli import evaluate
+    from benerf_tpu_torch.data import png
+    from benerf_tpu_torch.eval import lpips_torch
+
+    rng = np.random.default_rng(0)
+    for name, noise in (("res", 0.05), ("gt", 0.0)):
+        (tmp_path / name).mkdir()
+        base = np.random.default_rng(1).random((32, 40, 3))
+        for i in range(2):
+            img = np.clip(base + noise * rng.normal(size=base.shape), 0, 1)
+            png.write(str(tmp_path / name / f"{i:03d}.png"),
+                      (255 * img).astype(np.uint8))
+    torch.save({}, tmp_path / "empty.pth")
+    torch.manual_seed(0)
+    sd = lpips_torch._build(str(tmp_path / "empty.pth")).state_dict()
+    torch.save({k: v.abs() if k.startswith("lins.") else v  # as trained heads
+                for k, v in sd.items()}, tmp_path / "lpips.pth")
+    monkeypatch.setenv("BENERF_LPIPS_WEIGHTS", str(tmp_path / "lpips.pth"))
+    monkeypatch.setattr(lpips_torch, "_MODEL", None)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    dirs = (str(tmp_path / "res"), str(tmp_path / "gt"))
+    on_card = evaluate.evaluate(*dirs)
+    assert next(lpips_torch._MODEL.parameters()).device.type == "cuda"
+    on_cpu = evaluate.evaluate(*dirs, device="cpu")
+    assert on_card.keys() == on_cpu.keys() == {"psnr", "ssim", "lpips"}
+    assert on_card["psnr"] == on_cpu["psnr"] and on_card["ssim"] == on_cpu["ssim"]
+    assert on_card["lpips"] == pytest.approx(on_cpu["lpips"], rel=1e-4)
