@@ -4,10 +4,10 @@ parser for the reference's `key = value` .txt scene configs so that every
 shipped config under configs/ runs unmodified.
 
 This is the PyTorch port's own copy of benerf_tpu/core/config.py: the port
-imports nothing from the JAX package. The field the port cannot honour yet
-(mesh_devices > 1) parses the same way, and the port's train loop raises
-on it; use_pallas keeps its JAX name and, off, sends every MLP call to the
-plain route.
+imports nothing from the JAX package. mesh_devices counts processes of a
+torch.distributed.run launch, one per card (-1: as many as it started;
+parallel/mesh.py); use_pallas keeps its JAX name and, off, sends every MLP
+call to the plain route.
 
 Parsing rules (configargparse compatibility):
   - lines `key = value`; `#` starts a comment; booleans are True/False;
@@ -166,8 +166,8 @@ class Config:
     compute_dtype: str = "float32"
     # use fused Pallas kernels for the MLP hot path where available
     use_pallas: bool = True
-    # data-parallel mesh size over the ray axis (1 = single chip); -1 = all
-    # visible devices.
+    # data-parallel mesh size over the ray axis (1 = single card): the
+    # processes of the launch, one per card; -1 = as many as it started
     mesh_devices: int = -1
     # NaN diagnostics (SURVEY.md §5: the reference dies silently on NaN).
     # debug_nans=True flips jax_debug_nans so the faulting primitive is

@@ -6,9 +6,10 @@ the normalized-time stream is selected, by TIME or by COUNT; the window's
 polarities are scatter-added into an (H*W,) "ETA" map with index_add_ on
 the device; the window's (start, end) times parameterize the spline poses.
 Windows are built on the device from index arithmetic (no .item() sync).
-Host-side helpers (raw ingest, the TUM-VIE h5 slicer, visualization and the
-accumulation oracle) are numpy, as in the JAX package; the JAX package's
-C++ ingest engine is not copied, because its numpy branch computes the same.
+Raw ingest goes through the port's copy of the JAX package's host C++
+engine (data/_native.py, csrc/events.cpp); the other host-side helpers (the
+TUM-VIE h5 slicer, visualization and the accumulation oracle) are numpy, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from benerf_tpu_torch import resolve_device
+from benerf_tpu_torch.data import _native
 
 
 class EventArrays(NamedTuple):
@@ -51,22 +53,16 @@ def prepare(x, y, ts, pol, width: int, device=None,
 
 def prepare_raw(x, y, t_raw, pol, width: int, t_lo: float, t_hi: float,
                 device=None) -> EventArrays:
-    """One-pass ingest of a RAW stream: crop to [t_lo, t_hi], normalize time
-    to [0,1] over that range, flatten, stable time-sort (in float64, as the
-    numpy branch of benerf_tpu/data/_native.py prepare_events), then move to
+    """One-pass ingest of a RAW stream through the host C++ engine
+    (_native.prepare_events: crop to [t_lo, t_hi], normalize time to [0,1]
+    over that range, flatten, stable time-sort, in float64), then move to
     `device` (None: the card, see resolve_device)."""
     device = resolve_device(device)
-    x, y, t, p = (np.ascontiguousarray(a, np.float64) for a in (x, y, t_raw, pol))
-    keep = (t >= t_lo) & (t <= t_hi)
-    xs, ys, tt, pp = x[keep], y[keep], t[keep], p[keep]
-    order = np.argsort(tt, kind="stable")
-    span = (t_hi - t_lo) or 1.0
-    pix = (ys[order].astype(np.int64) * width + xs[order]).astype(np.int32)
+    pix, ts, pp = _native.prepare_events(x, y, t_raw, pol, width, t_lo, t_hi)
     return EventArrays(
         pix_idx=torch.as_tensor(pix.astype(np.int64), device=device),
-        ts=torch.as_tensor(((tt[order] - t_lo) / span).astype(np.float32),
-                           device=device),
-        pol=torch.as_tensor(pp[order].astype(np.float32), device=device),
+        ts=torch.as_tensor(ts, device=device),
+        pol=torch.as_tensor(pp, device=device),
     )
 
 

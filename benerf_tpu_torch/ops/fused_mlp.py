@@ -35,17 +35,16 @@ weights get no gradient: they are step functions of the iteration counter.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
 import os
 import re
 import shutil
-import subprocess
 import time
 from pathlib import Path
 
 import torch
 
+from benerf_tpu_torch.core import libbuild
 from benerf_tpu_torch.models import nerf as nerf_mod
 
 WIDTH = 256
@@ -179,10 +178,8 @@ def _source_files(name):
 def _target(name):
     """The library's path, keyed by the flags and every file it is built
     from, so an edit to any included header rebuilds it."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _source_files(name):
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return libbuild.library_path(BUILD_DIR, name, NVCC_FLAGS,
+                                 _source_files(name))
 
 
 def build():
@@ -192,24 +189,10 @@ def build():
     todo = [(n, _target(n)) for n in SOURCES if not _target(n).exists()]
     if not todo:
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    procs = []
-    for name, target in todo:
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, target, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, target, tmp, proc in procs:
-        out, _ = proc.communicate()
-        BUILD_LOG[name] = out
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
-        else:
-            os.replace(tmp, target)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    BUILD_LOG.update(libbuild.compile_libraries(
+        [(n, [nvcc, *NVCC_FLAGS, str(CSRC / f"{n}.cu")], target)
+         for n, target in todo], "kernel"))
     return time.perf_counter() - t0
 
 

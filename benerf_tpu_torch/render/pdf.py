@@ -35,10 +35,7 @@ def sample_pdf(bins, weights, n_samples: int, generator=None, u=None,
             u = torch.linspace(0.0, 1.0, n_samples, **kw).expand(
                 shape + (n_samples,))
         elif sorted_draws:
-            e = -torch.log1p(-torch.rand(shape + (n_samples + 1,),
-                                         generator=generator, **kw))
-            c = torch.cumsum(e, dim=-1)
-            u = c[..., :-1] / c[..., -1:]
+            u = sorted_uniforms(generator, shape, n_samples, **kw)
         else:
             u = torch.rand(shape + (n_samples,), generator=generator, **kw)
     u = u.contiguous()
@@ -56,6 +53,18 @@ def sample_pdf(bins, weights, n_samples: int, generator=None, u=None,
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+def sorted_uniforms(generator, shape, n_samples: int, device, dtype):
+    """shape + (n_samples,) ascending order statistics of iid uniforms
+    (normalized partial sums of exponentials), drawn from `generator`:
+    sample_pdf's sorted draws (a sharded step draws them whole and injects
+    its rows)."""
+    e = -torch.log1p(-torch.rand(tuple(shape) + (n_samples + 1,),
+                                 generator=generator, device=device,
+                                 dtype=dtype))
+    c = torch.cumsum(e, dim=-1)
+    return c[..., :-1] / c[..., -1:]
 
 
 def merge_sorted(a, b):

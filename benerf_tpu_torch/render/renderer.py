@@ -10,6 +10,13 @@ right after. Per-ray numerics equal rendering each family alone.
 Random draws: each family's `keys` dict holds torch.Generators ("z", "pdf",
 "noise_c", "noise_f") or injected values ("z_u", "pdf_u", "noise_c_vals",
 "noise_f_vals"), as the JAX package's keys dict holds PRNG keys or values.
+Injected "pdf_u" rows are sorted with the coarse depths, as in the JAX
+package; with "pdf_u_sorted" set they are ascending (the generator's own
+draws, as a sharded step injects them) and merged like drawn ones.
+
+Under a mesh (parallel/mesh.py) the rays of every family are this rank's
+share; `mesh` only picks the MLP's route, as the JAX package's shard_map
+region does (ops/mlp.py).
 """
 
 from __future__ import annotations
@@ -77,7 +84,7 @@ def _barf_weights(settings: RenderSettings, step, device):
 
 
 def render_ray_families(nerf_params, nerf_fine_params, families,
-                        settings: RenderSettings, step=None):
+                        settings: RenderSettings, step=None, mesh=None):
     """Render several independent ray batches through ONE coarse+fine pass.
 
     families: list of dicts {rays_o (R,3), rays_d (R,3), H, W, focal, keys}.
@@ -114,7 +121,7 @@ def render_ray_families(nerf_params, nerf_fine_params, families,
             num_freqs_views=settings.multires_views,
             barf_weights=bw, barf_weights_views=bwv,
             use_pallas=settings.use_pallas,
-            compute_dtype=settings.compute_dtype,
+            compute_dtype=settings.compute_dtype, mesh=mesh,
         )
 
     raws = run_split(nerf_params, pts_l)
@@ -137,7 +144,7 @@ def render_ray_families(nerf_params, nerf_fine_params, families,
                 generator=keys.get("pdf"), u=injected_u,
                 sorted_draws=injected_u is None,
             ).detach()  # reference: z_samples.detach()
-            if injected_u is None:
+            if injected_u is None or keys.get("pdf_u_sorted"):
                 # both inputs ascending: a linear merge instead of a sort
                 z_all = pdfm.merge_sorted(z_vals, z_samples)
             else:
@@ -201,14 +208,15 @@ def render_poses_with_ray_idx(nerf_params, nerf_fine_params, poses, ray_idx,
 
 def render_pose_families_with_ray_idx(nerf_params, nerf_fine_params,
                                       fam_specs, settings: RenderSettings,
-                                      step=None):
+                                      step=None, mesh=None):
     """Training-path rendering of several (poses, ray_idx) families through
     one joint coarse+fine pass. fam_specs: list of dicts {poses (P,3,4),
-    ray_idx (R,), K, H, W, keys, remap}. Rows pose-major per family."""
+    ray_idx (R,), K, H, W, keys, remap}. Rows pose-major per family. mesh:
+    the step's RayMesh, whose rank's pixels ray_idx are."""
     fams = [
         _pose_family(s["poses"], s["ray_idx"], s["K"], s["H"], s["W"],
                      s.get("keys"), s.get("remap"))
         for s in fam_specs
     ]
     return render_ray_families(nerf_params, nerf_fine_params, fams, settings,
-                               step=step)
+                               step=step, mesh=mesh)

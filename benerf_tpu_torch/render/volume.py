@@ -60,9 +60,9 @@ def composite(raw, z_vals, rays_d, channels: int, noise_std: float = 1.0,
     if noise is not None:
         sigma_raw = sigma_raw + noise
     elif generator is not None and noise_std > 0.0:
-        sigma_raw = sigma_raw + torch.randn(
-            sigma_raw.shape, generator=generator, device=sigma_raw.device,
-            dtype=sigma_raw.dtype) * noise_std
+        sigma_raw = sigma_raw + sigma_noise(generator, sigma_raw.shape,
+                                            noise_std, sigma_raw.device,
+                                            sigma_raw.dtype)
 
     sigma = torch.relu(sigma_raw)
     alpha = 1.0 - torch.exp(-sigma * dists)
@@ -97,6 +97,19 @@ def stratified_z(generator, n_rays, n_samples, near=0.0, far=1.0, t_rand=None,
     upper = torch.cat([mids, z[..., -1:]], dim=-1)
     lower = torch.cat([z[..., :1], mids], dim=-1)
     if t_rand is None:
-        t_rand = torch.rand(z.shape, generator=generator, device=device,
-                            dtype=dtype)
+        t_rand = stratified_draws(generator, n_rays, n_samples, device, dtype)
     return lower + (upper - lower) * t_rand
+
+
+def stratified_draws(generator, n_rays, n_samples, device, dtype):
+    """The (n_rays, n_samples) uniforms stratified_z draws from `generator`
+    (a sharded step draws them whole and injects its rows as t_rand)."""
+    return torch.rand((n_rays, n_samples), generator=generator, device=device,
+                      dtype=dtype)
+
+
+def sigma_noise(generator, shape, noise_std, device, dtype):
+    """The sigma noise composite draws from `generator` (a sharded step
+    draws it whole and injects its rows as `noise`)."""
+    return torch.randn(shape, generator=generator, device=device,
+                       dtype=dtype) * noise_std

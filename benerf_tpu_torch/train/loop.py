@@ -15,9 +15,15 @@ A dispatch of g steps is train/step.py make_multi_step: on the card one
 captured CUDA graph of the step, replayed g times, its stacked metrics read
 back once per dispatch. A shorter tail runs single steps (make_train_step),
 as the JAX loop does. Under debug_nans (torch anomaly detection, which a
-graph cannot capture) every step is a single uncaptured one. A multi-device
-mesh is not ported; a config that asks for one raises NotImplementedError
-instead of being quietly run without it.
+graph cannot capture) every step is a single uncaptured one.
+
+Several cards: one process per card under
+`python -m torch.distributed.run --nproc_per_node N` with mesh_devices N
+(or -1). Every rank loads the same scene, builds and restores the same
+state and trains on its share of each step's rays (parallel/mesh.py,
+train/step.py); rank 0 alone writes the run directory (config, log, evals,
+video, checkpoints), and the ranks meet after each checkpoint. A mesh the
+launch cannot give raises ValueError (parallel/mesh.make_mesh).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from benerf_tpu_torch.eval import io as io_mod
 from benerf_tpu_torch.eval import metrics as metrics_mod
 from benerf_tpu_torch.eval import pose_metrics
 from benerf_tpu_torch.geometry import spline as spline_mod
+from benerf_tpu_torch.parallel import mesh as mesh_mod
 from benerf_tpu_torch.render import renderer as renderer_mod
 from benerf_tpu_torch.train import checkpoint as ckpt_mod
 from benerf_tpu_torch.train import pose_init as pose_init_mod
@@ -82,15 +89,6 @@ def make_batch(scene, cfg, K_rgb, K_evt, device, img_remap=None,
         img_remap=None if img_remap is None else dev(img_remap.reshape(-1, 2)),
         evt_remap=None if evt_remap is None else dev(evt_remap.reshape(-1, 2)),
     )
-
-
-def _unported(cfg):
-    """Names of the features this config asks for that the port lacks."""
-    asks = {
-        "a multi-device mesh (mesh_devices > 1; multi-GPU slice)":
-            cfg.mesh_devices > 1,
-    }
-    return [name for name, on in asks.items() if on]
 
 
 def _start_profiler(device):
@@ -183,19 +181,21 @@ def train(cfg, scene=None, init_knots=None, device=None):
     scene: an in-memory SceneData, or None to load cfg.datadir. init_knots:
     an optional (4, 6) se(3) knot override for the trajectory init (default:
     the reference draw, scene.ev_poses under loadpose, or the motion-scale
-    estimate under pose_init = motion_scale). device: "cuda" unless given;
-    with no device and no card this raises.
+    estimate under pose_init = motion_scale). device: "cuda" unless given
+    (under a launcher the card cuda:LOCAL_RANK); with no device and no card
+    this raises.
     """
-    missing = _unported(cfg)
-    if missing:
-        raise NotImplementedError("not ported yet: " + "; ".join(missing))
-    device = resolve_device(device)
+    device = mesh_mod.initialize_distributed(device) or resolve_device(device)
+    mesh = mesh_mod.make_mesh(cfg.mesh_devices, device)
+    lead = mesh is None or mesh.rank == 0  # writes the run directory
 
     logdir = os.path.join(os.path.expanduser(cfg.logdir), str(cfg.index))
-    _write_run_config(cfg, logdir)
+    if lead:
+        _write_run_config(cfg, logdir)
     logger = io_mod.JsonlLogger(
-        cfg.log_file or os.path.join(logdir, "metrics.jsonl"),
-        wandb_project=cfg.project if cfg.viewer == "wandb" else None,
+        (cfg.log_file or os.path.join(logdir, "metrics.jsonl")) if lead
+        else None,
+        wandb_project=cfg.project if cfg.viewer == "wandb" and lead else None,
         config=vars(cfg))
 
     if scene is None:
@@ -220,6 +220,7 @@ def train(cfg, scene=None, init_knots=None, device=None):
     if cfg.load_checkpoint and ckpt_mod.latest_step(logdir) is not None:
         state = ckpt_mod.restore(logdir, state, device=device)
         print(f"[INFO] resumed from step {state.step}")
+    mesh_mod.replicate_tree(state.params, mesh)
 
     if cfg.event_time_window and cfg.event_window_cap == 0:
         cap = events_util.window_cap(scene.events.ts.cpu().numpy(),
@@ -232,15 +233,15 @@ def train(cfg, scene=None, init_knots=None, device=None):
     g = math.gcd(math.gcd(cfg.console_log_iter, cfg.render_image_iter),
                  math.gcd(cfg.render_video_iter, cfg.save_model_iter))
     g = max(1, min(g, cfg.max_iter))
-    step_fn = step_mod.make_train_step(cfg, H, W)
+    step_fn = step_mod.make_train_step(cfg, H, W, mesh)
     multi_fn = None
     if g > 1 and cfg.debug_nans:
         print("[INFO] debug_nans: anomaly detection cannot run inside a CUDA "
               "graph, so every step runs alone and uncaptured")
     elif g > 1:
-        multi_fn = step_mod.make_multi_step(cfg, H, W, g)
+        multi_fn = step_mod.make_multi_step(cfg, H, W, g, mesh)
 
-    rays_per_iter = (
+    rays_per_iter = (  # the global rays, under a mesh too
         2 * cfg.sampling_event_rays
         + cfg.num_interpolated_pose
         * (cfg.sampling_rgb_rays // cfg.num_interpolated_pose)
@@ -256,7 +257,7 @@ def train(cfg, scene=None, init_knots=None, device=None):
                 if n != g or multi_fn is None:
                     n = 1
                 prof = None
-                if cfg.profile_iter > 0 and i <= cfg.profile_iter < i + n:
+                if lead and cfg.profile_iter > 0 and i <= cfg.profile_iter < i + n:
                     # the dispatch that crosses profile_iter under the
                     # profiler, as the JAX loop traces one scan chunk
                     prof = _start_profiler(device)
@@ -289,14 +290,15 @@ def train(cfg, scene=None, init_knots=None, device=None):
                         f"{host['loss'][bad[0]]}. Re-run with debug_nans=True "
                         "to locate the faulting op (torch anomaly detection).")
                 overflow = int(np.max(host.get("eta_window_overflow", 0)))
-                if overflow > 0:
+                if lead and overflow > 0:
                     print(f"[WARN] iter {i}: event window overflowed its static "
                           f"cap by {overflow} events — the ETA target dropped "
                           "events; raise event_window_cap (or 0 for the exact "
                           "full-stream path).")
 
-                if ((cfg.console_log_iter > 0 and i % cfg.console_log_iter == 0)
-                        or i == cfg.max_iter):
+                if lead and ((cfg.console_log_iter > 0
+                              and i % cfg.console_log_iter == 0)
+                             or i == cfg.max_iter):
                     dt = time.time() - t_last
                     rays_s = rays_per_iter * n_since / max(dt, 1e-9)
                     logger.write("rays_per_sec", rays_s)
@@ -306,14 +308,16 @@ def train(cfg, scene=None, init_knots=None, device=None):
                           f"({rays_s:,.0f} rays/s)")
                     t_last, n_since = time.time(), 0
 
-                if cfg.render_image_iter > 0 and i % cfg.render_image_iter == 0:
+                if (lead and cfg.render_image_iter > 0
+                        and i % cfg.render_image_iter == 0):
                     _, results = periodic_eval(
                         state.params, cfg, scene, settings_eval, K_render, H_r,
                         W_r, logdir, i, logger, device)
                     if results:
                         print(f"[EVAL] iter {i}: {results}")
 
-                if cfg.render_video_iter > 0 and i % cfg.render_video_iter == 0:
+                if (lead and cfg.render_video_iter > 0
+                        and i % cfg.render_video_iter == 0):
                     poses = rgb_pose_trajectory(state.params, cfg,
                                                 scene.rgb_exp_ts, 90)
                     io_mod.save_video(
@@ -323,8 +327,10 @@ def train(cfg, scene=None, init_knots=None, device=None):
                             chunk=cfg.chunk, device=device)])
 
                 if cfg.save_model_iter > 0 and i % cfg.save_model_iter == 0:
-                    path = ckpt_mod.save(logdir, state)
-                    print(f"[INFO] saved checkpoint {path}")
+                    if lead:
+                        path = ckpt_mod.save(logdir, state)
+                        print(f"[INFO] saved checkpoint {path}")
+                    mesh_mod.barrier(mesh)
 
                 logger.update_buffer(i)
     finally:

@@ -8,10 +8,21 @@ so parity tests inject recorded draws and compare loss and gradients
 through the production code path. The JAX package's jit of one step is an
 eager call here (make_train_step); its lax.scan of several steps per
 dispatch (make_multi_step) is a CUDA graph of one step, replayed.
+
+Under a mesh (parallel/mesh.py `RayMesh`; every function here takes
+`mesh=None`, as the JAX package's do) every rank makes the step's global
+draws from the same generators, keeps its block of each family's pixels
+and the rows of those pixels at every pose, and renders them; each loss
+term is its share of the global term (train/loss.py). One all-reduce of
+one flat buffer then sums every gradient, the per-term knot gradients and
+the loss metrics over the ranks before the grad norms and Adam, so the
+ranks' parameters stay equal and the step computes what the unsharded one
+does from the same draws.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -24,7 +35,10 @@ from benerf_tpu_torch.models import crf as crf_mod
 from benerf_tpu_torch.models import nerf as nerf_mod
 from benerf_tpu_torch.models.bridge import tree_leaves
 from benerf_tpu_torch.ops import mlp as mlp_ops
+from benerf_tpu_torch.parallel import mesh as mesh_mod
+from benerf_tpu_torch.render import pdf as pdf_mod
 from benerf_tpu_torch.render import renderer as renderer_mod
+from benerf_tpu_torch.render import volume as volume_mod
 from benerf_tpu_torch.train import loss as loss_mod
 from benerf_tpu_torch.train import optim as optim_mod
 
@@ -106,12 +120,19 @@ def _apply_crf(crf_params, x):
     return crf_mod.apply(crf_params, x.reshape(-1, 1)).reshape(x.shape)
 
 
-def make_loss_fn(cfg, H: int, W: int):
+# metrics every rank computes whole; the others are the ranks' partial sums
+REPLICATED_METRICS = ("eta_window_overflow",)
+
+
+def make_loss_fn(cfg, H: int, W: int, mesh=None):
     """(loss_fn, draw_fn) for one iteration.
 
     loss_fn(params, batch, draws, step) -> (total, metrics);
     draw_fn(generators) -> draws (step_generators' dict in, window bounds,
-    ray subsets and per-family generators out).
+    ray subsets and per-family generators out). The draws are global under
+    a mesh too: loss_fn takes this rank's share of them, and its total and
+    metrics (but REPLICATED_METRICS) are this rank's share of the global
+    ones.
     """
     settings = renderer_mod.RenderSettings.from_config(cfg)
     H_evt, W_evt = cfg.event_height, cfg.event_width
@@ -119,6 +140,47 @@ def make_loss_fn(cfg, H: int, W: int):
     n_evt_rays = cfg.sampling_event_rays
     n_rgb_rays = cfg.sampling_rgb_rays // cfg.num_interpolated_pose
     n_poses = cfg.num_interpolated_pose
+
+    if mesh is not None:
+        n_dev = mesh.size
+        if (2 * n_evt_rays) % n_dev:  # the JAX package's check and message
+            need = n_dev // math.gcd(2, n_dev)
+            raise ValueError(
+                f"sampling_event_rays={n_evt_rays} gives {2 * n_evt_rays} "
+                f"event-render rays, not divisible by the {n_dev}-device "
+                f"mesh — choose a multiple of {need}"
+            )
+        if min(n_evt_rays, n_rgb_rays) < n_dev:
+            raise ValueError(
+                f"{n_evt_rays} event and {n_rgb_rays} rgb pixels a step "
+                f"cannot give each of the {n_dev} ranks one of each")
+
+    def family_rows(keys, poses, n_pix, dtype, device):
+        """This rank's rows of a family's per-row draws, which are pose-major
+        over `poses` x n_pix global rows: injected values as given, else
+        drawn whole from the family's generators as the renderer would draw
+        them (the sorted fine-sample draws marked so)."""
+        rows, S, N = poses * n_pix, settings.n_samples, settings.n_importance
+        if "z_u" in keys:
+            vals = dict(keys)
+        else:
+            vals = {"z_u": volume_mod.stratified_draws(keys["z"], rows, S,
+                                                       device, dtype)}
+            if N > 0:
+                vals["pdf_u"] = pdf_mod.sorted_uniforms(keys["pdf"], (rows,),
+                                                        N, device, dtype)
+            std = settings.sigma_noise_std
+            if std > 0.0:
+                vals["noise_c_vals"] = volume_mod.sigma_noise(
+                    keys["noise_c"], (rows, S), std, device, dtype)
+                vals["noise_f_vals"] = volume_mod.sigma_noise(
+                    keys["noise_f"], (rows, S + N), std, device, dtype)
+        out = {k: mesh_mod.shard_rows(v.reshape(poses, n_pix, -1), mesh,
+                                      dim=1).reshape(-1, v.shape[-1])
+               for k, v in vals.items()}
+        if "z_u" not in keys:
+            out["pdf_u_sorted"] = True
+        return out
 
     def rand_subset(g, n, k):
         """k distinct pixel indices out of n: a slice of a uniform
@@ -167,19 +229,30 @@ def make_loss_fn(cfg, H: int, W: int):
             rgb_knots, batch.rgb_exp_ts[0], batch.rgb_exp_ts[1], n_poses,
             cfg.traj)
 
-        # 3-4. both families through one joint coarse+fine pass
+        # 3-4. both families through one joint coarse+fine pass; under a
+        # mesh this rank's pixels at every pose
         ray_idx_evt, ray_idx_rgb = draws["ray_idx_evt"], draws["ray_idx_rgb"]
+        keys_evt, keys_rgb = draws["keys_evt"], draws["keys_rgb"]
+        idx_evt_all = None
+        if mesh is not None:
+            idx_evt_all = ray_idx_evt
+            keys_evt = family_rows(keys_evt, 2, n_evt_rays, knots.dtype,
+                                   knots.device)
+            keys_rgb = family_rows(keys_rgb, n_poses, n_rgb_rays, knots.dtype,
+                                   knots.device)
+            ray_idx_evt = mesh_mod.shard_rows(ray_idx_evt, mesh)
+            ray_idx_rgb = mesh_mod.shard_rows(ray_idx_rgb, mesh)
         ret_evt, ret_rgb = renderer_mod.render_pose_families_with_ray_idx(
             params["nerf"], params["nerf_fine"],
             [
                 dict(poses=evt_poses, ray_idx=ray_idx_evt, K=batch.K_evt,
-                     H=H_evt, W=W_evt, keys=draws["keys_evt"],
-                     remap=batch.evt_remap),
+                     H=H_evt, W=W_evt, keys=keys_evt, remap=batch.evt_remap),
                 dict(poses=rgb_poses, ray_idx=ray_idx_rgb, K=batch.K_rgb,
-                     H=H, W=W, keys=draws["keys_rgb"], remap=batch.img_remap),
+                     H=H, W=W, keys=keys_rgb, remap=batch.img_remap),
             ],
-            settings, step=step,
+            settings, step=step, mesh=mesh,
         )
+        n_evt = ray_idx_evt.shape[0]
 
         metrics = {}
         total = torch.zeros((), device=knots.device, dtype=knots.dtype)
@@ -187,8 +260,8 @@ def make_loss_fn(cfg, H: int, W: int):
         # 5. event loss on the window endpoints
         if cfg.event_loss:
             fine, coarse = ret_evt["rgb_map"], ret_evt["rgb0"]
-            b1_f, b2_f = fine[:n_evt_rays], fine[n_evt_rays:]
-            b1_c, b2_c = coarse[:n_evt_rays], coarse[n_evt_rays:]
+            b1_f, b2_f = fine[:n_evt], fine[n_evt:]
+            b1_c, b2_c = coarse[:n_evt], coarse[n_evt:]
             if cfg.optimize_event_crf:
                 b1_f, b2_f, b1_c, b2_c = (_apply_crf(params["event_crf"], b)
                                           for b in (b1_f, b2_f, b1_c, b2_c))
@@ -196,7 +269,9 @@ def make_loss_fn(cfg, H: int, W: int):
             kw = dict(dataset=cfg.dataset, channels=cfg.channels,
                       event_threshold=cfg.event_threshold,
                       coeff_syn=cfg.event_coeff_syn,
-                      coeff_real=cfg.event_coeff_real)
+                      coeff_real=cfg.event_coeff_real, mesh=mesh,
+                      eta_all=(None if mesh is None
+                               else eta[idx_evt_all][:, None]))
             ev_fine = loss_mod.event_loss_term(b1_f, b2_f, eta_target, **kw)
             ev_coarse = loss_mod.event_loss_term(b1_c, b2_c, eta_target, **kw)
             metrics["event_loss_fine"] = ev_fine
@@ -211,9 +286,11 @@ def make_loss_fn(cfg, H: int, W: int):
                 rgb_fine = _apply_crf(params["rgb_crf"], rgb_fine)
                 rgb_coarse = _apply_crf(params["rgb_crf"], rgb_coarse)
             target = batch.image_flat[ray_idx_rgb]
-            rgb_fine_l = loss_mod.blur_rgb_loss_term(rgb_fine, target, cfg.rgb_coeff)
+            n_all = None if mesh is None else n_rgb_rays
+            rgb_fine_l = loss_mod.blur_rgb_loss_term(rgb_fine, target,
+                                                     cfg.rgb_coeff, n_all)
             rgb_coarse_l = loss_mod.blur_rgb_loss_term(rgb_coarse, target,
-                                                       cfg.rgb_coeff)
+                                                       cfg.rgb_coeff, n_all)
             metrics["rgb_loss_fine"] = rgb_fine_l
             metrics["rgb_loss_coarse"] = rgb_coarse_l
             metrics["rgb_loss"] = rgb_fine_l + rgb_coarse_l
@@ -226,12 +303,13 @@ def make_loss_fn(cfg, H: int, W: int):
     return loss_fn, draw_fn
 
 
-def _make_body(cfg, H: int, W: int):
+def _make_body(cfg, H: int, W: int, mesh=None):
     """body(params, optimizer, batch, gens, step) -> metrics: one full
-    iteration (draws from the generators `gens`, loss, backward, grad norms,
-    Adam) with the optimizer's lrs already set for it. step: an int, or the
-    0-d tensor that a captured step advances on the card (BARF reads it)."""
-    loss_fn, draw_fn = make_loss_fn(cfg, H, W)
+    iteration (draws from the generators `gens`, loss, backward, under a
+    mesh the all-reduce, grad norms, Adam) with the optimizer's lrs already
+    set for it. step: an int, or the 0-d tensor that a captured step
+    advances on the card (BARF reads it)."""
+    loss_fn, draw_fn = make_loss_fn(cfg, H, W, mesh)
     # per-term knot gradients (log_knot_grad_terms, diagnostics only):
     # (loss term, metric)
     terms = [(m, k) for on, m, k in (
@@ -243,33 +321,40 @@ def _make_body(cfg, H: int, W: int):
         for t in tree_leaves(params):
             t.grad = None
         total, metrics = loss_fn(params, batch, draws, step)
-        knot_terms = {}
+        knot_grads = {}
         if cfg.log_knot_grad_terms:
             # which loss steers the spline: each term's gradient w.r.t. the
             # knots from this step's graph, before the total's backward
             for term, key in terms:
-                g, = torch.autograd.grad(metrics[term], params["knots"],
-                                         retain_graph=True)
-                knot_terms[key] = torch.linalg.norm(g)
+                knot_grads[key], = torch.autograd.grad(
+                    metrics[term], params["knots"], retain_graph=True)
         total.backward()
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
+            if mesh is not None:  # the step's one collective
+                mesh_mod.all_reduce_flat(
+                    [t.grad for t in tree_leaves(params) if t.grad is not None]
+                    + list(knot_grads.values())
+                    + [v for k, v in metrics.items()
+                       if k not in REPLICATED_METRICS], mesh)
             metrics["grad_norm_knots"] = torch.linalg.norm(params["knots"].grad)
             nerf_grads = [t.grad for c in ("nerf", "nerf_fine")
                           for t in tree_leaves(params[c])]
             metrics["grad_norm_nerf"] = torch.sqrt(
                 sum(torch.sum(g * g) for g in nerf_grads))
-            metrics.update(knot_terms)
+            metrics.update({k: torch.linalg.norm(g)
+                            for k, g in knot_grads.items()})
         optimizer.step()
         return metrics
 
     return body
 
 
-def make_train_step(cfg, H: int, W: int):
+def make_train_step(cfg, H: int, W: int, mesh=None):
     """step_fn(state, batch, seed) -> (state, metrics): one full iteration,
-    with its draws made from (seed, state.step); each metric a 0-d tensor."""
-    body = _make_body(cfg, H, W)
+    with its draws made from (seed, state.step); each metric a 0-d tensor,
+    under a mesh the global one on every rank."""
+    body = _make_body(cfg, H, W, mesh)
 
     def step_fn(state: TrainState, batch: SceneBatch, seed: int):
         gens = rng_mod.step_generators(seed, state.step,
@@ -281,7 +366,7 @@ def make_train_step(cfg, H: int, W: int):
     return step_fn
 
 
-def make_multi_step(cfg, H: int, W: int, n_inner: int):
+def make_multi_step(cfg, H: int, W: int, n_inner: int, mesh=None):
     """multi_fn(state, batch, seed) -> (state, metrics): n_inner iterations
     per dispatch, the counterpart of the JAX package's make_multi_step (its
     lax.scan of the step body). Each metric is a tensor of shape (n_inner,),
@@ -297,13 +382,25 @@ def make_multi_step(cfg, H: int, W: int, n_inner: int):
     torch.cuda.CUDAGraph and replays it for the rest; every later dispatch
     replays it n_inner times. Between replays the host only re-seeds the
     generators and writes the lr tensors; nothing syncs with the host until
-    the caller reads the metrics. A capture that fails raises."""
-    return _MultiStep(_make_body(cfg, H, W), n_inner)
+    the caller reads the metrics. A capture that fails raises.
+
+    Under an NCCL mesh the graph holds the step's all-reduce (the warm-up
+    step launches it once first). A gloo mesh cannot be captured: with one
+    on the card this raises ValueError instead of running uncaptured."""
+    if (mesh is not None and mesh.device.type == "cuda"
+            and mesh.backend != "nccl"):
+        raise ValueError(
+            f"a {mesh.backend} mesh on the card cannot be captured in a CUDA "
+            "graph: use NCCL, or make_train_step for uncaptured steps")
+    return _MultiStep(_make_body(cfg, H, W, mesh), n_inner)
 
 
 # CUDA graphs of the step captured and replayed on the card, over the
 # process (the warm-up step of a capture runs eagerly and is in neither)
 GRAPHS = {"captured": 0, "replayed": 0}
+# what a step launches (the MLP's kernels and routes, the mesh's
+# collectives): a captured step's are re-counted at each replay
+COUNTERS = mlp_ops.COUNTERS + (mesh_mod.COLLECTIVES,)
 
 
 class _MultiStep:
@@ -339,7 +436,7 @@ class _MultiStep:
             self._prepare(state, seed, step)
             if device.type == "cuda":
                 self.graph.replay()
-                mlp_ops.add_counts(self.counts)
+                mlp_ops.add_counts(self.counts, counters=COUNTERS)
                 GRAPHS["replayed"] += 1
             else:
                 self._step(state, batch)
@@ -369,7 +466,7 @@ class _MultiStep:
         self.step_t.add_(1)
 
     def _capture(self, state, batch):
-        before = mlp_ops.counts()
+        before = mlp_ops.counts(COUNTERS)
         for t in tree_leaves(state.params):
             t.grad = None
         graph = torch.cuda.CUDAGraph()
@@ -378,8 +475,8 @@ class _MultiStep:
         with torch.cuda.graph(graph):
             self._step(state, batch)
         # the capture launched nothing: count its launches at each replay
-        self.counts = mlp_ops.counts_since(before)
-        mlp_ops.add_counts(self.counts, -1)
+        self.counts = mlp_ops.counts_since(before, COUNTERS)
+        mlp_ops.add_counts(self.counts, -1, COUNTERS)
         self.graph, self.key = graph, _addresses(state, batch)
         GRAPHS["captured"] += 1
 

@@ -79,13 +79,30 @@ an exception):
      BRISQUE features of the final mid frame; timed; then K1 and K2 held
      against the plain version at the shapes this phase gave them (a step's
      351 rays and an eval frame's 1,024, x 16 coarse and x 32 fine points);
-  13. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
+  13. the mesh on one card (NCCL takes one rank per card): (a) tanabata fp32
+     under a one-rank NCCL RayMesh built here, CMP_DISPATCHES dispatches of
+     CMP_G steps with the all-reduce captured in the graph, against phase
+     10's unmeshed captured dispatch from the same state and seed, bit for
+     bit, collectives per step and K1/K2 counted, both timed; (b) two
+     processes (this script with --mesh-rank, importing torch and the port
+     only) as a two-rank gloo mesh on the card, MESH_STEPS steps of
+     tanabata and of configs/e2nerf_real/lego.txt (the real-data event
+     loss's global norms) at full width, fp32 mode, against the same steps
+     in this process: the ranks' parameters bit-equal, K1/K2 twice a step
+     on each rank; step 1's loss and metrics at rtol 1e-5, its gradients
+     at GRAD_TOL and the parameters after it at MESH_PARAM_TOL; the later
+     steps at the drift limits MESH_DRIFT_REL / MESH_DRIFT_PARAM, which a
+     witness (the same steps in this process with every sum over rays in
+     another order) must stay within and each planted fault of MESH_FAULTS
+     (run by the same two ranks) must exceed;
+  14. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -100,6 +117,20 @@ import numpy as np
 
 TANABATA = Path(__file__).resolve().parent / "configs/benerf_blender/tanabata.txt"
 DEMO = Path(__file__).resolve().parent / "configs/demo.txt"
+# phase 13(b): the synthetic event loss, then the real-data one (L2 norms
+# over the global ray axis)
+MESH_CONFIGS = {
+    "tanabata": TANABATA,
+    "e2nerf_real_lego": Path(__file__).resolve().parent
+    / "configs/e2nerf_real/lego.txt"}
+MESH_STEPS = 3               # phase 13(b): steps of each rank and of the card
+MESH_PARAM_TOL = 1e-5        # x max(|p|, 1) after step 1, as test_sharding
+# steps 2 and later: the largest relative metric difference, and the
+# parameters after the last step x max(|p|, 1); between the witness's
+# reading and the planted faults' (PERF.md, phase 13(b))
+MESH_DRIFT_REL = 2e-2
+MESH_DRIFT_PARAM = 1e-3
+MESH_FAULTS = ("stale_draws", "rank0_rows")  # planted: see patched()
 DEMO_ITERS = 300             # evals and checkpoints at DEMO_ITERS / 2 and DEMO_ITERS
 DEMO_RESUME = 20             # iterations after resuming at DEMO_ITERS
 EVAL_RAYS = 4096             # rays of one eval chunk (cfg.chunk)
@@ -682,18 +713,20 @@ def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
     return 1e3 * RAYS / steady, steady, launches, wall
 
 
-def slice_setup(torch, scene, compute_dtype="float32", multires_views=6):
-    """tanabata with a view encoding of `multires_views` frequencies: the
-    config (window cap as loop.train sets it), the batch, H, W and a maker
-    of the step-0 state; at L != 4 both NeRFs are built by the caller (39
-    view rows at L = 6: build_params makes 27, as in the JAX package)."""
+def slice_setup(torch, scene, compute_dtype="float32", multires_views=6,
+                config=TANABATA):
+    """tanabata (or `config`) with a view encoding of `multires_views`
+    frequencies: the config (window cap as loop.train sets it), the batch,
+    H, W and a maker of the step-0 state; at L != 4 both NeRFs are built by
+    the caller (39 view rows at L = 6: build_params makes 27, as in the JAX
+    package)."""
     from benerf_tpu_torch.core.config import load_config
     from benerf_tpu_torch.data import events as events_util
     from benerf_tpu_torch.models import bridge, nerf
     from benerf_tpu_torch.train import loop
     from benerf_tpu_torch.train import step as step_mod
 
-    cfg = dataclasses.replace(load_config(str(TANABATA)),
+    cfg = dataclasses.replace(load_config(str(config)),
                               multires_views=multires_views,
                               compute_dtype=compute_dtype)
     if cfg.event_time_window and cfg.event_window_cap == 0:  # as loop.train
@@ -760,6 +793,17 @@ def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32",
     return ms_iter, 1e3 * RAYS / ms_iter, launches, losses
 
 
+def state_tensors(state):
+    """Every parameter and Adam tensor of a TrainState."""
+    from benerf_tpu_torch.models import bridge
+
+    out = [t.detach() for t in bridge.tree_leaves(state.params)]
+    for g in state.optimizer.param_groups:
+        out += [state.optimizer.state[t][k] for t in g["params"]
+                for k in ("exp_avg", "exp_avg_sq", "step")]
+    return out
+
+
 def check_capture(torch, scene, multires_views, smi):
     """The captured dispatch against the uncaptured steps, from one state
     and one seed: CMP_DISPATCHES dispatches of CMP_G steps through
@@ -769,7 +813,6 @@ def check_capture(torch, scene, multires_views, smi):
     one more dispatch of each, timed: ms/iter with one host read of the
     stacked metrics per dispatch (captured) and one per step (uncaptured).
     -> measurements, with the card's peak allocated memory of each run."""
-    from benerf_tpu_torch.models import bridge
     from benerf_tpu_torch.train import step as step_mod
 
     cfg, batch, H, W, make_state = slice_setup(
@@ -783,13 +826,6 @@ def check_capture(torch, scene, multires_views, smi):
             rows.append(m)
             step_mod.metrics_to_host(m)  # the old loop's host read per step
         return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
-
-    def tensors(state):
-        out = [t.detach() for t in bridge.tree_leaves(state.params)]
-        for g in state.optimizer.param_groups:
-            out += [state.optimizer.state[t][k] for t in g["params"]
-                    for k in ("exp_avg", "exp_avg_sq", "step")]
-        return out
 
     runs = {}
     for name in ("uncaptured", "captured"):
@@ -816,7 +852,7 @@ def check_capture(torch, scene, multires_views, smi):
                       for x, y in zip(a["metrics"], b["metrics"]) for k in x)
     same_metrics = all(torch.equal(x[k], y[k])
                        for x, y in zip(a["metrics"], b["metrics"]) for k in x)
-    ta, tb = tensors(a["state"]), tensors(b["state"])
+    ta, tb = state_tensors(a["state"]), state_tensors(b["state"])
     state_diff = max(float((x.double() - y.double()).abs().max())
                      for x, y in zip(ta, tb))
     same_state = all(torch.equal(x, y) for x, y in zip(ta, tb))
@@ -841,6 +877,369 @@ def check_capture(torch, scene, multires_views, smi):
         raise AssertionError(f"the captured dispatch differs from the "
                              f"uncaptured steps: {out}")
     return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def check_nccl_one_rank(torch, scene, smi, phase10_ms):
+    """Phase 13(a): tanabata fp32 under a one-rank NCCL RayMesh (a process
+    group of world size 1, built in this process and passed to
+    make_multi_step as a JAX Mesh of one device may be) against the unmeshed
+    captured dispatch, from one state and seed: CMP_DISPATCHES dispatches of
+    CMP_G steps, the all-reduce captured in the graph; every metric,
+    parameter and Adam tensor bit for bit (each loss term under a mesh is
+    its mean times its share of the rows, x 1.0 at one rank). Then two
+    more dispatches of each, timed in turns (unmeshed, meshed, meshed,
+    unmeshed), after which the states are held equal again. ->
+    measurements."""
+    import torch.distributed as dist
+
+    from benerf_tpu_torch.parallel import mesh as mesh_mod
+    from benerf_tpu_torch.train import step as step_mod
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    mesh = mesh_mod.mesh_of_group()
+    cfg, batch, H, W, make_state = slice_setup(torch, scene, multires_views=4)
+
+    runs = {}
+    for name, m in (("unmeshed", None), ("meshed", mesh)):
+        fn = step_mod.make_multi_step(cfg, H, W, CMP_G, mesh=m)
+        state, stacked = make_state(), []
+        reset_counts()
+        coll = dict(mesh_mod.COLLECTIVES)
+        for _ in range(CMP_DISPATCHES):
+            state, metrics = fn(state, batch, cfg.seed)
+            step_mod.metrics_to_host(metrics)
+            stacked.append(metrics)
+        steps = CMP_G * CMP_DISPATCHES
+        runs[name] = dict(
+            fn=fn, state=state, metrics=stacked, ms=[], launches=counts(),
+            collectives_per_step={k: (mesh_mod.COLLECTIVES[k] - coll[k]) / steps
+                                  for k in coll})
+    # one more dispatch of each, timed in turns: unmeshed, meshed, meshed,
+    # unmeshed
+    for name in ("unmeshed", "meshed", "meshed", "unmeshed"):
+        run = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run["state"], metrics = run["fn"](run["state"], batch, cfg.seed)
+        step_mod.metrics_to_host(metrics)
+        run["ms"].append(1e3 * (time.perf_counter() - t0) / CMP_G)
+    for run in runs.values():
+        del run["fn"]
+    dist.destroy_process_group()
+    a, b = runs["meshed"], runs["unmeshed"]
+    same_metrics = all(torch.equal(x[k], y[k])
+                       for x, y in zip(a["metrics"], b["metrics"]) for k in x)
+    # after the held dispatches and two timed ones each
+    ta, tb = state_tensors(a["state"]), state_tensors(b["state"])
+    state_diff = max(float((x.double() - y.double()).abs().max())
+                     for x, y in zip(ta, tb))
+    same_state = all(torch.equal(x, y) for x, y in zip(ta, tb))
+    out = dict(steps_held=CMP_G * CMP_DISPATCHES, dispatch=CMP_G,
+               bit_equal_metrics=same_metrics, bit_equal_state=same_state,
+               max_abs_diff_state=state_diff,
+               collectives_per_step=a["collectives_per_step"],
+               launches=a["launches"], meshed_ms_per_iter=a["ms"],
+               unmeshed_ms_per_iter=b["ms"], phase10_ms_per_iter=phase10_ms)
+    print(f"  one-rank NCCL mesh vs unmeshed, {out['steps_held']} captured "
+          f"steps: bit-equal metrics {same_metrics}, params and Adam "
+          f"{same_state}; collectives/step {a['collectives_per_step']}; "
+          f"launches {a['launches']}; ms/iter in turns meshed {a['ms']}, "
+          f"unmeshed {b['ms']} (phase 10 {phase10_ms:.2f}) on {smi}")
+    expect_counts(a["launches"], CMP_G * CMP_DISPATCHES,
+                  ("fused_mlp_fwd", "fused_mlp_bwd"))
+    if not (same_metrics and same_state
+            and a["collectives_per_step"]["all_reduce"] == 1):
+        raise AssertionError(f"the one-rank NCCL mesh differs from the "
+                             f"unmeshed dispatch: {out}")
+    return out
+
+
+def mesh_steps(torch, config, mesh):
+    """MESH_STEPS single steps (make_train_step, under `mesh` or alone) of
+    `config` at full width, fp32 mode, on random_scene's events from seed 0
+    -> every step's metrics, step 1's gradients, the parameters after step
+    1 and after the last, the launch counts, the first step's s and ms/step
+    over the others (host clock, uncaptured)."""
+    from benerf_tpu_torch.core.config import load_config
+    from benerf_tpu_torch.data import datasets
+    from benerf_tpu_torch.models import bridge
+    from benerf_tpu_torch.train import step as step_mod
+
+    scene = datasets.random_scene(load_config(str(config)), N_EVENTS, seed=0,
+                                  device="cuda")
+    cfg, batch, H, W, make_state = slice_setup(torch, scene, multires_views=4,
+                                               config=config)
+    state = make_state()
+    step_fn = step_mod.make_train_step(cfg, H, W, mesh)
+
+    def params():
+        return [t.detach().cpu().numpy() for t in bridge.tree_leaves(state.params)]
+
+    out, rows, times = {}, [], []
+    reset_counts()
+    for i in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch, cfg.seed)
+        rows.append({k: float(v[0]) for k, v in
+                     step_mod.metrics_to_host(metrics).items()})
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            out["grads1"] = [np.zeros(tuple(t.shape), np.float32)
+                             if t.grad is None else t.grad.cpu().numpy()
+                             for t in bridge.tree_leaves(state.params)]
+            out["params1"] = params()
+    return dict(out, metrics=rows, launches=counts(), params=params(),
+                first_step_s=times[0],
+                ms_per_step=1e3 * statistics.mean(times[1:]))
+
+
+@contextlib.contextmanager
+def patched(kind):
+    """Phase 13(b)'s changes to the port, undone on exit. The witness
+    "permuted_rays": under a one-rank mesh, shard_rows keeps all of each
+    family's pixels and their per-row draws in one fixed permuted order (one
+    permutation per pixel count), so the step computes the same function
+    with every sum over rays in another order. Two planted faults, which
+    change only steps 2 and later: "stale_draws", every step draws from the
+    generators of the run's first step; "rank0_rows", from step 2 on every
+    rank renders its own pixels with rank 0's per-row draws (stratification,
+    fine-sample and noise uniforms). None changes nothing."""
+    import torch
+
+    from benerf_tpu_torch.core import rng
+    from benerf_tpu_torch.parallel import mesh as mesh_mod
+
+    generators0, shard_rows0 = rng.step_generators, mesh_mod.shard_rows
+    steps, perms = [], {}
+
+    def step_generators(seed, step, device, out=None):
+        steps.append(step)
+        if kind == "stale_draws":
+            step = steps[0]
+        return generators0(seed, step, device, out)
+
+    def shard_rows(x, mesh, dim=0):
+        mine = shard_rows0(x, mesh, dim)
+        if kind == "permuted_rays":
+            n = x.shape[dim]
+            if n not in perms:
+                perms[n] = torch.randperm(
+                    n, generator=torch.Generator().manual_seed(n))
+            return x.index_select(dim, perms[n].to(x.device))
+        if kind == "rank0_rows" and dim == 1 and len(steps) > 1:
+            return shard_rows0(x, dataclasses.replace(mesh, rank=0), dim) \
+                .narrow(dim, 0, mine.shape[dim])
+        return mine
+
+    if kind is not None:
+        rng.step_generators, mesh_mod.shard_rows = step_generators, shard_rows
+    try:
+        yield
+    finally:
+        rng.step_generators, mesh_mod.shard_rows = generators0, shard_rows0
+
+
+def run_mesh_rank(rank, port, out_path):
+    """Phase 13(b)'s child process: rank `rank` of a two-rank gloo mesh on
+    card 0; mesh_steps on every MESH_CONFIGS config, then again with each
+    MESH_FAULTS fault planted, pickled to out_path."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fused_mlp.build()  # the parent built it: loads
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    mesh = mesh_mod.mesh_of_group(device=torch.device("cuda", 0))
+    out = {"collectives": {}, "faults": {}}
+    for name, config in MESH_CONFIGS.items():
+        before = dict(mesh_mod.COLLECTIVES)
+        out[name] = mesh_steps(torch, config, mesh)
+        out["collectives"][name] = {
+            k: (mesh_mod.COLLECTIVES[k] - before[k]) / MESH_STEPS
+            for k in before}
+        for fault in MESH_FAULTS:
+            with patched(fault):
+                out["faults"][name, fault] = mesh_steps(torch, config, mesh)
+    dist.destroy_process_group()
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+    print(f"rank {rank}: done, collectives {out['collectives']}")
+
+
+def witness_steps(torch):
+    """Phase 13(b)'s witness: mesh_steps of every MESH_CONFIGS config in
+    this process under a one-rank gloo mesh with its rays permuted
+    (patched("permuted_rays")): the steps alone computes, every sum over
+    rays in another order."""
+    import torch.distributed as dist
+
+    from benerf_tpu_torch.parallel import mesh as mesh_mod
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    mesh = mesh_mod.mesh_of_group(device=torch.device("cuda", 0))
+    out = {}
+    for name, config in MESH_CONFIGS.items():
+        with patched("permuted_rays"):
+            out[name] = mesh_steps(torch, config, mesh)
+    dist.destroy_process_group()
+    return out
+
+
+def _err_over_scale(got, want):
+    """max over leaves of max |got - want| / max(max |want|, 1)."""
+    return max(float(np.abs(a - b).max(initial=0.0))
+               / max(float(np.abs(b).max(initial=0.0)), 1.0)
+               for a, b in zip(got, want))
+
+
+def _distances(run, ref):
+    """mesh_steps `run` against `ref`: every step's largest relative metric
+    difference, step 1's gradients and the parameters after step 1 and after
+    the last (each as max err / max(leaf scale, 1))."""
+    rel = [max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+               for k in y if y[k] != 0 or x[k] != 0)
+           for x, y in zip(run["metrics"], ref["metrics"])]
+    return dict(
+        metrics_max_rel_diff_by_step=rel,
+        grads_step1=_err_over_scale(run["grads1"], ref["grads1"]),
+        params_step1=_err_over_scale(run["params1"], ref["params1"]),
+        params_last=_err_over_scale(run["params"], ref["params"]))
+
+
+def _step1_ok(d):
+    return (d["metrics_max_rel_diff_by_step"][0] <= 1e-5
+            and d["grads_step1"] <= GRAD_TOL
+            and d["params_step1"] <= MESH_PARAM_TOL)
+
+
+def _later_ok(d):
+    """Steps 2 and later within the drift limits."""
+    return (max(d["metrics_max_rel_diff_by_step"][1:]) <= MESH_DRIFT_REL
+            and d["params_last"] <= MESH_DRIFT_PARAM)
+
+
+def check_two_ranks_gloo(torch, smi):
+    """Phase 13(b): MESH_STEPS steps of each MESH_CONFIGS config at full
+    width, fp32 mode, first alone in this process, then in two processes
+    (each importing torch and the port only) that share the card as a
+    two-rank gloo mesh (NCCL takes one rank per card), from the same state.
+    Held: K1/K2 twice a step on each rank; the ranks' parameters bit-equal
+    after step 1 and after the last; step 1 against the card alone: loss
+    and metrics at rtol 1e-5, every gradient within GRAD_TOL x max(|g|, 1),
+    the parameters after it within MESH_PARAM_TOL x max(|p|, 1), as
+    tests/test_sharding.py holds the JAX mesh's one step.
+
+    From step 2 on, Adam's m/sqrt(v) on gradient elements near its eps turns
+    fp32 rounding into parameter differences, so steps 2 and later are held
+    at the drift limits MESH_DRIFT_REL (metrics) and MESH_DRIFT_PARAM
+    (parameters after the last step), which the run itself checks from both
+    sides: the witness (witness_steps: alone with every sum over rays in
+    another order, no other change) must stay within step 1's tolerances
+    and the drift limits, and each planted fault of MESH_FAULTS, run by the
+    same two ranks, must exceed a drift limit. ms/step of two processes
+    time-slicing one card, gloo staging through the host: a record, not a
+    speed number. -> measurements."""
+    import pickle
+
+    alone = {name: mesh_steps(torch, config, None)
+             for name, config in MESH_CONFIGS.items()}
+    witness = witness_steps(torch)
+    port = _free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+             str(port), outs[r]], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"mesh rank {r} failed:\n{log[-4000:]}")
+        ranks = []
+        for path in outs:
+            with open(path, "rb") as f:
+                ranks.append(pickle.load(f))
+    result, failed = {}, []
+    for name in MESH_CONFIGS:
+        a, b, ref = ranks[0][name], ranks[1][name], alone[name]
+        bit_equal = all(np.array_equal(x, y) for key in ("params1", "params")
+                        for x, y in zip(a[key], b[key]))
+        d, w = _distances(a, ref), _distances(witness[name], ref)
+        faults = {f: _distances(ranks[0]["faults"][name, f], ref)
+                  for f in MESH_FAULTS}
+        r = dict(
+            ranks_params_bit_equal=bit_equal, **d, witness=w,
+            faults={f: dict(v, caught=not _later_ok(v))
+                    for f, v in faults.items()},
+            losses=[m["loss"] for m in a["metrics"]],
+            launches_rank0=a["launches"], launches_rank1=b["launches"],
+            launches_witness=witness[name]["launches"],
+            collectives_rank0=ranks[0]["collectives"][name],
+            first_step_s_ranks=[a["first_step_s"], b["first_step_s"]],
+            first_step_s_alone=ref["first_step_s"],
+            ms_per_step_ranks=[a["ms_per_step"], b["ms_per_step"]],
+            ms_per_step_alone=ref["ms_per_step"])
+        result[name] = r
+
+        def later(v):
+            return (f"metrics rel {max(v['metrics_max_rel_diff_by_step'][1:]):.2e}"
+                    f", params {v['params_last']:.2e} x scale")
+
+        rel = d["metrics_max_rel_diff_by_step"]
+        print(f"  {name}: ranks' params bit-equal {bit_equal}; step 1 vs "
+              f"alone: metrics rel {rel[0]:.2e} (tol 1e-5), grads "
+              f"{d['grads_step1']:.2e} x scale (tol {GRAD_TOL}), params "
+              f"{d['params_step1']:.2e} x scale (tol {MESH_PARAM_TOL}); "
+              f"steps 2-{MESH_STEPS} (limits {MESH_DRIFT_REL} / "
+              f"{MESH_DRIFT_PARAM}): two ranks {later(d)}; witness (rays "
+              f"permuted, alone; step 1 metrics rel "
+              f"{w['metrics_max_rel_diff_by_step'][0]:.2e}, grads "
+              f"{w['grads_step1']:.2e}) {later(w)}; "
+              + "; ".join(f"planted {f}: {later(v)}, caught "
+                          f"{r['faults'][f]['caught']}"
+                          for f, v in faults.items())
+              + f"; collectives/rank {r['collectives_rank0']}; launches/rank "
+              f"{a['launches']}; ms/step after the first: two ranks "
+              f"{a['ms_per_step']:.1f} / {b['ms_per_step']:.1f}, alone "
+              f"{ref['ms_per_step']:.1f} on {smi}")
+        for launches in (a["launches"], b["launches"],
+                         witness[name]["launches"]):
+            expect_counts(launches, MESH_STEPS, ("fused_mlp_fwd", "fused_mlp_bwd"))
+        if not (bit_equal and _step1_ok(d) and _later_ok(d) and _step1_ok(w)
+                and _later_ok(w)
+                and all(v["caught"] for v in r["faults"].values())):
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"two gloo ranks differ from one card, or the "
+                             f"drift limits do not separate the witness from "
+                             f"the planted faults: "
+                             f"{ {k: result[k] for k in failed} }")
+    return result
 
 
 def read_records(path):
@@ -1506,9 +1905,20 @@ def main():
         run_quality_gates(torch, smi)
     gates_s = time.perf_counter() - t0
     print(f"  phase 12: {gates_s:.1f} s")
+
+    # 13. the mesh on one card: one NCCL rank captured, two gloo ranks
+    print(f"[13] the mesh on one card: (a) one NCCL rank, {CMP_DISPATCHES} x "
+          f"{CMP_G} captured steps vs unmeshed; (b) two gloo ranks, "
+          f"{MESH_STEPS} steps vs one process")
+    t0 = time.perf_counter()
+    mesh = {"one_rank_nccl_tanabata": check_nccl_one_rank(
+        torch, scene, smi, capture["tanabata"]["captured_ms_per_iter"])}
+    mesh["two_ranks_gloo"] = check_two_ranks_gloo(torch, smi)
+    mesh["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 13: {mesh['wall_s']:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s")
 
-    # 13. results
+    # 14. results
     fwd_tol = f"{FWD_TOL} x max(|plain|, 1)"
     bwd_tol = (f"{GRAD_TOL} x max(|plain grad|, 1) per gradient; per-point "
                f"grads: at most {KINK_FRAC} of elements past it (ReLU kinks)")
@@ -1538,6 +1948,11 @@ def main():
     k3_rep = "benerf_tpu/ops/pallas_mlp.py:155 _fwd_kernel"
     k4_rep = "benerf_tpu/ops/pallas_mlp.py:174 _bwd_kernel"
     path_launches = {**demo_launches, **gate_launches}
+    gloo = mesh["two_ranks_gloo"]
+    path_launches.update(
+        mesh_nccl_one_rank=mesh["one_rank_nccl_tanabata"]["launches"],
+        **{f"mesh_gloo_{name}_rank{r}": gloo[name][f"launches_rank{r}"]
+           for name in MESH_CONFIGS for r in (0, 1)})
     k1_paths = {"tanabata": launches["fused_mlp_fwd"],
                 **{k: v["fused_mlp_fwd"] for k, v in path_launches.items()},
                 "cli_test": test_k1}
@@ -1604,7 +2019,7 @@ def main():
         "cli_test_evaluate": {**inference, "k1_launches": test_k1},
         "quality_gates": {"wall_s": gates_s, "runs": gates,
                           "launches": gate_launches}},
-        "captured_vs_uncaptured": capture}))
+        "captured_vs_uncaptured": capture, "mesh": mesh}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1612,4 +2027,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # phase 13(b)'s child processes
+        run_mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        main()

@@ -3,8 +3,9 @@ the plain PyTorch version (models/nerf.apply), their weight-gradient pass
 alone against the float64 product of its scratch, the MLP dispatcher's
 card routes (use_pallas off included), and the train step captured in a
 CUDA graph (train/step.py make_multi_step): equal to the uncaptured steps,
-counted per replay, checkpointed and resumed; cli/test.py and cli/evaluate.py
-on the card. CUDA kernels have no CPU mode: every test here
+counted per replay, checkpointed and resumed, and under a one-rank NCCL
+mesh equal to the unmeshed capture; cli/test.py and cli/evaluate.py on the
+card. CUDA kernels have no CPU mode: every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX; skip it there):
@@ -407,6 +408,64 @@ def test_card_checkpoint_resumes_on_the_card_and_the_cpu(card, tmp_path):
     st = on_cpu.optimizer.state[on_cpu.params["knots"]]["step"]
     assert st.device.type == "cpu" and float(st) == 4.0
     assert not on_cpu.optimizer.param_groups[0]["capturable"]
+
+
+@pytest.fixture
+def nccl_mesh(card):
+    """A one-rank NCCL RayMesh on the card (a process group of world size 1
+    on a free localhost port), left again after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from benerf_tpu_torch.parallel import mesh as mesh_mod
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    yield mesh_mod.mesh_of_group()
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("views_ch", [27, 39], ids=["K1K2", "L6_plain"])
+def test_one_rank_nccl_capture_equals_the_unmeshed_capture(nccl_mesh, views_ch):
+    """Two dispatches of 4 under a one-rank NCCL mesh (its all-reduce
+    captured in the graph) against the unmeshed dispatches from an equal
+    state: every metric, parameter and Adam tensor bit for bit. One
+    all-reduce per step, replays included. Under a mesh the L = 6 MLPs take
+    the plain route (the JAX package's shard_map region has no staged
+    kernel): 2 plain calls a step, no K3/K4, equal to the unmeshed run
+    with use_pallas off."""
+    import dataclasses
+
+    from benerf_tpu_torch.parallel import mesh as mesh_mod
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, make_state = _small_run(views_ch=views_ch)
+    plain = step_mod.make_multi_step(
+        cfg if views_ch == 27 else dataclasses.replace(cfg, use_pallas=False),
+        40, 40, 4)
+    meshed = step_mod.make_multi_step(cfg, 40, 40, 4, mesh=nccl_mesh)
+    a, b = make_state(), make_state()
+    before, coll = mlp_ops.counts(), dict(mesh_mod.COLLECTIVES)
+    for _ in range(2):
+        a, ma = meshed(a, batch, cfg.seed)
+        b, mb = plain(b, batch, cfg.seed)
+        for k in mb:
+            assert torch.equal(ma[k], mb[k]), k
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        assert torch.equal(x, y)
+    assert mesh_mod.COLLECTIVES["all_reduce"] - coll["all_reduce"] == 8
+    fused, staged, routes = mlp_ops.counts_since(before)
+    if views_ch == 27:
+        assert fused["fused_mlp_fwd"] == fused["fused_mlp_bwd"] == 32
+        assert routes == {"plain": 0}
+    else:
+        assert set(staged.values()) == {0}
+        assert routes == {"plain": 32}  # 8 steps x 2 calls, in both runs
 
 
 def _cli_test_argv(logdir, *extra):

@@ -337,14 +337,18 @@ def test_staged_packed_layout(C):
 
 
 def _jax_route(params, pts, viewdirs, num_freqs, num_freqs_views,
-               barf_weights, use_pallas):
+               barf_weights, use_pallas, mesh=False):
     """benerf_tpu/ops/mlp.py:67-82 on a Pallas backend, with its own
-    predicates."""
+    predicates; with `mesh`, its mlp_forward_families over several families
+    under a mesh (:239-247, :310-326): the fused kernel where `kernel_ok`,
+    else jnp."""
     if not use_pallas or viewdirs is None:
         return "plain"
     if (pallas_mlp_t.supports(params, pts)
             and num_freqs == 10 and num_freqs_views == 4):
         return "fused"
+    if mesh:
+        return "plain"
     if barf_weights is None and pallas_mlp.supports(params, pts):
         return "staged"
     return "plain"
@@ -369,11 +373,14 @@ def test_route_matches_the_jax_dispatcher(width, depth, use_viewdirs):
             for barf in (False, True):
                 bw = np.ones(10, np.float32) if barf else None
                 for use_pallas in (True, False):
-                    want = _jax_route(jparams, pts, vd, 10, Lv, bw, use_pallas)
-                    got = tmlp.route(tparams, vd, 10, Lv, barf, use_pallas)
-                    assert got == want, (views_ch, C, barf, use_pallas, got,
-                                         want)
-                    routes.add(got)
+                    for mesh in (False, True):
+                        want = _jax_route(jparams, pts, vd, 10, Lv, bw,
+                                          use_pallas, mesh)
+                        got = tmlp.route(tparams, vd, 10, Lv, barf,
+                                         use_pallas, mesh)
+                        assert got == want, (views_ch, C, barf, use_pallas,
+                                             mesh, got, want)
+                        routes.add(got)
     if (width, depth, use_viewdirs) == (256, 8, True):
         assert routes == {"fused", "staged", "plain"}
     else:

@@ -729,12 +729,16 @@ def test_train_without_device_raises_without_a_card(tmp_path, monkeypatch):
         tloop.train(_tiny_train_cfg(tmp_path), _tiny_scene())
 
 
-@pytest.mark.parametrize("overrides", [dict(mesh_devices=2)],
-                         ids=lambda d: next(iter(d)))
-def test_train_refuses_unported_features(tmp_path, overrides):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tloop.train(_tiny_train_cfg(tmp_path, **overrides), _tiny_scene(),
+def test_train_refuses_a_mesh_without_a_launcher(tmp_path, monkeypatch):
+    """mesh_devices = 2 in a process no launcher started: a ValueError that
+    names the torch.distributed.run line, before anything is written."""
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="torch.distributed.run "
+                       "--nproc_per_node 2 "):
+        tloop.train(_tiny_train_cfg(tmp_path, mesh_devices=2), _tiny_scene(),
                     device="cpu")
+    assert not any(tmp_path.iterdir())
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -751,3 +755,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 20
+    assert {"benerf_tpu_torch.parallel.mesh", "benerf_tpu_torch.data._native",
+            "benerf_tpu_torch.train.step"} <= set(mods)
