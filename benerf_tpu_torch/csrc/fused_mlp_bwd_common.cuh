@@ -3,10 +3,10 @@
 // input (K2's view encoding in the block, K4's per-ray bias), and pass (b),
 // the weight gradients as deterministic split-K products over a
 // feature-major scratch of activations X and pre-activation gradients D
-// (see fused_mlp_bwd.cu), every layer product of both on the tensor cores.
+// (see fused_mlp_bwd.cu); every layer product of both runs on wgmma.
 #pragma once
 
-#include "fused_mlp_tc.cuh"
+#include "fused_mlp_wg.cuh"
 #include "wgrad_wgmma.cuh"
 
 namespace fmlp {
@@ -27,29 +27,21 @@ struct Scratch {
   static constexpr int D_G = D_HV + HEAD;            // cotangent rows (rgb..., alpha)
 };
 
-// copy `rows` shared-memory rows to the feature-major global scratch
-__device__ __forceinline__ void copy_rows(const float* src, int rows, float* G,
-                                          int64_t ld, int64_t col0) {
-  for (int e = threadIdx.x; e < rows * TP; e += THREADS) {
-    const int r = e / TP, c = e % TP;
-    G[(int64_t)r * ld + col0 + c] = src[r * LDA + c];
-  }
-}
-
-// VJP of the encoding for one point: d_enc rows (weighted by band; all ones
-// when band is null) back to the 3 input coordinates
-__device__ __forceinline__ void encode_bwd(const float* denc, int c, int L,
+// VJP of the encoding for one point: d_enc (the point's row of a
+// point-major tile, weighted by band; all ones when band is null) back to
+// the 3 input coordinates
+__device__ __forceinline__ void encode_bwd(const float* denc, int L,
                                            const float* __restrict__ band,
                                            const float* x3, float* dx) {
   for (int m = 0; m < 3; ++m) {
     const float x = __ldg(x3 + m);
-    float s = denc[m * LDA + c];
+    float s = denc[m];
     for (int k = 0; k < L; ++k) {
       const float f = (float)(1 << k);
       const float b = x * f;
       const float w = band ? __ldg(band + k) : 1.f;
-      const float ds = denc[(3 + 6 * k + m) * LDA + c] * w;
-      const float dc = denc[(6 + 6 * k + m) * LDA + c] * w;
+      const float ds = denc[3 + 6 * k + m] * w;
+      const float dc = denc[6 + 6 * k + m] * w;
       s += f * (cosf(b) * ds - sinf(b) * dc);
     }
     dx[m] = s;
@@ -57,178 +49,187 @@ __device__ __forceinline__ void encode_bwd(const float* denc, int c, int L,
 }
 
 // epilogue of a data-gradient product for d h_l: mask by h_l > 0, store
-// d pre_l to D (row d_row) and to H
-template <int M, int MT, int NT>
-__device__ __forceinline__ void dgrad_out(float (&acc)[MT][NT][4],
+// d pre_l to D (row d_row) and, once every consumer has read H, to H (row
+// stride ldh)
+template <int N>
+__device__ __forceinline__ void dgrad_out(float (&acc)[N / 4],
                                           const uint32_t* masks, float* D,
                                           int d_row, int64_t n_pad, int64_t p0,
-                                          float* H) {
-  tc::apply_signs(acc, masks);
-  tc::store_tile_global<M>(D + (int64_t)d_row * n_pad, n_pad, p0, acc);
-  tc::store_tile<M>(H, acc);
+                                          float* H, int ldh) {
+  wl::apply_signs(acc, masks);
+  wl::store_global<N>(D + (int64_t)d_row * n_pad, n_pad, p0, acc);
+  wg::consumers_sync();
+  wl::store_act<N>(H, ldh, acc);
+  wg::consumers_sync();
 }
 
 // ---- pass (a): the tile pass ----------------------------------------------
 //
-// One block per 64-point tile (one block of 8 warps per SM) rematerializes
-// the forward on the tensor cores (fused_mlp_tc.cuh), keeps the ReLU signs
-// of every layer as bits in shared memory, runs the chain rule back through
-// heads, trunk and the sin/cos encodings with the data-gradient products
-// A[i][o] = W[i][o] read from the same packed weights (no transposed copy),
-// writes d pts (and K2's per-point d viewdir), and stores every activation
-// (X) and every pre-activation gradient (D) of the tile to the scratch.
-// K4's d vb per point is D's rows D_HV, which the wrapper sums per ray.
+// One block per 64-point tile (one block of two consumer warpgroups and a producer warp per SM)
+// rematerializes the forward on wgmma (fused_mlp_wg.cuh), keeps the ReLU
+// signs of every layer as bits in shared memory, runs the chain rule back
+// through heads, trunk and the sin/cos encodings with the data-gradient
+// products B[i][o] = W[i][o] (the W copies of the prepared buffer, which
+// the forward launch wrote), writes d pts (and K2's per-point d viewdir),
+// and stores every activation (X) and every pre-activation gradient (D) of
+// the tile to the scratch from the accumulators. K4's d vb per point is
+// D's rows D_HV, which the wrapper sums per ray.
 //
-// Shared memory (227 KB a block): H (256 rows x LDA), PE (64), three weight
-// stages (3 x 36,864 B) and the sign bits (17 words a thread, 17,408 B) are
-// common. K2 adds VPE (32 rows) and its cotangent tile G (8 rows, C + 1 <=
-// 8): 231,680 B. K4 has no VPE, which leaves room for 40 rows, but its
-// C + 1 goes to 128; so K4 loads its cotangent into H's rows 128..255 after
-// the forward, when hv sits in rows 0..127 and those rows hold nothing
-// (every thread has read f, the views product's trailing barrier), and
-// copies the alpha row, which the backward reads after the feature product
-// has overwritten H, into one row of its own (GA): 220,448 B for any C, all
-// three weight stages kept.
-constexpr int MASK_WORDS = DEPTH * 2 + 1;  // ReLU sign words a thread
+// Shared memory (227 KB a block): the ring (96 KB: three TF32X3 or six
+// BF16 stages), H (64 points, row stride Ld<MODE>::H), PE (Ld::P) and the
+// sign bits (17 words a consumer thread, 17,408 B) are common. K2 adds VPE
+// (Ld::V) and its cotangent tile G (8 rows, C + 1 <= 8, [row][point]):
+// 212,016 B in TF32X3, 215,136 in BF16. K4's C + 1
+// goes to 128; it loads its cotangent after the forward into H's columns
+// 128..255, which hold nothing once hv sits in columns 0..127 (every
+// consumer has read f), and copies the alpha column, which the backward
+// reads after the feature product has overwritten H, into a row of its own
+// (GA): 201,008 / 203,104 B for any C.
+constexpr int MASK_WORDS = DEPTH * 2 + 1;  // ReLU sign words a consumer thread
 
-template <bool VIEW_PE>
+template <tc::Mode MODE>
+using TileRing = wl::Ring<MODE, 96 * 1024 / wl::Cfg<MODE>::SLOT_BYTES>;
+
+template <tc::Mode MODE, bool VIEW_PE>
+constexpr size_t TILE_FLOATS =
+    TP * (wl::Ld<MODE>::H + wl::Ld<MODE>::P) +
+    (VIEW_PE ? TP * wl::Ld<MODE>::V + G_PAD * TP : TP) + MASK_WORDS * wl::CONSUMERS;
+template <tc::Mode MODE, bool VIEW_PE>
 constexpr size_t tile_smem_bytes() {
-  return (WIDTH + PE_PAD + (VIEW_PE ? VPE_PAD + G_PAD : 1)) * LDA * sizeof(float) +
-         tc::STAGES_BYTES + MASK_WORDS * THREADS * sizeof(uint32_t);
+  return wl::smem_bytes<TileRing<MODE>>(TILE_FLOATS<MODE, VIEW_PE>);
 }
 
-// view: K2's viewdirs vd (n / S, 3) or K4's per-ray bias vb (n / S, 128);
-// band: K2's band weights (14,), null for K4 (no BARF); dvd: K2's d viewdir
-// per point (n, 3), null for K4. smem: tile_smem_bytes<VIEW_PE>() bytes.
+// wmap / sched: the prepared weights' map and the tile pass's schedule
+// (wl::make_sched with backward); view: K2's viewdirs vd (n / S, 3) or K4's
+// per-ray bias vb (n / S, 128); band: K2's band weights (14,), null for K4
+// (no BARF); dvd: K2's d viewdir per point (n, 3), null for K4. smem:
+// tile_smem_bytes<MODE, VIEW_PE>() bytes.
 template <tc::Mode MODE, bool VIEW_PE>
 __device__ __forceinline__ void tile_pass(
+    const CUtensorMap* wmap, const wl::Sched& sched,
     const float* __restrict__ pts, const float* __restrict__ view, int64_t n,
     int S, const float* __restrict__ P, const float* __restrict__ band,
     const float* __restrict__ g, int C, int64_t n_pad, float* __restrict__ X,
     float* __restrict__ D, float* __restrict__ dpts, float* __restrict__ dvd,
-    float* smem) {
+    uint8_t* smem) {
   using R = Scratch<VIEW_PE>;
-  using T256 = tc::Tiling<256, 4>;
-  using T128 = tc::Tiling<128, 2>;
-  using T64 = tc::Tiling<64, 1>;
-  using T32 = tc::Tiling<32, 1>;
-  float* H = smem;
-  float* PE = H + WIDTH * LDA;
-  float* VPE = PE + PE_PAD * LDA;                       // K2
-  float* G = VIEW_PE ? VPE + VPE_PAD * LDA : H + HEAD * LDA;
-  float* GA = VIEW_PE ? G + C * LDA : PE + PE_PAD * LDA;  // the alpha row
-  tc::Pipe pipe{VIEW_PE ? G + G_PAD * LDA : GA + LDA, 0};
-  uint32_t* masks =
-      reinterpret_cast<uint32_t*>(pipe.buf + tc::NSTAGES * tc::STAGE_FLOATS);
+  using F128 = wl::Frag<HEAD>;
+  using F256 = wl::Frag<WIDTH>;
+  using L = wl::Ld<MODE>;
+  TileRing<MODE> ring;
+  float* H = wl::carve(smem, TILE_FLOATS<MODE, VIEW_PE>, ring);
+  float* PE = H + TP * L::H;
+  float* VPE = PE + TP * L::P;                            // K2
+  float* G = VIEW_PE ? VPE + TP * L::V : nullptr;         // K2: [row][point]
+  float* GA = VIEW_PE ? G + C * TP : PE + TP * L::P;      // the alpha row
+  uint32_t* masks = reinterpret_cast<uint32_t*>(VIEW_PE ? G + G_PAD * TP : GA + TP);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (wl::producer(ring, wmap, sched)) return;
+  const int w = wl::warpgroup();
   const Offsets o = offsets(C, VIEW_PE);
   const int64_t p0 = (int64_t)blockIdx.x * TP;
-  // the cotangent tile (zero past n) into G, and to D's rows
+  // the cotangent tile (zero past n): K2 into G, K4 into H's columns
+  // 128.. and its alpha row into GA; and to D's rows
   auto load_g = [&](int rows) {
-    for (int e = threadIdx.x; e < rows * TP; e += THREADS) {
+    for (int e = threadIdx.x; e < rows * TP; e += wl::CONSUMERS) {
       const int r = e / TP, c = e % TP;
       const int64_t p = p0 + c;
       const float v = (r <= C && p < n) ? __ldg(g + p * (C + 1) + r) : 0.f;
-      G[r * LDA + c] = v;
-      if (!VIEW_PE && r == C) GA[c] = v;
+      if (VIEW_PE) {
+        G[r * TP + c] = v;
+      } else {
+        H[c * L::H + HEAD + r] = v;
+        if (r == C) GA[c] = v;
+      }
+      D[(int64_t)(R::D_G + r) * n_pad + p0 + c] = v;
     }
-    __syncthreads();
-    copy_rows(G, rows, D + (int64_t)R::D_G * n_pad, n_pad, p0);
+  };
+  // cotangent row k at point p
+  auto gval = [&](int k, int p) {
+    return VIEW_PE ? G[k * TP + p] : H[p * L::H + HEAD + k];
   };
 
-  pipe.start(fwd_src(P + o.w0, PE_ROWS, WIDTH));
-  encode_tile(pts, VIEW_PE ? view : nullptr, n, S, band, p0, PE, VPE);
-  __syncthreads();
-  copy_rows(PE, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
+  encode_pm(pts, VIEW_PE ? view : nullptr, n, S, band, p0, PE, L::P, VPE, L::V);
+  wg::consumers_sync();
+  copy_cols(PE, L::P, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
   if constexpr (VIEW_PE) {
-    copy_rows(VPE, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
+    copy_cols(VPE, L::V, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
     load_g(G_PAD);
   }
 
   // forward, keeping every activation in X and every ReLU sign in masks
-  const tc::WSrc wvpeT = bwd_src(P + o.wvpe, VPE_ROWS, HEAD);
-  const tc::WSrc wfvT = bwd_src(P + o.wfv, WIDTH, HEAD);
   const Keep keep{X, n_pad, p0, R::X_H, R::X_F, R::X_HV, masks};
-  if constexpr (VIEW_PE) {
-    forward_tc<MODE>(P, o, PE, ViewPE{VPE}, H, pipe, &keep, [](const float*) {},
-                     &wvpeT);
-  } else {
-    forward_tc<MODE>(P, o, PE, ViewBias{view, n, p0, S}, H, pipe, &keep,
-                     [](const float*) {}, &wfvT);
-    load_g(C + 1);  // into H rows 128.. (see above)
-  }
+  if constexpr (VIEW_PE)
+    forward_wg<MODE>(P, o, PE, ViewPE{VPE}, H, ring, &keep, [](const float*) {}, w);
+  else
+    forward_wg<MODE>(P, o, PE, ViewBias{view, n, p0, S}, H, ring, &keep,
+                     [](const float*) {}, w);
+  if constexpr (!VIEW_PE) load_g(C + 1);  // into H columns 128.. (see above)
+  wg::consumers_sync();
 
-  // rgb head on CUDA cores, at the views layer's fragment positions:
-  // dhv = wrgb g_rgb, masked by hv > 0 -> D_HV and H rows 0..127 (each
-  // thread overwrites only the hv elements it wrote itself)
+  // rgb head on CUDA cores, at the views layer's accumulator positions:
+  // dhv = wrgb g_rgb, masked by hv > 0 -> D_HV and H columns 0..127 (hv,
+  // which nothing reads again)
   {
-    float acc[2][T128::NT][4];
+    float acc[32];
+    wl::zero(acc);
+    const float* wr = P + o.wrgb + F128::feat(0) * C;
+    for (int k = 0; k < C; ++k) {
+      const float g0 = gval(k, F128::point(0)), g1 = gval(k, F128::point(2));
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < T128::NT; ++nt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = T128::row(mt, r), c = T128::col(nt, r);
-          float s = 0.f;
-          for (int k = 0; k < C; ++k)
-            s = fmaf(__ldg(P + o.wrgb + i * C + k), G[k * LDA + c], s);
-          acc[mt][nt][r] = s;
-        }
-    dgrad_out<128>(acc, masks + DEPTH * 2 * THREADS, D, R::D_HV, n_pad, p0, H);
+      for (int i = 0; i < 32; ++i) {
+        const int f = F128::feat(i) - F128::feat(0);
+        acc[i] = fmaf(__ldg(wr + f * C + k), (i >> 1) & 1 ? g1 : g0, acc[i]);
+      }
+    }
+    wl::apply_signs(acc, masks + DEPTH * 2 * wl::CONSUMERS);
+    wl::store_global<HEAD>(D + (int64_t)R::D_HV * n_pad, n_pad, p0, acc);
+    wl::store_act<HEAD>(H, L::H, acc);
+    wg::consumers_sync();
   }
   if constexpr (VIEW_PE) {
-    // view encoding: dvpe = wvpe dhv -> VPE (rows 27..31 stay 0)
-    float acc[1][T32::NT][4];
-    tc::zero(acc);
-    tc::product<MODE, 32, 1>(acc, wvpeT, H, pipe, &wfvT);
-    tc::store_tile<32>(VPE, acc);
+    // view encoding: dvpe = wvpe dhv -> VPE (columns 27..31 come out 0)
+    float acc[8];
+    wl::zero(acc);
+    wl::product<MODE, VPE_PAD>(acc, H, L::H, HEAD, ring, w);
+    wl::store_act<VPE_PAD>(VPE, L::V, acc);
   }
-  float acc[4][T256::NT][4];
+  float acc[64];
   // feature: df = wfv dhv -> D_F, H
-  const tc::WSrc wfT = bwd_src(P + o.wf, WIDTH, WIDTH);
-  tc::zero(acc);
-  tc::product<MODE, 256, 4>(acc, wfvT, H, pipe, &wfT);
-  tc::store_tile_global<256>(D + (int64_t)R::D_F * n_pad, n_pad, p0, acc);
-  tc::store_tile<256>(H, acc);
+  wl::zero(acc);
+  wl::product<MODE, WIDTH>(acc, H, L::H, HEAD, ring, w);
+  wl::store_global<WIDTH>(D + (int64_t)R::D_F * n_pad, n_pad, p0, acc);
+  wg::consumers_sync();
+  wl::store_act<WIDTH>(H, L::H, acc);
+  wg::consumers_sync();
   // h7: dh = wf df + wa g_alpha, masked by h7 > 0 -> D_PRE + 7, H
-  const tc::WSrc wh7T = bwd_src(wh_ptr(P, o, DEPTH - 1), WIDTH, WIDTH);
-  tc::zero(acc);
-  tc::product<MODE, 256, 4>(acc, wfT, H, pipe, &wh7T);
+  wl::zero(acc);
+  wl::product<MODE, WIDTH>(acc, H, L::H, WIDTH, ring, w);
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < T256::NT; ++nt)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        acc[mt][nt][r] = fmaf(__ldg(P + o.wa + T256::row(mt, r)),
-                              GA[T256::col(nt, r)], acc[mt][nt][r]);
-  dgrad_out<256>(acc, masks + (DEPTH - 1) * 2 * THREADS, D,
-                 R::D_PRE + (DEPTH - 1) * WIDTH, n_pad, p0, H);
+  for (int i = 0; i < 64; ++i)
+    acc[i] = fmaf(__ldg(P + o.wa + F256::feat(i)), GA[F256::point(i)], acc[i]);
+  dgrad_out<WIDTH>(acc, masks + (DEPTH - 1) * 2 * wl::CONSUMERS, D,
+                   R::D_PRE + (DEPTH - 1) * WIDTH, n_pad, p0, H, L::H);
   // trunk: dpre_{l-1} = (wh_l dpre_l) * (h_{l-1} > 0); dpe from layer SKIP
   // (kept in PE, whose encoding X already holds) and layer 0
-  const tc::WSrc w5peT = bwd_src(P + o.w5pe, PE_ROWS, WIDTH);
-  const tc::WSrc w0T = bwd_src(P + o.w0, PE_ROWS, WIDTH);
-  float dpe[1][T64::NT][4];
+  float dpe[16];
   for (int l = DEPTH - 1; l >= 1; --l) {
-    const tc::WSrc whT = bwd_src(wh_ptr(P, o, l), WIDTH, WIDTH);
-    const tc::WSrc after = l - 1 == SKIP ? w5peT
-                         : l - 1 >= 1    ? bwd_src(wh_ptr(P, o, l - 1), WIDTH, WIDTH)
-                                         : w0T;
     if (l == SKIP) {
-      tc::zero(dpe);
-      tc::product<MODE, 64, 1>(dpe, w5peT, H, pipe, &whT);
-      tc::store_tile<64>(PE, dpe);
+      wl::zero(dpe);
+      wl::product<MODE, PE_PAD>(dpe, H, L::H, WIDTH, ring, w);
+      wl::store_act<PE_PAD>(PE, L::P, dpe);
     }
-    tc::zero(acc);
-    tc::product<MODE, 256, 4>(acc, whT, H, pipe, &after);
-    dgrad_out<256>(acc, masks + (l - 1) * 2 * THREADS, D,
-                   R::D_PRE + (l - 1) * WIDTH, n_pad, p0, H);
+    wl::zero(acc);
+    wl::product<MODE, WIDTH>(acc, H, L::H, WIDTH, ring, w);
+    dgrad_out<WIDTH>(acc, masks + (l - 1) * 2 * wl::CONSUMERS, D,
+                     R::D_PRE + (l - 1) * WIDTH, n_pad, p0, H, L::H);
   }
   // layer 0: dpe += w0 dpre0 -> PE (each thread adds to its own elements)
-  tc::zero(dpe);
-  tc::product<MODE, 64, 1>(dpe, w0T, H, pipe, nullptr);
-  tc::add_tile<64>(PE, dpe);
-  __syncthreads();
+  wl::zero(dpe);
+  wl::product<MODE, PE_PAD>(dpe, H, L::H, WIDTH, ring, w);
+  wl::add_act<PE_PAD>(PE, L::P, dpe);
+  wg::consumers_sync();
   // through sin/cos back to the inputs (K2: the points and the viewdirs)
   if (threadIdx.x < (VIEW_PE ? 2 : 1) * TP) {
     const bool views = threadIdx.x >= TP;
@@ -237,9 +238,9 @@ __device__ __forceinline__ void tile_pass(
     if (p < n) {
       float dx[3];
       if (views)
-        encode_bwd(VPE, c, L_VIEWS, band + L_PTS, view + (p / S) * 3, dx);
+        encode_bwd(VPE + c * L::V, L_VIEWS, band + L_PTS, view + (p / S) * 3, dx);
       else
-        encode_bwd(PE, c, L_PTS, band, pts + p * 3, dx);
+        encode_bwd(PE + c * L::P, L_PTS, band, pts + p * 3, dx);
       float* dst = (views ? dvd : dpts) + p * 3;
       dst[0] = dx[0];
       dst[1] = dx[1];
@@ -365,10 +366,11 @@ inline void make_jobs(int C, GemmJobs* g, ThinJobs* t) {
 // matrix products first, then the thin jobs (x_row0 = -1: a row of ones;
 // bias_off -1), 16 rows (K4: 15); returns the row count.
 template <bool VIEW_PE>
-inline int job_rows(int C, int64_t* out) {
+inline int job_rows(int C, int64_t* out, int cap) {
   GemmJobs g;
   ThinJobs t;
   make_jobs<VIEW_PE>(C, &g, &t);
+  if (g.count + t.count > cap) return g.count + t.count;  // write nothing
   int n = 0;
   for (int q = 0; q < g.count; ++q, ++n) {
     const GemmJob& k = g.j[q];

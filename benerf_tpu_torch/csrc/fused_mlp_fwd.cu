@@ -13,44 +13,80 @@
 //
 // Design: the TPU kernel pins all weights and (256, 1024) activation slabs
 // in VMEM; a Hopper block has 227 KB of shared memory, so here a block owns
-// a 64-point tile, keeps that tile's activations in shared memory and
-// streams the weights through a ring of three cp.async stages
-// (mma_layer.cuh; one block of 8 warps per SM). Every layer product runs on mma.sync: TF32X3
-// (compute_dtype "float32", fp32-level accuracy from three TF32 products)
-// or BF16 (compute_dtype "bfloat16", the JAX kernel's bf16 mode). Encodings
-// are computed in the block; nothing but the inputs and the (n, C+1) result
-// touches HBM. The 1- and C-column heads are fp32 on CUDA cores. Points
-// past n (the ragged last tile) are encoded as zeros and not written.
+// a 64-point tile, keeps that tile's activations in shared memory
+// (point-major) and streams the weights through a ring of TMA stages
+// (wgmma_layer.cuh): one producer thread keeps the ring full while two
+// consumer warpgroups run every layer product as wgmma.mma_async, A (the
+// activations) from registers, B (the weights) from the ring, in the mode
+// of compute_dtype: TF32X3 ("float32", fp32-level accuracy from three TF32
+// products) or BF16 ("bfloat16", the JAX kernel's bf16 mode). The launch
+// first writes the weights' wgmma copies (prep_kernel: W^T for this
+// kernel, W for K2's data gradients, split or rounded for the mode) into a
+// buffer the caller keeps for K2. Encodings are computed in the block;
+// nothing but the inputs, that buffer and the (n, C+1) result touches HBM.
+// The 1- and C-column heads are fp32 on CUDA cores. Points past n (the
+// ragged last tile) are encoded as zeros and not written.
 
-#include "fused_mlp_tc.cuh"
+#include "fused_mlp_wg.cuh"
 
 namespace fmlp {
 
-constexpr size_t FWD_SMEM_BYTES =
-    TC_FWD_ROWS * tc::LDA * sizeof(float) + tc::STAGES_BYTES;  // 211,968
+template <tc::Mode MODE>
+using FwdRing = wl::Ring<MODE, 128 * 1024 / wl::Cfg<MODE>::SLOT_BYTES>;
+template <tc::Mode MODE>
+constexpr size_t FWD_FLOATS =
+    TP * (wl::Ld<MODE>::H + wl::Ld<MODE>::P + wl::Ld<MODE>::V);
 
 template <tc::Mode MODE>
-__global__ void __launch_bounds__(tc::THREADS, 1)
-fwd_kernel(const float* __restrict__ pts, const float* __restrict__ vd,
+__global__ void __launch_bounds__(wl::THREADS, 1)
+fwd_kernel(const __grid_constant__ CUtensorMap wmap, const wl::Sched sched,
+           const float* __restrict__ pts, const float* __restrict__ vd,
            int64_t n, int S, const float* __restrict__ P,
            const float* __restrict__ band, int C, float* __restrict__ out) {
-  extern __shared__ float4 smem4[];
-  float* H = reinterpret_cast<float*>(smem4);
-  float* PE = H + WIDTH * tc::LDA;
-  float* VPE = PE + PE_PAD * tc::LDA;
-  tc::Pipe pipe{VPE + VPE_PAD * tc::LDA, 0};
+  using L = wl::Ld<MODE>;
+  extern __shared__ uint8_t fsmem[];
+  FwdRing<MODE> ring;
+  float* H = wl::carve(fsmem, FWD_FLOATS<MODE>, ring);
+  float* PE = H + TP * L::H;
+  float* VPE = PE + TP * L::P;
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (wl::producer(ring, &wmap, sched)) return;
+  const int w = wl::warpgroup();
   const Offsets o = offsets(C);
   const int64_t p0 = (int64_t)blockIdx.x * TP;
-
-  pipe.start(fwd_src(P + o.w0, PE_ROWS, WIDTH));  // in flight while encoding
-  encode_tile(pts, vd, n, S, band, p0, PE, VPE);
+  encode_pm(pts, vd, n, S, band, p0, PE, L::P, VPE, L::V);
+  wg::consumers_sync();
   auto alpha = [&](const float* h7) {
-    head(P + o.wa, 1, 0, WIDTH, h7, __ldg(P + o.ba), out, n, p0, C, C);
+    head_pm(P + o.wa, 1, 0, WIDTH, h7, L::H, __ldg(P + o.ba), out, n, p0, C, C);
   };
-  forward_tc<MODE>(P, o, PE, ViewPE{VPE}, H, pipe, nullptr, alpha, nullptr);
-  __syncthreads();  // hv in H rows 0..127
+  forward_wg<MODE>(P, o, PE, ViewPE{VPE}, H, ring, nullptr, alpha, w);
+  wg::consumers_sync();  // hv in H columns 0..127
   for (int c = 0; c < C; ++c)
-    head(P + o.wrgb, C, c, HEAD, H, __ldg(P + o.brgb + c), out, n, p0, C, c);
+    head_pm(P + o.wrgb, C, c, HEAD, H, L::H, __ldg(P + o.brgb + c), out, n, p0,
+            C, c);
+}
+
+// The weights' wgmma copies (prep_kernel) from P into prep, then the
+// forward kernel. view_pe: K1's table; the staged forward (K3) has its own
+// kernel and calls launch_prep itself.
+template <tc::Mode MODE>
+int launch_fwd(const float* pts, const float* vd, int64_t n, int S,
+               const float* P, void* prep, const float* band, int C,
+               float* out, cudaStream_t stream) {
+  const Offsets o = offsets(C);
+  const wl::PrepTable t = wl::prep_table<MODE>(o, true);
+  int err = wl::launch_prep<MODE>(P, t, prep, stream);
+  CUtensorMap map;
+  if (!err) err = wl::encode_prep_map(&map, prep, t.rows);
+  if (err) return err;
+  const int smem = (int)wl::smem_bytes<FwdRing<MODE>>(FWD_FLOATS<MODE>);
+  cudaFuncSetAttribute(fwd_kernel<MODE>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const unsigned blocks = (unsigned)((n + TP - 1) / TP);
+  fwd_kernel<MODE><<<blocks, wl::THREADS, smem, stream>>>(
+      map, wl::make_sched<MODE>(o, true, false), pts, vd, n, S, P, band, C, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace fmlp
@@ -66,25 +102,41 @@ void fused_mlp_layout(int C, int64_t* out) {
   for (int i = 0; i < 14; ++i) out[i] = v[i];
 }
 
+// The prepared buffer's table (wl::prep_rows: rows of row0, N, K, src, I,
+// O, forward copies then data-gradient copies) for K1/K2 (view_pe 1) or
+// K3/K4 (0) in mode (0 TF32X3, 1 BF16) into out, which has room for cap
+// rows; returns the row count and writes nothing when it exceeds cap. The
+// table does not depend on C.
+int fused_mlp_prep_table(int view_pe, int mode, int64_t* out, int cap) {
+  const fmlp::Offsets o = fmlp::offsets(1, view_pe != 0);
+  return mode == tc::TF32X3
+             ? wl::prep_rows<tc::TF32X3>(o, view_pe != 0, out, cap)
+             : wl::prep_rows<tc::BF16>(o, view_pe != 0, out, cap);
+}
+
+// The prepared buffer alone from packed weights P (C channels): for
+// checking it against its plain version (the forward launches make it).
+int fused_mlp_prep(const float* P, int C, int view_pe, void* prep, int mode,
+                   cudaStream_t stream) {
+  const fmlp::Offsets o = fmlp::offsets(C, view_pe != 0);
+  if (mode == tc::TF32X3)
+    return wl::launch_prep<tc::TF32X3>(
+        P, wl::prep_table<tc::TF32X3>(o, view_pe != 0), prep, stream);
+  return wl::launch_prep<tc::BF16>(P, wl::prep_table<tc::BF16>(o, view_pe != 0),
+                                   prep, stream);
+}
+
 // pts (n, 3), vd (n / S, 3), packed weights P (natural column order), band
-// (14,) -> out (n, C+1); mode: 0 TF32X3, 1 BF16
+// (14,) -> out (n, C+1), and the weights' wgmma copies into prep (its
+// table's rows x 64 B), which K2 reads; mode: 0 TF32X3, 1 BF16
 int fused_mlp_fwd(const float* pts, const float* vd, int64_t n, int S,
-                  const float* P, const float* band, int C, float* out,
-                  int mode, cudaStream_t stream) {
-  const int64_t blocks = (n + fmlp::TP - 1) / fmlp::TP;
-  const int smem = (int)fmlp::FWD_SMEM_BYTES;
-  if (mode == tc::TF32X3) {
-    cudaFuncSetAttribute(fmlp::fwd_kernel<tc::TF32X3>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    fmlp::fwd_kernel<tc::TF32X3><<<(unsigned)blocks, tc::THREADS, smem, stream>>>(
-        pts, vd, n, S, P, band, C, out);
-  } else {
-    cudaFuncSetAttribute(fmlp::fwd_kernel<tc::BF16>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    fmlp::fwd_kernel<tc::BF16><<<(unsigned)blocks, tc::THREADS, smem, stream>>>(
-        pts, vd, n, S, P, band, C, out);
-  }
-  return (int)cudaGetLastError();
+                  const float* P, void* prep, const float* band, int C,
+                  float* out, int mode, cudaStream_t stream) {
+  return mode == tc::TF32X3
+             ? fmlp::launch_fwd<tc::TF32X3>(pts, vd, n, S, P, prep, band, C,
+                                            out, stream)
+             : fmlp::launch_fwd<tc::BF16>(pts, vd, n, S, P, prep, band, C, out,
+                                          stream);
 }
 
 }  // extern "C"

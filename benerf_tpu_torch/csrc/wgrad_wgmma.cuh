@@ -46,14 +46,15 @@
 //  - deterministic: one partial per (job tile, chunk), summed in chunk
 //    order by reduce_kernel; no atomics.
 // The tensor maps are built on the host with cuTensorMapEncodeTiled, reached
-// through cudaGetDriverEntryPoint: the library links only cudart.
+// through cudaGetDriverEntryPoint (encode_2d, which the layer products of
+// wgmma_layer.cuh share): the library links only cudart.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver function is linked
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_layer.cuh"
+#include "tc_common.cuh"
 
 namespace fmlp {
 
@@ -413,11 +414,13 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
 // ---- host side -----------------------------------------------------------------
 
-// A 2-D tensor map over `rows` rows of n_pad fp32 (row stride n_pad * 4 B,
-// a multiple of 16), box wg::TILE rows x wg::KS points, 128-byte swizzle,
-// zero fill past the edges. Returns 0 or a nonzero error.
-inline int encode_map(CUtensorMap* map, const float* base, int64_t n_pad,
-                      int64_t rows) {
+// A 2-D tensor map over `rows` rows of `inner` 4-byte elements (row stride
+// inner * 4 B, a multiple of 16), box box_inner x box_rows, zero fill past
+// the edges. cuTensorMapEncodeTiled is reached through
+// cudaGetDriverEntryPoint. Returns 0 or a nonzero error.
+inline int encode_2d(CUtensorMap* map, const void* base, int64_t inner,
+                     int64_t rows, int box_rows, int box_inner,
+                     CUtensorMapSwizzle swizzle) {
   typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                              void*, const cuuint64_t*, const cuuint64_t*,
                              const cuuint32_t*, const cuuint32_t*,
@@ -433,14 +436,23 @@ inline int encode_map(CUtensorMap* map, const float* base, int64_t n_pad,
       return (int)cudaErrorSymbolNotFound;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[2] = {(cuuint64_t)n_pad, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)n_pad * sizeof(float)};
-  const cuuint32_t box[2] = {wg::KS, wg::TILE}, step[2] = {1, 1};
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The scratch's map: `rows` rows of n_pad fp32, box wg::TILE rows x wg::KS
+// points, 128-byte swizzle.
+inline int encode_map(CUtensorMap* map, const float* base, int64_t n_pad,
+                      int64_t rows) {
+  return encode_2d(map, base, n_pad, rows, wg::TILE, wg::KS,
+                   CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 inline int sm_count() {

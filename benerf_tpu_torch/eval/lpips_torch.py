@@ -11,7 +11,8 @@ loads weights from a local file when one is given:
   torchvision's vgg16 features under 'net.*')
 
 Without weights, eval paths report LPIPS as None (PSNR/SSIM always work).
-The model runs on the CPU.
+The model runs on the card unless the caller passes device="cpu"
+(benerf_tpu_torch.resolve_device).
 """
 
 from __future__ import annotations
@@ -97,12 +98,16 @@ def _build(weights_path):
     return model
 
 
-def compute(im1, im2, weights_path=None, device="cpu"):
+def compute(im1, im2, weights_path=None, device=None):
     """im1, im2: (H,W,C) or (H,W) arrays in [0,1]. Returns float distance,
-    computed on `device`."""
+    computed on `device` (resolve_device: the card unless the caller passes
+    "cpu"; without a card and without a device it raises, weights or not)."""
     import torch
 
+    from benerf_tpu_torch import resolve_device
+
     global _MODEL
+    device = resolve_device(device)
     weights_path = weights_path or os.environ.get("BENERF_LPIPS_WEIGHTS")
     if not weights_path or not os.path.exists(weights_path):
         raise FileNotFoundError(

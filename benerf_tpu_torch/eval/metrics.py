@@ -80,9 +80,10 @@ def ssim(im1, im2, full=False):
     return mean
 
 
-def lpips(im1, im2, weights_path=None, device="cpu"):
+def lpips(im1, im2, weights_path=None, device=None):
     """LPIPS (AlexNet/VGG) via the torch implementation in eval/lpips_torch,
-    its network run on `device`.
+    its network run on `device` (resolve_device: the card unless the caller
+    passes "cpu"; without a card and without a device it raises).
 
     Requires pretrained weights on disk (zero-egress container); returns None
     with a warning if unavailable. Reference: metrics.py:36,90-99.
@@ -110,7 +111,9 @@ def _apply_margin(im, margin):
 def compute_img_metric(im1, im2, metric: str = "mse", margin: float = 0,
                        mask=None, **kw):
     """Reference-compatible entry point (metrics.py:21-100) incl. the
-    optional fractional margin crop and pixel mask."""
+    optional fractional margin crop and pixel mask. "lpips" hands `kw`
+    (weights_path, device) to `lpips`, which runs on the card unless
+    device="cpu" is among them."""
     im1 = np.asarray(im1, np.float64)
     im2 = np.asarray(im2, np.float64)
     if im1.ndim == 4:  # tolerate a leading batch dim of 1

@@ -3,10 +3,11 @@
 Port of benerf_tpu/ops/pallas_mlp_t.py. The TPU pair `_fwd_kernel_t` /
 `_bwd_kernel_t` becomes two hand-written CUDA C++ kernels for Hopper,
 csrc/fused_mlp_fwd.cu (K1) and csrc/fused_mlp_bwd.cu (K2), whose layer
-products run on the tensor cores (csrc/mma_layer.cuh), built with nvcc for
-sm_90a into shared libraries with a plain C interface, loaded through
-ctypes and tied together by a torch.autograd.Function. Each .cu file's
-header says what bounds it and how its design answers that.
+products run as wgmma on weights that TMA brings into shared memory
+(csrc/wgmma_layer.cuh), built with nvcc for sm_90a into shared libraries
+with a plain C interface, loaded through ctypes and tied together by a
+torch.autograd.Function. Each .cu file's header says what bounds it and how
+its design answers that.
 
 Contract of `fused_nerf_mlp` (same as the JAX function): standard
 architecture, viewdirs on, L = 10 / 4 frequencies, optional BARF band
@@ -22,14 +23,18 @@ weights, compute_dtype "float32" or "bfloat16"; pts (R, S, 3), viewdirs
 The build and load of every kernel library of the port (K1-K4) live here.
 
 Weights are packed into one flat vector (`_layout`), each matrix in its
-(fan_in, fan_out) orientation with its columns in natural order; every
-kernel reads it as it is: the forward products A[o][i] = W[i][o], the
-backward's data-gradient products A[i][o] = W[i][o] from the same vector
-(no transposed copy). The staged pair K3/K4 (ops/staged_mlp.py) uses the
-same layout without the view-encoding entries (view_pe=False). The packing
-is differentiable (views and torch.cat), so the kernel's flat gradient,
-written in the same layout, flows back to each parameter. The BARF band
-weights get no gradient: they are step functions of the iteration counter.
+(fan_in, fan_out) orientation with its columns in natural order. The
+packing is differentiable (views and torch.cat), so the kernel's flat
+gradient, written in the same layout, flows back to each parameter. The
+staged pair K3/K4 (ops/staged_mlp.py) uses the same layout without the
+view-encoding entries (view_pe=False). The layer products read the
+weights' wgmma copies instead (`prep_table`): W^T for the forward, W for the
+backward's data gradients, K-major, cut into stages, split into TF32 big and
+small parts (TF32X3) or rounded to bf16 (BF16). K1's (K3's) launch writes
+them into a buffer the autograd Function keeps for K2 (K4);
+`prepare_weights_plain` is their plain version. The heads read the packed
+vector. The BARF band weights get no gradient: they are step functions of
+the iteration counter.
 """
 
 from __future__ import annotations
@@ -55,8 +60,14 @@ L_PTS = 10
 L_VIEWS = 4
 TILE = 64             # points per block of K1 and of K2's tile pass
 DEFAULT_SPLITS = 32   # point-axis chunks of K2's weight-gradient reduction
-# compute_dtype -> the kernels' operand mode (tc::Mode in csrc/mma_layer.cuh)
+# compute_dtype -> the kernels' operand mode (tc::Mode in csrc/tc_common.cuh)
 MODES = {"float32": 0, "bfloat16": 1}
+# the weights' wgmma copies (wl::Cfg in csrc/wgmma_layer.cuh), by mode:
+# contraction rows a stage, parts a stage (TF32X3: big and small), the
+# element type of a 64-byte row
+PREP_KS = {"float32": 16, "bfloat16": 32}
+PREP_PARTS = {"float32": 2, "bfloat16": 1}
+PREP_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # launches on the card, one per wrapper call that launched its kernel(s),
 # by mode: "float32" counts under the kernel's name, "bfloat16" under
@@ -152,6 +163,87 @@ def band_weights(barf_weights, barf_weights_views, device):
     return torch.cat([w.reshape(-1), wv.reshape(-1)]).contiguous()
 
 
+def _pad32(x):
+    return -(-x // 32) * 32
+
+
+def prep_table(view_pe=True, compute_dtype="float32"):
+    """The layout of the weights' wgmma copies (mirrors wl::prep_table in
+    csrc/wgmma_layer.cuh, checked against the library's at load): ([(name,
+    orient, row0, N, K, src, I, O)], rows). For each matrix W (I, O) at
+    `src` in the packed vector, "fwd" holds B = W^T (N = O, K = I rounded up
+    to 32), "bwd" B = W (N = I rounded up, K = O), zero past I; B is stored
+    as K / KS stages of PREP_PARTS x N rows of KS values from row `row0`
+    (TF32X3: a stage's big rows, then its small rows). Independent of C."""
+    _mode(compute_dtype)
+    layout = _layout(1, view_pe)
+    off = dict(zip([name for name, _ in layout], _offsets(layout)))
+    mats = [("w0", off["w0"], 63, WIDTH)]
+    mats += [(f"wh{l}", off["wh"] + (l - 1) * WIDTH * WIDTH, WIDTH, WIDTH)
+             for l in range(1, DEPTH)]
+    mats += [("w5pe", off["w5pe"], 63, WIDTH), ("wf", off["wf"], WIDTH, WIDTH),
+             ("wfv", off["wfv"], WIDTH, HEAD)]
+    if view_pe:
+        mats.append(("wvpe", off["wvpe"], 27, HEAD))
+    ks, parts = PREP_KS[compute_dtype], PREP_PARTS[compute_dtype]
+    table, rows = [], 0
+    for orient in ("fwd", "bwd"):
+        for name, src, I, O in mats:
+            N, K = (O, _pad32(I)) if orient == "fwd" else (_pad32(I), O)
+            table.append((name, orient, rows, N, K, src, I, O))
+            rows += K // ks * parts * N
+    return table, rows
+
+
+def prep_buffer(view_pe, compute_dtype, device):
+    """An empty buffer for the weights' wgmma copies: (rows, 64 B)."""
+    rows = prep_table(view_pe, compute_dtype)[1]
+    return torch.empty((rows, PREP_KS[compute_dtype]), device=device,
+                       dtype=PREP_DTYPE[compute_dtype])
+
+
+def tf32_big(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does (ties away from zero, the
+    low 13 bits zero): the big part of the TF32X3 split."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def prepare_weights_plain(packed, view_pe=True, compute_dtype="float32"):
+    """The plain version of the weights' wgmma copies (wl::prep_kernel),
+    laid out by `prep_table`: float32 (rows, 16) in "float32" (each stage's
+    big = tf32_big(w) rows, then small = w - big), bfloat16 (rows, 32) in
+    "bfloat16" (rounded to nearest even)."""
+    table, _ = prep_table(view_pe, compute_dtype)
+    ks = PREP_KS[compute_dtype]
+    blocks = []
+    for _, orient, _, N, K, src, I, O in table:
+        W = packed[src:src + I * O].reshape(I, O)
+        B = (torch.nn.functional.pad(W.t(), (0, K - I)) if orient == "fwd"
+             else torch.nn.functional.pad(W, (0, 0, 0, N - I)))
+        B = B.reshape(N, K // ks, ks).permute(1, 0, 2)  # (stages, N, KS)
+        if compute_dtype == "float32":
+            big = tf32_big(B)
+            blocks.append(torch.stack([big, B - big], 1).reshape(-1, ks))
+        else:
+            blocks.append(B.to(torch.bfloat16).reshape(-1, ks))
+    return torch.cat(blocks)
+
+
+def prepare_weights(packed, C, view_pe=True, compute_dtype="float32"):
+    """The weights' wgmma copies alone, for checking them against
+    `prepare_weights_plain` and timing them (not counted: on the main path
+    K1's and K3's launches write them). CUDA tensors only."""
+    _check("packed", packed, (_offsets(_layout(C, view_pe))[-1],))
+    prep = prep_buffer(view_pe, compute_dtype, packed.device)
+    rc = _lib("fused_mlp_fwd").fused_mlp_prep(
+        _ptr(packed), C, int(view_pe), _ptr(prep), _mode(compute_dtype),
+        _stream())
+    if rc:
+        raise RuntimeError(f"fused_mlp_prep: CUDA error {rc}")
+    return prep
+
+
 # ---- build and load -------------------------------------------------------
 
 
@@ -201,22 +293,28 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # stream are c_void_p (a bare int would pass as a 32-bit int).
 _API = {
     "fused_mlp_fwd": {
-        "fused_mlp_fwd": ([_P, _P, _I64, _I, _P, _P, _I, _P, _I, _P], _I),
-        "fused_mlp_layout": ([_I, _P], None)},
+        "fused_mlp_fwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _P, _I, _P], _I),
+        "fused_mlp_layout": ([_I, _P], None),
+        "fused_mlp_prep_table": ([_I, _I, _P, _I], _I),
+        "fused_mlp_prep": ([_P, _I, _I, _P, _I, _P], _I)},
     "fused_mlp_bwd": {
-        "fused_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P, _P,
-                           _P, _P, _I, _P, _I, _P], _I),
+        "fused_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I64, _P, _P,
+                           _P, _P, _P, _I, _P, _I, _P], _I),
+        "fused_mlp_tile": ([_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I64, _P, _P,
+                            _P, _P, _I, _P], _I),
         "fused_mlp_wgrad": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
-        "fused_mlp_wgrad_jobs": ([_I, _P], _I),
+        "fused_mlp_wgrad_jobs": ([_I, _P, _I], _I),
         "fused_mlp_bwd_scratch": ([_I64, _P], None)},
     "staged_mlp_fwd": {
-        "staged_mlp_fwd": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
+        "staged_mlp_fwd": ([_P, _P, _I64, _I, _P, _P, _I, _P, _I, _P], _I),
         "staged_mlp_layout": ([_I, _P], None)},
     "staged_mlp_bwd": {
-        "staged_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _I, _I64, _P, _P, _P,
-                            _P, _I, _P, _I, _P], _I),
+        "staged_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P,
+                            _P, _P, _I, _P, _I, _P], _I),
+        "staged_mlp_tile": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P,
+                             _P, _I, _P], _I),
         "staged_mlp_wgrad": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
-        "staged_mlp_wgrad_jobs": ([_I, _P], _I),
+        "staged_mlp_wgrad_jobs": ([_I, _P, _I], _I),
         "staged_mlp_bwd_scratch": ([_I64, _I, _P], None)},
 }
 # the layout each library reports, checked against the Python one at load:
@@ -252,8 +350,31 @@ def _lib(name):
         fn, view_pe = _JOBS_OF[name]
         for C in (1, 3, 7):
             _check_jobs(getattr(lib, fn), view_pe, C)
+    if name == "fused_mlp_fwd":
+        for view_pe in (True, False):
+            for cd in MODES:
+                _check_prep(lib.fused_mlp_prep_table, view_pe, cd)
     _libs[name] = lib
     return lib
+
+
+def _table_rows(fn, arg, n_want, *mode):
+    """The rows of 6 that a library's table function reports, given room for
+    n_want of them; None when it has another count (it writes nothing
+    then)."""
+    got = (ctypes.c_int64 * (6 * n_want))()
+    rows = fn(arg, *mode, got, n_want)
+    if rows != n_want:
+        return None
+    return [list(got[6 * i:6 * i + 6]) for i in range(rows)]
+
+
+def _check_prep(fn, view_pe, compute_dtype):
+    want = [list(e[2:]) for e in prep_table(view_pe, compute_dtype)[0]]
+    got = _table_rows(fn, int(view_pe), len(want), MODES[compute_dtype])
+    if got != want:
+        raise RuntimeError(f"wgmma weight copies mismatch (view_pe={view_pe}, "
+                           f"{compute_dtype}): kernel {got} vs python {want}")
 
 
 def _check_layout(fn, layout, C):
@@ -268,9 +389,7 @@ def _check_layout(fn, layout, C):
 def _check_jobs(fn, view_pe, C):
     products, thin = wgrad_jobs(C, view_pe)
     want = [list(j[1:]) for j in products + thin]
-    got = (ctypes.c_int64 * (6 * len(want)))()
-    rows = fn(C, got)
-    got = [list(got[6 * i:6 * i + 6]) for i in range(rows)]
+    got = _table_rows(fn, C, len(want))
     if got != want:
         raise RuntimeError(f"weight-gradient jobs mismatch (C={C}, view_pe="
                            f"{view_pe}): kernel {got} vs python {want}")
@@ -300,8 +419,17 @@ def _mode(compute_dtype):
     return MODES[compute_dtype]
 
 
-def launch_fwd(packed, pts, vd, band, S, C, compute_dtype="float32"):
-    """K1: pts (n, 3), vd (n / S, 3) -> raw (n, C+1)."""
+def check_prep(prep, view_pe, compute_dtype):
+    """Raise unless `prep` is a buffer for the weights' wgmma copies."""
+    rows = prep_table(view_pe, compute_dtype)[1]
+    _check("prepared weights", prep, (rows, PREP_KS[compute_dtype]),
+           PREP_DTYPE[compute_dtype])
+
+
+def launch_fwd(packed, pts, vd, band, S, C, compute_dtype="float32", *, prep):
+    """K1: pts (n, 3), vd (n / S, 3) -> raw (n, C+1). The launch also writes
+    the weights' wgmma copies into `prep` (a `prep_buffer`), which K2
+    reads."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
     if n == 0 or n % S:
@@ -310,10 +438,11 @@ def launch_fwd(packed, pts, vd, band, S, C, compute_dtype="float32"):
     _check("pts", pts, (n, 3))
     _check("viewdirs", vd, (n // S, 3))
     _check("band", band, (L_PTS + L_VIEWS,))
+    check_prep(prep, True, compute_dtype)
     lib = _lib("fused_mlp_fwd")
     out = torch.empty((n, C + 1), device=pts.device, dtype=torch.float32)
-    rc = lib.fused_mlp_fwd(_ptr(pts), _ptr(vd), n, S, _ptr(packed), _ptr(band),
-                           C, _ptr(out), mode, _stream())
+    rc = lib.fused_mlp_fwd(_ptr(pts), _ptr(vd), n, S, _ptr(packed), _ptr(prep),
+                           _ptr(band), C, _ptr(out), mode, _stream())
     if rc:
         raise RuntimeError(f"fused_mlp_fwd: CUDA error {rc}")
     LAUNCHES[launch_key("fused_mlp_fwd", compute_dtype)] += 1
@@ -329,10 +458,8 @@ def bwd_scratch(n, device):
             torch.empty(sizes[1], device=device))
 
 
-def launch_bwd(packed, pts, vd, band, g, S, C, splits=DEFAULT_SPLITS,
-               compute_dtype="float32"):
-    """K2: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d vd per point
-    (n, 3))."""
+def _bwd_args(packed, pts, vd, band, g, S, C, compute_dtype, prep):
+    """Check K2's inputs; -> (mode, prep, n, n_pad, X, D, dpts, dvd)."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
     _check("packed", packed, (_offsets(_layout(C))[-1],))
@@ -340,23 +467,47 @@ def launch_bwd(packed, pts, vd, band, g, S, C, splits=DEFAULT_SPLITS,
     _check("viewdirs", vd, (n // S, 3))
     _check("band", band, (L_PTS + L_VIEWS,))
     _check("cotangent", g, (n, C + 1))
-    if splits < 1:
-        raise ValueError(f"splits must be >= 1, got {splits}")
-    lib = _lib("fused_mlp_bwd")
+    check_prep(prep, True, compute_dtype)
     dev = pts.device
     n_pad, x_scr, d_scr = bwd_scratch(n, dev)
-    part = torch.empty((splits, packed.numel()), device=dev)
+    return (mode, prep, n, n_pad, x_scr, d_scr, torch.empty((n, 3), device=dev),
+            torch.empty((n, 3), device=dev))
+
+
+def launch_bwd(packed, pts, vd, band, g, S, C, splits=DEFAULT_SPLITS,
+               compute_dtype="float32", *, prep):
+    """K2: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d vd per point
+    (n, 3)); prep: the weights' wgmma copies K1's launch wrote."""
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    mode, prep, n, n_pad, x_scr, d_scr, dpts, dvd = _bwd_args(
+        packed, pts, vd, band, g, S, C, compute_dtype, prep)
+    lib = _lib("fused_mlp_bwd")
+    part = torch.empty((splits, packed.numel()), device=pts.device)
     dpacked = torch.empty_like(packed)
-    dpts = torch.empty((n, 3), device=dev)
-    dvd = torch.empty((n, 3), device=dev)
     rc = lib.fused_mlp_bwd(
-        _ptr(pts), _ptr(vd), n, S, _ptr(packed), _ptr(band), _ptr(g), C,
-        n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(dvd), _ptr(part),
-        splits, _ptr(dpacked), mode, _stream())
+        _ptr(pts), _ptr(vd), n, S, _ptr(packed), _ptr(prep), _ptr(band),
+        _ptr(g), C, n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(dvd),
+        _ptr(part), splits, _ptr(dpacked), mode, _stream())
     if rc:
         raise RuntimeError(f"fused_mlp_bwd: CUDA error {rc}")
     LAUNCHES[launch_key("fused_mlp_bwd", compute_dtype)] += 1
     return dpacked, dpts, dvd
+
+
+def run_tile(packed, pts, vd, band, g, S, C, compute_dtype="float32", *,
+             prep):
+    """K2's tile pass alone (pass (a), for timing it apart; not counted: the
+    main path runs it inside K2) -> (n_pad, X, D, d pts, d vd per point)."""
+    mode, prep, n, n_pad, x_scr, d_scr, dpts, dvd = _bwd_args(
+        packed, pts, vd, band, g, S, C, compute_dtype, prep)
+    rc = _lib("fused_mlp_bwd").fused_mlp_tile(
+        _ptr(pts), _ptr(vd), n, S, _ptr(packed), _ptr(prep), _ptr(band),
+        _ptr(g), C, n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(dvd),
+        mode, _stream())
+    if rc:
+        raise RuntimeError(f"fused_mlp_tile: CUDA error {rc}")
+    return n_pad, x_scr, d_scr, dpts, dvd
 
 
 # rows of the backward scratch (fmlp::Scratch in
@@ -459,16 +610,18 @@ def run_wgrad(x_scr, d_scr, n_pad, C, splits=DEFAULT_SPLITS,
 class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, packed, pts, vd, band, S, C, splits, compute_dtype):
-        ctx.save_for_backward(packed, pts, vd, band)
+        prep = prep_buffer(True, compute_dtype, pts.device)
+        out = launch_fwd(packed, pts, vd, band, S, C, compute_dtype, prep=prep)
+        ctx.save_for_backward(packed, pts, vd, band, prep)
         ctx.S, ctx.C, ctx.splits, ctx.cd = S, C, splits, compute_dtype
-        return launch_fwd(packed, pts, vd, band, S, C, compute_dtype)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        packed, pts, vd, band = ctx.saved_tensors
+        packed, pts, vd, band, prep = ctx.saved_tensors
         dpacked, dpts, dvd_pt = launch_bwd(packed, pts, vd, band,
                                            g.contiguous(), ctx.S, ctx.C,
-                                           ctx.splits, ctx.cd)
+                                           ctx.splits, ctx.cd, prep=prep)
         # a ray's viewdir is broadcast over its S samples: sum them
         dvd = dvd_pt.view(vd.shape[0], ctx.S, 3).sum(dim=1)
         return dpacked, dpts, dvd, None, None, None, None, None

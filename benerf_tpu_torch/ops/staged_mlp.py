@@ -13,7 +13,9 @@ compute_dtype "float32" or "bfloat16"; pts (R, S, 3), viewdirs (R, 3) ->
 raw (R, S, C+1).
   - CPU tensors take the plain PyTorch version, models/nerf.apply (bf16
     operands for "bfloat16");
-  - CUDA float32 tensors launch the kernels, on the tensor cores as K1/K2:
+  - CUDA float32 tensors launch the kernels, on wgmma as K1/K2 (K3's
+    launch writes the weights' wgmma copies without the view-encoding
+    weights, `fused_mlp.prep_table(view_pe=False)`, which K4 reads):
     "float32" in their TF32X3 mode, "bfloat16" in their BF16 mode (bf16
     operands, fp32 accumulation, as the JAX kernel);
   - anything outside the contract raises ValueError on either device,
@@ -46,7 +48,8 @@ from benerf_tpu_torch.ops import fused_mlp
 from benerf_tpu_torch.ops.fused_mlp import (DEFAULT_SPLITS, DEPTH, HEAD,
                                             SKIP_LAYER, TILE, WIDTH, _check,
                                             _layout, _lib, _mode, _offsets,
-                                            _ptr, _stream, launch_key)
+                                            _ptr, _stream, check_prep,
+                                            launch_key, prep_buffer)
 
 # launches on the card, one per wrapper call that launched its kernel(s),
 # by mode as fused_mlp.LAUNCHES
@@ -68,8 +71,10 @@ def supports(params) -> bool:
         return False
 
 
-def launch_fwd(packed, pts, vb, S, C, compute_dtype="float32"):
-    """K3: pts (n, 3), per-ray view bias vb (n / S, 128) -> raw (n, C+1)."""
+def launch_fwd(packed, pts, vb, S, C, compute_dtype="float32", *, prep):
+    """K3: pts (n, 3), per-ray view bias vb (n / S, 128) -> raw (n, C+1).
+    The launch also writes the weights' wgmma copies into `prep` (a
+    `fused_mlp.prep_buffer`), which K4 reads."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
     if n == 0 or n % S:
@@ -79,10 +84,11 @@ def launch_fwd(packed, pts, vb, S, C, compute_dtype="float32"):
     _check("packed", packed, (_offsets(_layout(C, False))[-1],))
     _check("pts", pts, (n, 3))
     _check("vb", vb, (n // S, HEAD))
+    check_prep(prep, False, compute_dtype)
     lib = _lib("staged_mlp_fwd")
     out = torch.empty((n, C + 1), device=pts.device, dtype=torch.float32)
-    rc = lib.staged_mlp_fwd(_ptr(pts), _ptr(vb), n, S, _ptr(packed), C,
-                            _ptr(out), mode, _stream())
+    rc = lib.staged_mlp_fwd(_ptr(pts), _ptr(vb), n, S, _ptr(packed),
+                            _ptr(prep), C, _ptr(out), mode, _stream())
     if rc:
         raise RuntimeError(f"staged_mlp_fwd: CUDA error {rc}")
     LAUNCHES[launch_key("staged_mlp_fwd", compute_dtype)] += 1
@@ -99,51 +105,74 @@ def bwd_scratch(n, C, device):
             torch.empty(sizes[1], device=device), sizes[2])
 
 
-def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
-               compute_dtype="float32"):
-    """K4: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d vb (n / S,
-    128))."""
+def _bwd_args(packed, pts, vb, g, S, C, compute_dtype, prep):
+    """Check K4's inputs; -> (mode, prep, n, n_pad, X, D, first d vb row,
+    dpts)."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
-    R = n // S
     _check("packed", packed, (_offsets(_layout(C, False))[-1],))
     _check("pts", pts, (n, 3))
-    _check("vb", vb, (R, HEAD))
+    _check("vb", vb, (n // S, HEAD))
     _check("cotangent", g, (n, C + 1))
+    check_prep(prep, False, compute_dtype)
+    n_pad, x_scr, d_scr, dvb_row = bwd_scratch(n, C, pts.device)
+    return (mode, prep, n, n_pad, x_scr, d_scr, dvb_row,
+            torch.empty((n, 3), device=pts.device))
+
+
+def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
+               compute_dtype="float32", *, prep):
+    """K4: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d vb (n / S,
+    128)); prep: the weights' wgmma copies K3's launch wrote."""
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
+    mode, prep, n, n_pad, x_scr, d_scr, dvb_row, dpts = _bwd_args(
+        packed, pts, vb, g, S, C, compute_dtype, prep)
     lib = _lib("staged_mlp_bwd")
-    dev = pts.device
-    n_pad, x_scr, d_scr, dvb_row = bwd_scratch(n, C, dev)
-    part = torch.empty((splits, packed.numel()), device=dev)
+    part = torch.empty((splits, packed.numel()), device=pts.device)
     dpacked = torch.empty_like(packed)
-    dpts = torch.empty((n, 3), device=dev)
     rc = lib.staged_mlp_bwd(
-        _ptr(pts), _ptr(vb), n, S, _ptr(packed), _ptr(g), C, n_pad,
-        _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(part), splits,
+        _ptr(pts), _ptr(vb), n, S, _ptr(packed), _ptr(prep), _ptr(g), C,
+        n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(part), splits,
         _ptr(dpacked), mode, _stream())
     if rc:
         raise RuntimeError(f"staged_mlp_bwd: CUDA error {rc}")
     LAUNCHES[launch_key("staged_mlp_bwd", compute_dtype)] += 1
     # K4 leaves d vb per point in the scratch's rows [dvb_row, +128); a
     # ray's bias is broadcast over its S samples: sum them
+    R = n // S
     dvb_pt = d_scr.view(-1, n_pad)[dvb_row:dvb_row + HEAD, :n]
     dvb = dvb_pt.unflatten(1, (R, S)).sum(dim=2).t()
     return dpacked, dpts, dvb
 
 
+def run_tile(packed, pts, vb, g, S, C, compute_dtype="float32", *, prep):
+    """K4's tile pass alone (pass (a), for timing it apart; not counted: the
+    main path runs it inside K4) -> (n_pad, X, D, d pts)."""
+    mode, prep, n, n_pad, x_scr, d_scr, _, dpts = _bwd_args(
+        packed, pts, vb, g, S, C, compute_dtype, prep)
+    rc = _lib("staged_mlp_bwd").staged_mlp_tile(
+        _ptr(pts), _ptr(vb), n, S, _ptr(packed), _ptr(prep), _ptr(g), C,
+        n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), mode, _stream())
+    if rc:
+        raise RuntimeError(f"staged_mlp_tile: CUDA error {rc}")
+    return n_pad, x_scr, d_scr, dpts
+
+
 class _StagedMLP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, packed, pts, vb, S, C, splits, compute_dtype):
-        ctx.save_for_backward(packed, pts, vb)
+        prep = prep_buffer(False, compute_dtype, pts.device)
+        out = launch_fwd(packed, pts, vb, S, C, compute_dtype, prep=prep)
+        ctx.save_for_backward(packed, pts, vb, prep)
         ctx.S, ctx.C, ctx.splits, ctx.cd = S, C, splits, compute_dtype
-        return launch_fwd(packed, pts, vb, S, C, compute_dtype)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        packed, pts, vb = ctx.saved_tensors
+        packed, pts, vb, prep = ctx.saved_tensors
         dpacked, dpts, dvb = launch_bwd(packed, pts, vb, g.contiguous(), ctx.S,
-                                        ctx.C, ctx.splits, ctx.cd)
+                                        ctx.C, ctx.splits, ctx.cd, prep=prep)
         return dpacked, dpts, dvb, None, None, None, None
 
 

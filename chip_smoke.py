@@ -7,8 +7,12 @@ Phases, in order; any failure raises and exits non-zero (no phase catches
 an exception):
   1. environment: torch / CUDA versions, the card's name and power limit,
      and the build of every kernel (K1-K4) from benerf_tpu_torch/csrc with
-     nvcc;
-  2. K1/K2 against their plain PyTorch version on the card, at the shapes
+     nvcc, its -Xptxas -v register and spill lines printed; fails if a
+     kernel spills;
+  2. the weights' wgmma copies that every K1 / K3 launch writes first
+     (csrc/wgmma_layer.cuh prep_kernel) bit for bit against their plain
+     version, both tables and modes, timed; K1/K2 against their plain
+     PyTorch version on the card, at the shapes
      of the training path (coarse n = 3,055 x 64 = 195,520 points, fine
      n = 3,055 x 128 = 391,040) and at a ragged n with BARF on and off,
      C in {1, 3, 7} (C + 1 = 8 fills every head row): in fp32 mode (TF32X3) against fp32 nerf.apply, in bf16
@@ -16,7 +20,8 @@ an exception):
      K2 also rerun with another split count; K2's weight-gradient pass
      alone (csrc/wgrad_wgmma.cuh) against the float64 product of the same
      scratch, both modes, splits 32 and 7, at both training n and 3 x 37;
-     CUDA-event times of kernel, plain version, both bounds, and of the
+     CUDA-event times of kernel, plain version, both bounds, of the
+     tile pass alone (time_tile_pass) beside its bound, and of the
      weight-gradient pass beside torch.matmul of the same products;
   3. the tanabata slice: the config at full width (400x600, 1024 event +
      1024 rgb rays over 19 poses, 64+64 samples, 8x256 MLPs) trained for
@@ -33,7 +38,7 @@ an exception):
      against fp32 nerf.apply, bf16 mode against nerf.apply with bf16
      operands and float64; K4 at two split counts; K4's weight-gradient
      pass (K4's job table) against float64 as in phase 2; times of both
-     modes beside their bounds;
+     modes beside their bounds, the tile pass alone too;
   6. the L = 6 slice: tanabata with multires_views = 6 and caller-built
      MLPs, L6_WARMUP single steps (make_train_step) on the same scene, then
      dispatches of L6_G steps (make_multi_step, one captured graph), every
@@ -184,6 +189,56 @@ def flops_fwd_per_point(depth=8, width=256, input_ch=63, views_ch=27,
     f += (width + input_ch) * width + width * width + width
     f += (width + views_ch) * (width // 2) + (width // 2) * channels
     return 2 * f
+
+
+def kernel_spills(build_log):
+    """{(library, kernel): spill bytes} of every kernel that ptxas reports
+    spilling (-Xptxas -v), from the build's output."""
+    out = {}
+    for name, log in build_log.items():
+        entry = None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "spill stores" in line:
+                stores = int(line.split("bytes spill stores")[0].split(",")[-1])
+                if stores:
+                    out[(name, entry)] = stores
+    return out
+
+
+def check_weight_copies(torch):
+    """The weights' wgmma copies (csrc/wgmma_layer.cuh prep_kernel, run
+    inside every K1 and K3 launch) against their plain version,
+    fused_mlp.prepare_weights_plain, bit for bit: K1/K2's and K3/K4's
+    tables, both modes, on the training path's weights -> {table/mode:
+    {"bits_differing", "ms", "plain_ms"}}."""
+    from benerf_tpu_torch.ops import fused_mlp
+
+    out = {}
+    for view_pe in (True, False):
+        params, _, _, _, _ = _inputs(torch, 1, 1, 3, 5, False,
+                                     views_ch=27 if view_pe else 39)
+        packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
+        for cd in ("float32", "bfloat16"):
+            got = fused_mlp.prepare_weights(packed, 3, view_pe, cd)
+            want = fused_mlp.prepare_weights_plain(packed, view_pe, cd)
+            bits = torch.int16 if cd == "bfloat16" else torch.int32
+            bad = int((got.view(bits) != want.view(bits)).sum())
+            key = f"{'K1/K2' if view_pe else 'K3/K4'} {MODE_NAME[cd]}"
+            out[key] = {
+                "bits_differing": bad,
+                "ms": time_ms(torch, lambda: fused_mlp.prepare_weights(
+                    packed, 3, view_pe, cd)),
+                "plain_ms": time_ms(torch, lambda: fused_mlp.prepare_weights_plain(
+                    packed, view_pe, cd))}
+            print(f"  weight copies {key}: {bad} of {got.numel()} values differ "
+                  f"from the plain version; {out[key]['ms']:.4f} ms (plain "
+                  f"{out[key]['plain_ms']:.4f})")
+            if bad:
+                raise AssertionError(f"weight copies {key} differ from the plain "
+                                     f"version in {bad} values")
+    return out
 
 
 def nvidia_smi_line():
@@ -430,10 +485,13 @@ def time_kernels(torch, S, C=3, compute_dtype="float32"):
         out = nerf.apply(params, pts, vd, compute_dtype=cd).reshape(n, C + 1)
         torch.autograd.grad(out, wrt, g)
 
+    # K1's launch writes the weights' wgmma copies that K2 reads, as on the
+    # path
+    prep = fused_mlp.prep_buffer(True, compute_dtype, "cuda")
     k1 = time_ms(torch, lambda: fused_mlp.launch_fwd(packed, x, vd, band, S, C,
-                                                     compute_dtype))
+                                                     compute_dtype, prep=prep))
     k2 = time_ms(torch, lambda: fused_mlp.launch_bwd(
-        packed, x, vd, band, g, S, C, compute_dtype=compute_dtype))
+        packed, x, vd, band, g, S, C, compute_dtype=compute_dtype, prep=prep))
     p1 = time_ms(torch, plain_fwd)
     p2 = time_ms(torch, plain_fwd_bwd)
     return k1, p1, k2, p2
@@ -459,8 +517,9 @@ def time_eval_k1(torch, C=3):
             with torch.no_grad():
                 nerf.apply(params, pts, vd)
 
+        prep = fused_mlp.prep_buffer(True, "float32", "cuda")
         d = dict(fwd_ms=time_ms(torch, lambda: fused_mlp.launch_fwd(
-            packed, x, vd, band, S, C, "float32")),
+            packed, x, vd, band, S, C, "float32", prep=prep)),
             fwd_plain_ms=time_ms(torch, plain))
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(
             flops_fwd_per_point() * n, TC_PEAK["float32"],
@@ -470,6 +529,30 @@ def time_eval_k1(torch, C=3):
               f"{d['fwd_plain_ms']:.3f}, bound {d['fwd_bound_ms']:.3f} "
               f"{d['fwd_bound_by']})")
     return out
+
+
+def time_tile_pass(torch, S, C=3, compute_dtype="float32", view_pe=True):
+    """The tile pass (pass (a) of K2, with view_pe, else of K4) alone at n =
+    RAYS * S, ms: its C entry (fused_mlp_tile / staged_mlp_tile) on the
+    weights' wgmma copies a forward launch wrote. K4 runs with a view
+    encoding of L = 6, as on its path."""
+    from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+
+    params, pts, vd, _, _ = _inputs(torch, RAYS, S, C, 1, False,
+                                    views_ch=27 if view_pe else 39)
+    n = RAYS * S
+    packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
+    x = pts.reshape(n, 3).contiguous()
+    g = torch.randn((n, C + 1), device="cuda")
+    prep = fused_mlp.prepare_weights(packed, C, view_pe, compute_dtype)
+    if view_pe:
+        band = fused_mlp.band_weights(None, None, "cuda")
+        return time_ms(torch, lambda: fused_mlp.run_tile(
+            packed, x, vd, band, g, S, C, compute_dtype, prep=prep))
+    with torch.no_grad():
+        vb = staged_mlp.view_bias(params, vd, 6, compute_dtype).contiguous()
+    return time_ms(torch, lambda: staged_mlp.run_tile(
+        packed, x, vb, g, S, C, compute_dtype, prep=prep))
 
 
 def wgrad_scratch(torch, view_pe, n, C=3, seed=3):
@@ -599,6 +682,22 @@ def _wgrad_per_n(torch, per, n, C, compute_dtype, view_pe, peak, weights,
             f"{lib_tf32:.3f}, bf16 operands {lib_bf16:.3f})")
 
 
+def _tile_per_n(torch, per, n, C, compute_dtype, view_pe, peak, flops,
+                scratch_b):
+    """Time the tile pass (pass (a) of K2 or K4) at n = RAYS * S into `per`
+    (the tile_* keys): its time and its bound, the larger of its products
+    (twice the forward's: the forward again, then the data gradients) at
+    the mode's tensor-core rate and its fp32 scratch written once."""
+    S = n // RAYS
+    n_pad = -(-n // 64) * 64
+    t = time_tile_pass(torch, S, C, compute_dtype, view_pe)
+    per["tile_ms"] = t
+    per["tile_bound_ms"], per["tile_bound_by"] = _bound(
+        2 * flops, peak, scratch_b * n_pad)
+    return (f"tile pass {t:.3f} ms (bound {per['tile_bound_ms']:.3f} "
+            f"{per['tile_bound_by']})")
+
+
 def time_staged_kernels(torch, S, C=3, compute_dtype="float32"):
     """(K3 ms, plain fwd ms, K4 ms, plain fwd+bwd ms) at n = RAYS * S, view
     encoding L = 6, in the kernels' mode for `compute_dtype`; the plain
@@ -627,10 +726,11 @@ def time_staged_kernels(torch, S, C=3, compute_dtype="float32"):
                          compute_dtype=cd).reshape(n, C + 1)
         torch.autograd.grad(out, wrt, g)
 
+    prep = fused_mlp.prep_buffer(False, compute_dtype, "cuda")
     k3 = time_ms(torch, lambda: staged_mlp.launch_fwd(packed, x, vb, S, C,
-                                                      compute_dtype))
+                                                      compute_dtype, prep=prep))
     k4 = time_ms(torch, lambda: staged_mlp.launch_bwd(
-        packed, x, vb, g, S, C, compute_dtype=compute_dtype))
+        packed, x, vb, g, S, C, compute_dtype=compute_dtype, prep=prep))
     p1 = time_ms(torch, plain_fwd)
     p2 = time_ms(torch, plain_fwd_bwd)
     return k3, p1, k4, p2
@@ -1672,13 +1772,16 @@ def _per_n_fused(torch, compute_dtype, C=3):
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
         wline = _wgrad_per_n(torch, d, n, C, compute_dtype, True, peak, weights,
                              K2_SCRATCH_B)
+        tline = _tile_per_n(torch, d, n, C, compute_dtype, True, peak, flops,
+                            K2_SCRATCH_B)
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K1 {kf:.3f} ms (plain {pf:.3f}, "
               f"bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
               f"{d['fwd_fp32_core_bound_ms']:.3f}); K2 {kb:.3f} ms (plain "
               f"fwd+bwd {pb:.3f}, bound {d['bwd_bound_ms']:.3f} "
               f"{d['bwd_bound_by']}, fp32-core {d['bwd_fp32_core_bound_ms']:.3f}, "
-              f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); its {wline}")
+              f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); its {tline}; its "
+              f"{wline}")
     return out
 
 
@@ -1714,13 +1817,16 @@ def _per_n_staged(torch, compute_dtype, C=3):
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
         wline = _wgrad_per_n(torch, d, n, C, compute_dtype, False, peak, weights,
                              k4_scratch_bytes(C))
+        tline = _tile_per_n(torch, d, n, C, compute_dtype, False, peak, flops,
+                            k4_scratch_bytes(C))
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K3 {kf:.3f} ms (plain "
               f"{pf:.3f}, bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
               f"{d['fwd_fp32_core_bound_ms']:.3f}); K4 {kb:.3f} ms (plain "
               f"fwd+bwd {pb:.3f}, bound {d['bwd_bound_ms']:.3f} "
               f"{d['bwd_bound_by']}, fp32-core {d['bwd_fp32_core_bound_ms']:.3f}, "
-              f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); its {wline}")
+              f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); its {tline}; its "
+              f"{wline}")
     return out
 
 
@@ -1738,6 +1844,16 @@ def _kernel_line(name, source, replaces, mode, launches, errs, tol, per_n,
         library_note="no single PyTorch call computes this function",
         per_call={str(n): {k: v for k, v in dd.items() if k.startswith(side)}
                   for n, dd in per_n.items()}, **extra)
+
+
+def _tile_line(per_n):
+    """The tile pass of a K2 or K4 entry (pass (a), csrc/wgmma_layer.cuh
+    through fused_mlp_bwd_common.cuh `tile_pass`) timed alone: per training
+    n its time and bound."""
+    return dict(
+        source="benerf_tpu_torch/csrc/fused_mlp_bwd_common.cuh",
+        per_call={str(n): {k: v for k, v in d.items() if k.startswith("tile")}
+                  for n, d in per_n.items()})
 
 
 def _wgrad_line(per_n, vs_f64, mode):
@@ -1778,9 +1894,14 @@ def main():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
+    spills = kernel_spills(fused_mlp.BUILD_LOG)
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
 
     # 2. K1/K2 vs plain, at the path's shapes, both modes
-    print("[2] K1/K2 vs plain PyTorch (fp32 mode: TF32X3 vs fp32, TF32 off)")
+    print("[2] the weights' wgmma copies vs their plain version; K1/K2 vs "
+          "plain PyTorch (fp32 mode: TF32X3 vs fp32, TF32 off)")
+    prep = check_weight_copies(torch)
     k1_err = {RAYS * S: check_fwd(torch, "K1/K2", RAYS, S, 3, False)
               for S in (64, 128)}
     # 5 x 64 fills whole 64-point tiles; 3 x 37 = 111 leaves a ragged tile
@@ -1967,10 +2088,11 @@ def main():
                          "max_err_over_scale": r}
                          for n, (e, r) in k1_eval_err.items()},
                      quality_shapes={k: {"max_abs_err": e, "max_err_over_scale": r}
-                                     for k, (e, r) in k1_q_err.items()}),
+                                     for k, (e, r) in k1_q_err.items()},
+                     weight_copies=prep["K1/K2 tf32x3"]),
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "bf16",
                      bf_launches["fused_mlp_fwd_bf16"], k1_bf, bf_fwd_tol,
-                     k12["bfloat16"], "fwd"),
+                     k12["bfloat16"], "fwd", weight_copies=prep["K1/K2 bf16"]),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "tf32x3",
                      sum(k2_paths.values()), k2_err, bwd_tol, k12["float32"],
                      "bwd", launches_by_path=k2_paths,
@@ -1978,30 +2100,30 @@ def main():
                      quality_shapes={k: {"max_abs_err": e, "max_err_over_scale": r}
                                      for k, (e, r) in k2_q_err.items()},
                      weight_gradient_pass=_wgrad_line(k12["float32"], wg2, "tf32x3"),
-                     **scratch),
+                     tile_pass=_tile_line(k12["float32"]), **scratch),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "bf16",
                      bf_launches["fused_mlp_bwd_bf16"], k2_bf, bf_bwd_tol,
                      k12["bfloat16"], "bwd", bf16_vs_float64={str(n): d for n, d in bf.items()},
                      weight_gradient_pass=_wgrad_line(k12["bfloat16"], wg2, "bf16"),
-                     **scratch),
+                     tile_pass=_tile_line(k12["bfloat16"]), **scratch),
         _kernel_line("K3 staged_mlp_fwd", k3_src, k3_rep, "tf32x3",
                      l6_launches["staged_mlp_fwd"], k3_err, fwd_tol,
-                     k34["float32"], "fwd"),
+                     k34["float32"], "fwd", weight_copies=prep["K3/K4 tf32x3"]),
         _kernel_line("K3 staged_mlp_fwd", k3_src, k3_rep, "bf16",
                      l6bf_launches["staged_mlp_fwd_bf16"], k3_bf, bf_fwd_tol,
-                     k34["bfloat16"], "fwd"),
+                     k34["bfloat16"], "fwd", weight_copies=prep["K3/K4 bf16"]),
         _kernel_line("K4 staged_mlp_bwd", k4_src, k4_rep, "tf32x3",
                      l6_launches["staged_mlp_bwd"], k4_err, bwd_tol,
                      k34["float32"], "bwd",
                      pointwise_outside_tol={str(n): v for n, v in k4_outside.items()},
                      weight_gradient_pass=_wgrad_line(k34["float32"], wg4, "tf32x3"),
-                     **scratch4),
+                     tile_pass=_tile_line(k34["float32"]), **scratch4),
         _kernel_line("K4 staged_mlp_bwd", k4_src, k4_rep, "bf16",
                      l6bf_launches["staged_mlp_bwd_bf16"], k4_bf, bf_bwd_tol,
                      k34["bfloat16"], "bwd",
                      bf16_vs_float64={str(n): d for n, d in bf34.items()},
                      weight_gradient_pass=_wgrad_line(k34["bfloat16"], wg4, "bf16"),
-                     **scratch4),
+                     tile_pass=_tile_line(k34["bfloat16"]), **scratch4),
     ]
     print(json.dumps({"kernels": kernels, "slices": {
         "tanabata": {"ms_per_iter": ms_iter, "rays_per_sec": rays_s,

@@ -1,11 +1,14 @@
 """The port's CUDA kernels K1/K2 and K3/K4 (both modes) on the card, against
-the plain PyTorch version (models/nerf.apply), their weight-gradient pass
+the plain PyTorch version (models/nerf.apply), also at ragged sizes through
+chip_smoke.py's own checks and tolerances, the weights' wgmma copies bit for
+bit against their plain version, their weight-gradient pass
 alone against the float64 product of its scratch, the MLP dispatcher's
 card routes (use_pallas off included), and the train step captured in a
 CUDA graph (train/step.py make_multi_step): equal to the uncaptured steps,
 counted per replay, checkpointed and resumed, and under a one-rank NCCL
 mesh equal to the unmeshed capture; cli/test.py and cli/evaluate.py on the
-card. CUDA kernels have no CPU mode: every test here
+card, and LPIPS on the card by default. CUDA kernels have no CPU mode:
+every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
 JAX; skip it there):
@@ -226,6 +229,153 @@ def test_weight_gradient_pass_matches_float64(card, n, view_pe, compute_dtype):
         for name, off, size in fused_mlp.wgrad_ranges(C, view_pe):
             a, b = got[off:off + size].double(), ref[off:off + size]
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+
+
+# ---- the wgmma layer products (csrc/wgmma_layer.cuh) at ragged sizes -------
+#
+# chip_smoke.py's checks, with its tolerances unchanged (FWD_TOL 2e-4,
+# GRAD_TOL 5e-4 x scale with at most KINK_FRAC 1e-3 of the per-point
+# gradient elements past it, and in bf16 mode the gradients' distance to
+# float64 between 0.3x and 2x the plain bf16 version's). (R, S): n = 1, 63
+# (one partial tile), 65 (rays of 13 samples straddle the first tile's end)
+# and 200 (not a multiple of 128; rays of 25 straddle tiles); and the size
+# of a rank's share of the training path's 3,055 rays on a two-rank mesh
+# (1,527 and 1,528 rays of 64 coarse / 128 fine samples).
+RAGGED = [(1, 1), (7, 9), (5, 13), (8, 25)]
+RAGGED_IDS = ["n1", "n63", "n65", "n200"]
+MESH_SHARE = [(1527, 64), (1528, 128)]
+
+
+def _smoke():
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.parametrize("R,S", RAGGED + MESH_SHARE,
+                         ids=RAGGED_IDS + ["mesh_coarse", "mesh_fine"])
+@pytest.mark.parametrize("C", [1, 3, 7])
+def test_fused_kernels_at_ragged_sizes_with_barf(card, R, S, C):
+    """K1/K2 in fp32 mode (TF32X3), BARF band weights on."""
+    cs = _smoke()
+    cs.check_fwd(torch, "K1/K2", R, S, C, True)
+    cs.check_bwd(torch, "K1/K2", R, S, C, True)
+
+
+def _bf16_one_point_launches(which, C, barf, points=16, seed=0):
+    """The bf16 band at n = 1: `points` single points under the same weights,
+    each through its own launch (a one-point tile), held together. A single
+    point's distance to float64 is set by the bf16 rounding of a handful of
+    values: over 20 seeds the kernel's ratio to the plain bf16 version's
+    ran from 0.02 to 10, and the mma.sync kernels' was the same to two digits
+    (PERF.md), so the band is held on the sum of their weight gradients
+    and on their per-point gradients together (a 16-point batch's
+    statistics), each forward at BF16_FWD_TOL on its own."""
+    cs = _smoke()
+    op, views_ch, kw = cs._pair(which)
+    params, pts, vd, bw, bwv = cs._inputs(torch, points, 1, C, seed, barf, views_ch)
+    barf_kw = cs._barf_kw(bw, bwv)
+    kw = {**kw, **barf_kw}
+    kw64 = {**kw, **{k: v.double() for k, v in barf_kw.items()}}
+    runs = {"kernel": [], "plain": [], "f64": []}
+    for i in range(points):
+        x, v = pts[i:i + 1], vd[i:i + 1]
+        with torch.no_grad():
+            out_k = op(params, x, v, compute_dtype="bfloat16", **kw)
+            out_p = nerf.apply(params, x, v, compute_dtype=torch.bfloat16, **kw)
+        err, scale = cs._max_err(out_k, out_p)
+        assert err <= cs.BF16_FWD_TOL * scale, (i, err)
+        runs["kernel"].append(cs._grads(torch, op, params, x, v,
+                                        compute_dtype="bfloat16", **kw))
+        runs["plain"].append(cs._grads(torch, nerf.apply, params, x, v,
+                                       compute_dtype=torch.bfloat16, **kw))
+        runs["f64"].append(cs._grads(torch, nerf.apply, cs._f64(torch, params),
+                                     x.double(), v.double(), **kw64))
+    n_w = len(runs["f64"][0]) - 2
+    pooled = {k: [sum(r[j] for r in rs) for j in range(n_w)]
+              + [torch.cat([r[j] for r in rs]) for j in (n_w, n_w + 1)]
+              for k, rs in runs.items()}
+    gk, gp, g64 = pooled["kernel"], pooled["plain"], pooled["f64"]
+    assert all(bool(torch.isfinite(g).all()) for g in gk)
+    wk, wp = cs._dist(gk[:n_w], g64[:n_w]), cs._dist(gp[:n_w], g64[:n_w])
+    pk = max(cs._rms_rel(a, b) for a, b in zip(gk[n_w:], g64[n_w:]))
+    pp = max(cs._rms_rel(a, b) for a, b in zip(gp[n_w:], g64[n_w:]))
+    lo, hi = cs.BF16_GRAD_FLOOR, cs.BF16_GRAD_FACTOR
+    assert lo * wp <= wk <= hi * wp, (wk, wp)
+    assert lo * pp <= pk <= hi * pp, (pk, pp)
+
+
+@pytest.mark.parametrize("R,S", RAGGED, ids=RAGGED_IDS)
+@pytest.mark.parametrize("C", [1, 3, 7])
+def test_fused_bf16_kernels_at_ragged_sizes_with_barf(card, R, S, C):
+    """K1/K2 in bf16 mode, BARF band weights on (n = 1: sixteen one-point
+    launches held together, `_bf16_one_point_launches`)."""
+    if R * S == 1:
+        _bf16_one_point_launches("K1/K2", C, True)
+    else:
+        _smoke().check_bf16(torch, "K1/K2", R, S, C, True)
+
+
+@pytest.mark.parametrize("R,S", RAGGED, ids=RAGGED_IDS)
+@pytest.mark.parametrize("C", [1, 3, 8, 127])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_staged_kernels_at_ragged_sizes(card, R, S, C, compute_dtype):
+    """K3/K4 (view encoding L = 6) in both modes; C = 127 fills the head
+    space (bf16 at n = 1: as K1/K2's)."""
+    cs = _smoke()
+    if compute_dtype == "float32":
+        cs.check_fwd(torch, "K3/K4", R, S, C, False)
+        cs.check_bwd(torch, "K3/K4", R, S, C, False)
+    elif R * S == 1:
+        _bf16_one_point_launches("K3/K4", C, False)
+    else:
+        cs.check_bf16(torch, "K3/K4", R, S, C, False)
+
+
+@pytest.mark.parametrize("view_pe", [True, False], ids=["K1K2", "K3K4"])
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_weight_copies_equal_their_plain_version(card, view_pe, compute_dtype):
+    """The weights' wgmma copies (prep_kernel, inside every K1 / K3 launch)
+    bit for bit against fused_mlp.prepare_weights_plain; K1's launch leaves
+    the same copies in the buffer it is given."""
+    params, pts, vd, _ = _inputs(2, 8, 3, False, views_ch=27 if view_pe else 39)
+    packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
+    got = fused_mlp.prepare_weights(packed, 3, view_pe, compute_dtype)
+    want = fused_mlp.prepare_weights_plain(packed, view_pe, compute_dtype)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    if view_pe:
+        prep = fused_mlp.prep_buffer(True, compute_dtype, "cuda")
+        fused_mlp.launch_fwd(packed, pts.reshape(-1, 3).contiguous(), vd,
+                             fused_mlp.band_weights(None, None, "cuda"), 8, 3,
+                             compute_dtype, prep=prep)
+        assert torch.equal(prep, want)
+
+
+def test_lpips_runs_on_the_card_unless_asked_for_the_cpu(card, tmp_path,
+                                                         monkeypatch):
+    """eval/metrics.lpips, compute_img_metric(..., "lpips") and
+    lpips_torch.compute without a device put the network on the card;
+    device="cpu" puts it on the CPU."""
+    import numpy as np
+
+    from benerf_tpu_torch.eval import lpips_torch
+    from benerf_tpu_torch.eval import metrics
+
+    torch.save({}, tmp_path / "empty.pth")
+    torch.manual_seed(0)
+    torch.save(lpips_torch._build(str(tmp_path / "empty.pth")).state_dict(),
+               tmp_path / "lpips.pth")
+    monkeypatch.setenv("BENERF_LPIPS_WEIGHTS", str(tmp_path / "lpips.pth"))
+    monkeypatch.setattr(lpips_torch, "_MODEL", None)
+    rng = np.random.default_rng(0)
+    a, b = rng.random((32, 40, 3)), rng.random((32, 40, 3))
+    for call in (lambda **kw: metrics.lpips(a, b, **kw),
+                 lambda **kw: metrics.compute_img_metric(a, b, "lpips", **kw),
+                 lambda **kw: lpips_torch.compute(a, b, **kw)):
+        assert call() is not None
+        assert next(lpips_torch._MODEL.parameters()).device.type == "cuda"
+        call(device="cpu")
+        assert next(lpips_torch._MODEL.parameters()).device.type == "cpu"
 
 
 def test_card_path_raises_where_the_kernel_does_not_apply(card):

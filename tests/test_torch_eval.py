@@ -194,8 +194,27 @@ def test_lpips_is_none_without_weights(monkeypatch):
     a, b = _images()
     with warnings.catch_warnings(record=True):
         warnings.simplefilter("always")
-        assert tmetrics.lpips(a, b) is None
+        assert tmetrics.lpips(a, b, device="cpu") is None
         assert jmetrics.lpips(a, b) is None
+
+
+@pytest.mark.parametrize("call", ["lpips", "compute_img_metric", "compute"])
+def test_lpips_without_a_device_or_a_card_raises(call, monkeypatch):
+    """LPIPS runs on the card unless the caller passes device="cpu": with no
+    card visible and no device it raises (before looking for weights)
+    rather than running on the CPU."""
+    from benerf_tpu_torch.eval import lpips_torch
+
+    monkeypatch.delenv("BENERF_LPIPS_WEIGHTS", raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a, b = _images()
+    fn = {"lpips": lambda: tmetrics.lpips(a, b),
+          "compute_img_metric": lambda: tmetrics.compute_img_metric(a, b, "lpips"),
+          "compute": lambda: lpips_torch.compute(a, b)}[call]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    with pytest.raises(FileNotFoundError):  # the CPU only when asked for
+        lpips_torch.compute(a, b, device="cpu")
 
 
 def _trajectories(seed):

@@ -249,9 +249,10 @@ def test_emulated_staged_network_matches_jax(compute_dtype, interpret_mode):
         assert _rms(a - b) <= BF16_GRAD_RMS * max(_rms(b), 1e-6)
 
 
-def _launch_fwd(seen):
-    def launch(packed, pts, vb, S, C, compute_dtype="float32"):
+def _launch_fwd(seen, preps):
+    def launch(packed, pts, vb, S, C, compute_dtype="float32", *, prep):
         seen.append(("fwd", compute_dtype))
+        preps.append(prep)
         w = fused_mlp.unpack(packed, C, view_pe=False)
         return tc.emulated_forward(w, pts, None, torch.ones(14),
                                    tc.MODES[compute_dtype],
@@ -259,10 +260,12 @@ def _launch_fwd(seen):
     return launch
 
 
-def _launch_bwd(seen):
+def _launch_bwd(seen, preps):
     """What K4 returns: (d packed, d pts, d vb per ray)."""
-    def launch(packed, pts, vb, g, S, C, splits=32, compute_dtype="float32"):
+    def launch(packed, pts, vb, g, S, C, splits=32, compute_dtype="float32", *,
+               prep):
         seen.append(("bwd", compute_dtype))
+        preps.append(prep)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True) for t in (packed, pts, vb)]
             w = fused_mlp.unpack(ins[0], C, view_pe=False)
@@ -280,10 +283,11 @@ def test_staged_card_path_wiring(C, S, compute_dtype, monkeypatch):
     entries and the autograd Function route every gradient to its
     parameter, the points and the viewdirs where autograd through the same
     arithmetic on the parameters sends it, and pass the mode to both
-    launches."""
-    seen = []
-    monkeypatch.setattr(staged_mlp, "launch_fwd", _launch_fwd(seen))
-    monkeypatch.setattr(staged_mlp, "launch_bwd", _launch_bwd(seen))
+    launches; K4 gets the buffer of wgmma weight copies (without the
+    view-encoding weights) that K3's launch filled."""
+    seen, preps = [], []
+    monkeypatch.setattr(staged_mlp, "launch_fwd", _launch_fwd(seen, preps))
+    monkeypatch.setattr(staged_mlp, "launch_bwd", _launch_bwd(seen, preps))
     params, pts, vd, Lv = _inputs(3, S, C, 39, seed=C)
 
     def card_path(p, x, v, num_freqs_views):
@@ -291,6 +295,9 @@ def test_staged_card_path_wiring(C, S, compute_dtype, monkeypatch):
 
     got = _port_grads(card_path, params, pts, vd, Lv)
     assert seen == [("fwd", compute_dtype), ("bwd", compute_dtype)]
+    assert preps[0] is preps[1]
+    assert preps[0].shape == (fused_mlp.prep_table(False, compute_dtype)[1],
+                              fused_mlp.PREP_KS[compute_dtype])
     want = _port_grads(_emulated_staged(compute_dtype), params, pts, vd, Lv)
     for a, b in zip(got, want):
         assert a.shape == b.shape

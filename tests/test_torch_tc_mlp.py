@@ -1,4 +1,4 @@
-"""The kernels' tensor-core modes (csrc/mma_layer.cuh) and the fused op's
+"""The kernels' tensor-core modes (csrc/tc_common.cuh) and the fused op's
 card path, on the CPU.
 
 - a plain torch emulation of the kernels' layer products: TF32X3 (operands
@@ -64,7 +64,7 @@ def bf16_rn(x):
 
 
 def mm(a, w, mode):
-    """a (n, I) @ w (I, O) as the kernels' mma.sync computes it, fp32
+    """a (n, I) @ w (I, O) as the kernels' tensor-core products compute it, fp32
     accumulation; mode "tf32" is one TF32 product (not a kernel mode)."""
     if mode == "tf32x3":
         ab, wb = tf32_rna(a), tf32_rna(w)
@@ -269,19 +269,21 @@ def test_natural_layout_round_trip(C):
 # ---- the card path's Python -----------------------------------------------------
 
 
-def _launch_fwd(seen):
-    def launch(packed, pts, vd, band, S, C, compute_dtype="float32"):
+def _launch_fwd(seen, preps):
+    def launch(packed, pts, vd, band, S, C, compute_dtype="float32", *, prep):
         seen.append(("fwd", compute_dtype))
+        preps.append(prep)
         w = fused_mlp.unpack(packed, C)
         return emulated_forward(w, pts, vd.repeat_interleave(S, dim=0), band,
                                 MODES[compute_dtype])
     return launch
 
 
-def _launch_bwd(seen):
+def _launch_bwd(seen, preps):
     def launch(packed, pts, vd, band, g, S, C, splits=32,
-               compute_dtype="float32"):
+               compute_dtype="float32", *, prep):
         seen.append(("bwd", compute_dtype))
+        preps.append(prep)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True)
                    for t in (packed, pts, vd.repeat_interleave(S, dim=0))]
@@ -297,10 +299,11 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
     """Packing in natural column order, the band weights and the autograd
     Function route every gradient (each parameter, the points, the per-ray
     viewdirs) where autograd through the same arithmetic on the parameters
-    sends it, and pass the mode to both launches."""
-    seen = []
-    monkeypatch.setattr(fused_mlp, "launch_fwd", _launch_fwd(seen))
-    monkeypatch.setattr(fused_mlp, "launch_bwd", _launch_bwd(seen))
+    sends it, and pass the mode to both launches; K2 gets the buffer of
+    wgmma weight copies that K1's launch filled."""
+    seen, preps = [], []
+    monkeypatch.setattr(fused_mlp, "launch_fwd", _launch_fwd(seen, preps))
+    monkeypatch.setattr(fused_mlp, "launch_bwd", _launch_bwd(seen, preps))
     params, pts, vd, band = _inputs(3, S, C, seed=C + S, barf=barf)
     bw, bwv = ((torch.as_tensor(band[:10]), torch.as_tensor(band[10:]))
                if barf else (None, None))
@@ -333,6 +336,9 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
 
     got, want = grads(card_path), grads(direct)
     assert seen == [("fwd", compute_dtype), ("bwd", compute_dtype)]
+    assert preps[0] is preps[1]
+    assert preps[0].shape == (fused_mlp.prep_table(True, compute_dtype)[1],
+                              fused_mlp.PREP_KS[compute_dtype])
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert _rel(a, b) < 1e-5
@@ -357,6 +363,8 @@ def test_compute_dtype_routes_on_the_card(monkeypatch):
     assert calls == [("fused", "float32"), ("staged", "float32"),
                      ("fused", "bfloat16"), ("staged", "bfloat16")]
     with pytest.raises(ValueError, match="compute_dtype"):
-        fused_mlp.launch_fwd(None, None, None, None, 1, 3, compute_dtype="float16")
+        fused_mlp.launch_fwd(None, None, None, None, 1, 3, compute_dtype="float16",
+                             prep=None)
     with pytest.raises(ValueError, match="compute_dtype"):
-        staged_mlp.launch_fwd(None, None, None, 1, 3, compute_dtype="float16")
+        staged_mlp.launch_fwd(None, None, None, 1, 3, compute_dtype="float16",
+                              prep=None)

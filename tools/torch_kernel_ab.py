@@ -13,7 +13,10 @@ k2, k3, k4), in bf16 mode where the tree has it (k1_bf16, k2_bf16,
 k3_bf16, k4_bf16), the plain versions (plain_*), and the weight-gradient
 pass of K2/K4 alone (chip_smoke.time_wgrad) in both modes on K2's job
 table (wgrad, wgrad_bf16) and, where the tree can run it alone, on K4's
-(wgrad_k4, wgrad_k4_bf16).
+(wgrad_k4, wgrad_k4_bf16); the tile pass of K2/K4 alone
+(chip_smoke.time_tile_pass: tile, tile_bf16, tile_k4, tile_k4_bf16) where
+the tree can run it alone; K3/K4 at C = 127 in both modes (k3_c127,
+k4_c127, k3_c127_bf16, k4_c127_bf16) where the tree has K3/K4's bf16 mode.
 Needs one CUDA card; imports nothing of JAX or of the JAX package.
 """
 
@@ -51,6 +54,15 @@ for S in (64, 128):  # what both trees have first, in the same order
         r["wgrad_k4"] = cs.time_wgrad(torch, S, view_pe=False)[0]
         r["wgrad_k4_bf16"] = cs.time_wgrad(torch, S, compute_dtype="bfloat16",
                                            view_pe=False)[0]
+    if hasattr(cs, "time_tile_pass"):
+        for key, vp in (("tile", True), ("tile_k4", False)):
+            r[key] = cs.time_tile_pass(torch, S, view_pe=vp)
+            r[key + "_bf16"] = cs.time_tile_pass(torch, S, compute_dtype="bfloat16",
+                                                 view_pe=vp)
+    if staged_modes:
+        for cd, suffix in (("float32", ""), ("bfloat16", "_bf16")):
+            k3, _, k4, _ = cs.time_staged_kernels(torch, S, C=127, compute_dtype=cd)
+            r["k3_c127" + suffix], r["k4_c127" + suffix] = k3, k4
     res[str(cs.RAYS * S)] = r
 print(json.dumps(res))
 """
@@ -73,6 +85,12 @@ def main():
         med = {n: {k: statistics.median(r[n][k] for r in rs) for k in rs[0][n]}
                for n in rs[0]}
         print(json.dumps({"median": side, **med}))
+    both = [k for k in runs["change"][0][next(iter(runs["change"][0]))]
+            if k in runs["parent"][0][next(iter(runs["parent"][0]))]]
+    print(json.dumps({"change_over_parent": {
+        n: {k: statistics.median(r[n][k] for r in runs["change"])
+            / statistics.median(r[n][k] for r in runs["parent"]) for k in both}
+        for n in runs["change"][0]}}))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip())

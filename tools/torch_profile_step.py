@@ -21,8 +21,9 @@ after two untimed dispatches. Prints and writes (JSON, --out), for each:
     host read of the metrics per step uncaptured, per dispatch captured,
     as the train loop reads them), the device's busy time (sum of kernel
     and copy times) and its idle share;
-  - device time per group: K1 or K3, K2's or K4's tile pass, their
-    weight-gradient pass and partial-sum reduce, and every other kernel;
+  - device time per group: K1 or K3 (and the weights' wgmma copies their
+    launch writes first), K2's or K4's tile pass, their weight-gradient
+    pass and partial-sum reduce, and every other kernel;
     launches per step;
   - device time per kernel, largest first.
 Imports nothing of JAX or of the JAX package. Needs one CUDA card.
@@ -53,8 +54,9 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-# kernel name prefix -> group (csrc/*_mlp_*.cu)
+# kernel name prefix -> group (csrc/*_mlp_*.cu, csrc/wgmma_layer.cuh)
 GROUPS = (("fmlp::fwd_kernel", "K1"), ("fmlp::tile_kernel", "K2 tile pass"),
+          ("wl::prep_kernel", "K1/K3 weight copies"),
           ("fmlp::staged_fwd_kernel", "K3"),
           ("fmlp::staged_tile_kernel", "K4 tile pass"),
           ("fmlp::wgrad_", "K2/K4 weight-gradient pass"),
