@@ -308,6 +308,9 @@ def main(argv=None):
     p.add_argument("--use_barf_c2f", type=str, default=None,
                    choices=["True", "False"],
                    help="BARF coarse-to-fine PE weighting")
+    p.add_argument("--fast_ray_sampling", type=str, default=None,
+                   choices=["True", "False"],
+                   help="top-k ray subsets instead of randperm slices")
     p.add_argument("--device", type=str, default="0",
                    help="card index N (cuda:N; raises without a card) or "
                         "'cpu'")
@@ -323,6 +326,8 @@ def main(argv=None):
         extra["pose_init"] = args.pose_init
     if args.use_barf_c2f is not None:
         extra["use_barf_c2f"] = args.use_barf_c2f == "True"
+    if args.fast_ray_sampling is not None:
+        extra["fast_ray_sampling"] = args.fast_ray_sampling == "True"
     artifact = run_quality(args.workdir, iters=args.iters, evals=args.evals,
                            H=args.size, W=args.size, seed=args.seed,
                            dataset=args.dataset, device=device,

@@ -100,7 +100,17 @@ an exception):
      witness (the same steps in this process with every sum over rays in
      another order) must stay within and each planted fault of MESH_FAULTS
      (run by the same two ranks) must exceed;
-  14. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
+  14. the bench entry point and its step breakdown: `cli.bench.main` in
+     both modes (BENCH_INNER steps a dispatch, BENCH_CHUNKS dispatches
+     timed; the fp32 run with --profile into a temporary directory), each
+     JSON line printed and checked (its model FLOP equal to bench.py's
+     count, the card line), K1/K2 at 2 launches a step in each mode, replays
+     included, no K3/K4 and no plain route, one graph captured per mode,
+     the loss finite; top_ops.md names the fmlp:: kernels; then
+     tools/torch_perf_breakdown.py at BREAKDOWN_REPS reps in fp32 mode, its
+     table printed, its production rows at least BREAKDOWN_SHARE of the
+     device busy of the fp32 bench's profiled step;
+  15. the results: a {"kernels": [...]} line, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -148,6 +158,11 @@ L6_WARMUP = 4                # the first dispatch (it captures) is not timed
 L6_G = 4
 CMP_G = 10                   # phase 10: steps per dispatch, dispatches held
 CMP_DISPATCHES = 2           # bit for bit, then one more timed
+BENCH_INNER = 25             # phase 14: steps a dispatch, dispatches timed
+BENCH_CHUNKS = 2
+BENCH_FLOPS = 2_088_416_378_880  # bench.py's model FLOP a bench iteration
+BREAKDOWN_REPS = 5
+BREAKDOWN_SHARE = 0.8        # production rows' device ms / the step's busy
 N_EVENTS = 1_000_000
 RAYS = 3055                  # 2 x 1024 event rays + 19 x 53 rgb rays
 FWD_TOL = 2e-4               # x max(output scale, 1)
@@ -1694,6 +1709,68 @@ def run_quality_gates(torch, smi):
     return out, launches, k1_err, k2_err, k2_outside
 
 
+def run_bench(torch, smi):
+    """Phase 14: the bench entry point in both modes, then the breakdown
+    tool in fp32 mode -> ({mode: the bench's line, launches, steps, wall s},
+    the breakdown's result)."""
+    from benerf_tpu_torch.cli import bench
+    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.train import step as step_mod
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import torch_perf_breakdown
+
+    out = {}
+    with tempfile.TemporaryDirectory() as prof_dir:
+        for cd in ("float32", "bfloat16"):
+            argv = ["--dtype", cd, "--inner", str(BENCH_INNER),
+                    "--chunks", str(BENCH_CHUNKS)]
+            # the untimed dispatch, the profiled one (fp32), the timed ones
+            dispatches = 1 + BENCH_CHUNKS
+            if cd == "float32":
+                argv += ["--profile", prof_dir]
+                dispatches += 1
+            steps = BENCH_INNER * dispatches
+            reset_counts()
+            graphs = dict(step_mod.GRAPHS)
+            t0 = time.perf_counter()
+            line = bench.main(argv)
+            wall = time.perf_counter() - t0
+            launches = counts()
+            expect_counts(launches, steps, tuple(
+                fused_mlp.launch_key(k, cd)
+                for k in ("fused_mlp_fwd", "fused_mlp_bwd")))
+            expect_graphs(graphs, 1, steps - 1)
+            if (line["model_flops_per_iter"] != BENCH_FLOPS
+                    or line["card"] != smi or line["platform"] != "cuda"
+                    or line["compute_dtype"] != cd
+                    or not np.isfinite(line["value"])):
+                raise AssertionError(f"bench line {line}")
+            out[cd] = {**line, "launches": launches, "steps": steps,
+                       "wall_s": wall}
+            print(f"  {cd}: {line['ms_per_iter']:.2f} ms/iter, "
+                  f"{line['value']:,.0f} rays/s, {line['delivered_tflops']:.2f}"
+                  f" TFLOP/s, mfu_vs_bf16_peak {line['mfu_vs_bf16_peak']:.4f};"
+                  f" {steps} steps, launches {launches}, {wall:.1f} s")
+        top = (Path(prof_dir) / "top_ops.md").read_text()
+        if ("fmlp::" not in top
+                or not (Path(prof_dir) / "trace.json").stat().st_size):
+            raise AssertionError(f"--profile: no fmlp:: kernel in top_ops.md "
+                                 f"or no trace:\n{top}")
+        out["top_ops_md"] = top.splitlines()[:14]
+    t0 = time.perf_counter()
+    # STEP_MEASURED: the fp32 bench's profiled step
+    breakdown = torch_perf_breakdown.main(["--reps", str(BREAKDOWN_REPS)],
+                                          step=out["float32"])
+    breakdown["wall_s"] = time.perf_counter() - t0
+    if not breakdown["device_share_of_step"] >= BREAKDOWN_SHARE:
+        raise AssertionError(
+            f"the breakdown's production rows cover "
+            f"{breakdown['device_share_of_step']:.3f} of the step's device "
+            f"busy, under {BREAKDOWN_SHARE}")
+    return out, breakdown
+
+
 def check_routes(torch):
     """Routes on the card: the plain route where the JAX package has no
     kernel (counted, no kernel launched); bf16 launches K1 in bf16 mode on
@@ -2037,9 +2114,16 @@ def main():
     mesh["two_ranks_gloo"] = check_two_ranks_gloo(torch, smi)
     mesh["wall_s"] = time.perf_counter() - t0
     print(f"  phase 13: {mesh['wall_s']:.1f} s")
+
+    # 14. the bench entry point and its step breakdown
+    print(f"[14] benerf_tpu_torch.cli.bench in both modes ({BENCH_INNER} x "
+          f"{BENCH_CHUNKS} timed steps), then tools/torch_perf_breakdown.py")
+    t0 = time.perf_counter()
+    bench_lines, breakdown = run_bench(torch, smi)
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s")
 
-    # 14. results
+    # 15. results
     fwd_tol = f"{FWD_TOL} x max(|plain|, 1)"
     bwd_tol = (f"{GRAD_TOL} x max(|plain grad|, 1) per gradient; per-point "
                f"grads: at most {KINK_FRAC} of elements past it (ReLU kinks)")
@@ -2074,11 +2158,14 @@ def main():
         mesh_nccl_one_rank=mesh["one_rank_nccl_tanabata"]["launches"],
         **{f"mesh_gloo_{name}_rank{r}": gloo[name][f"launches_rank{r}"]
            for name in MESH_CONFIGS for r in (0, 1)})
+    path_launches["bench"] = bench_lines["float32"]["launches"]
     k1_paths = {"tanabata": launches["fused_mlp_fwd"],
                 **{k: v["fused_mlp_fwd"] for k, v in path_launches.items()},
                 "cli_test": test_k1}
     k2_paths = {"tanabata": launches["fused_mlp_bwd"],
                 **{k: v["fused_mlp_bwd"] for k, v in path_launches.items()}}
+    bf_paths = {"tanabata_bf16": bf_launches,
+                "bench_bf16": bench_lines["bfloat16"]["launches"]}
     kernels = [
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "tf32x3",
                      sum(k1_paths.values()), k1_err, fwd_tol, k12["float32"],
@@ -2091,8 +2178,11 @@ def main():
                                      for k, (e, r) in k1_q_err.items()},
                      weight_copies=prep["K1/K2 tf32x3"]),
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "bf16",
-                     bf_launches["fused_mlp_fwd_bf16"], k1_bf, bf_fwd_tol,
-                     k12["bfloat16"], "fwd", weight_copies=prep["K1/K2 bf16"]),
+                     sum(v["fused_mlp_fwd_bf16"] for v in bf_paths.values()),
+                     k1_bf, bf_fwd_tol, k12["bfloat16"], "fwd",
+                     launches_by_path={k: v["fused_mlp_fwd_bf16"]
+                                       for k, v in bf_paths.items()},
+                     weight_copies=prep["K1/K2 bf16"]),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "tf32x3",
                      sum(k2_paths.values()), k2_err, bwd_tol, k12["float32"],
                      "bwd", launches_by_path=k2_paths,
@@ -2102,8 +2192,11 @@ def main():
                      weight_gradient_pass=_wgrad_line(k12["float32"], wg2, "tf32x3"),
                      tile_pass=_tile_line(k12["float32"]), **scratch),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "bf16",
-                     bf_launches["fused_mlp_bwd_bf16"], k2_bf, bf_bwd_tol,
-                     k12["bfloat16"], "bwd", bf16_vs_float64={str(n): d for n, d in bf.items()},
+                     sum(v["fused_mlp_bwd_bf16"] for v in bf_paths.values()),
+                     k2_bf, bf_bwd_tol, k12["bfloat16"], "bwd",
+                     launches_by_path={k: v["fused_mlp_bwd_bf16"]
+                                       for k, v in bf_paths.items()},
+                     bf16_vs_float64={str(n): d for n, d in bf.items()},
                      weight_gradient_pass=_wgrad_line(k12["bfloat16"], wg2, "bf16"),
                      tile_pass=_tile_line(k12["bfloat16"]), **scratch),
         _kernel_line("K3 staged_mlp_fwd", k3_src, k3_rep, "tf32x3",
@@ -2141,7 +2234,8 @@ def main():
         "cli_test_evaluate": {**inference, "k1_launches": test_k1},
         "quality_gates": {"wall_s": gates_s, "runs": gates,
                           "launches": gate_launches}},
-        "captured_vs_uncaptured": capture, "mesh": mesh}))
+        "captured_vs_uncaptured": capture, "mesh": mesh,
+        "bench": bench_lines, "breakdown": breakdown}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

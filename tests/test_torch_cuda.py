@@ -7,7 +7,7 @@ card routes (use_pallas off included), and the train step captured in a
 CUDA graph (train/step.py make_multi_step): equal to the uncaptured steps,
 counted per replay, checkpointed and resumed, and under a one-rank NCCL
 mesh equal to the unmeshed capture; cli/test.py and cli/evaluate.py on the
-card, and LPIPS on the card by default. CUDA kernels have no CPU mode:
+card, LPIPS on the card by default, and cli/bench.py at its workload. CUDA kernels have no CPU mode:
 every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
 also runs where JAX is not installed (the repository's conftest imports
@@ -754,3 +754,26 @@ def test_evaluate_runs_lpips_on_the_card(card, tmp_path, monkeypatch):
     assert on_card.keys() == on_cpu.keys() == {"psnr", "ssim", "lpips"}
     assert on_card["psnr"] == on_cpu["psnr"] and on_card["ssim"] == on_cpu["ssim"]
     assert on_card["lpips"] == pytest.approx(on_cpu["lpips"], rel=1e-4)
+
+
+def test_bench_runs_on_the_card(card, capsys):
+    """cli.bench at its full workload, 2 steps a dispatch, 1 dispatch timed:
+    one JSON line, K1/K2 twice a step in every step run (the warm-up step
+    and the captured step's replays), no K3/K4 and no plain route,
+    bench.py's FLOP count and the share of the bf16 peak."""
+    import json
+
+    from benerf_tpu_torch.cli import bench
+
+    before = mlp_ops.counts()
+    line = bench.main(["--inner", "2", "--chunks", "1"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1 and json.loads(out[0]) == line
+    launches = mlp_ops.counts_since(before)
+    # two dispatches of 2 steps: the untimed one and the timed one
+    assert launches[0] == {"fused_mlp_fwd": 8, "fused_mlp_bwd": 8,
+                           "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
+    assert not any(launches[1].values()) and launches[2] == {"plain": 0}
+    assert line["model_flops_per_iter"] == 2_088_416_378_880
+    assert line["platform"] == "cuda" and line["card"]
+    assert 0 < line["mfu_vs_bf16_peak"] < 1

@@ -46,14 +46,6 @@ N_EVENTS = 1_000_000
 WARMUP = 3
 
 
-def _device_us(evt) -> float:
-    """Self device time of a profiler entry, in microseconds."""
-    for attr in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, attr):
-            return float(getattr(evt, attr))
-    return 0.0
-
-
 # kernel name prefix -> group (csrc/*_mlp_*.cu, csrc/wgmma_layer.cuh)
 GROUPS = (("fmlp::fwd_kernel", "K1"), ("fmlp::tile_kernel", "K2 tile pass"),
           ("wl::prep_kernel", "K1/K3 weight copies"),
@@ -169,6 +161,8 @@ def profile_steps(fn, steps, rays):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from benerf_tpu_torch.core.profiling import device_work
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
@@ -178,14 +172,8 @@ def profile_steps(fn, steps, rays):
         fn()
     torch.cuda.synchronize()
 
-    # device work: kernels and copies, not the GPU spans of annotations
-    work = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and _device_us(e) > 0 and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key]
-    kernels = sorted(((e.key, e.count / steps,
-                       _device_us(e) / 1e3 / steps) for e in work),
-                     key=lambda k: -k[2])
+    kernels = [(name, count / steps, ms / steps)
+               for name, count, ms in device_work(prof)]
     groups = {}
     for name, count, ms in kernels:
         g = groups.setdefault(_group(name), {"ms_per_step": 0.0,
