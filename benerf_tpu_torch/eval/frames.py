@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from benerf_tpu_torch import resolve_device
+from benerf_tpu_torch.core import profiling
 from benerf_tpu_torch.core import rng as rng_mod
 from benerf_tpu_torch.render import renderer as renderer_mod
 
@@ -34,28 +35,37 @@ def render_image(params, pose, K, H: int, W: int, settings, chunk: int = 4096,
     """Render one full frame; returns {"rgb" (H, W, C), "disp" (H, W),
     "acc" (H, W)} numpy arrays. params: {"nerf", "nerf_fine"} on `device`
     (None: the card; raises without one). key: tuple of ints seeding the
-    random-mode draws."""
+    random-mode draws. Spans (core/profiling.py): the frame (index key),
+    each chunk (index (*key, chunk index)) with its draws and its
+    render.fwd, and the copies to the host."""
     device = resolve_device(device)
-    pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=device)
-    K = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
-    hw = H * W
-    rgb, disp, acc = [], [], []
-    with torch.no_grad():
-        for i, start in enumerate(range(0, hw, chunk)):
-            idx = torch.arange(start, min(start + chunk, hw), device=device)
-            keys = ({} if deterministic
-                    else rng_mod.generators((*key, i), _CONSUMERS, device))
-            ret = renderer_mod.render_poses_with_ray_idx(
-                params["nerf"], params["nerf_fine"], pose[None], idx, K, H, W,
-                settings, keys=keys)
-            rgb.append(ret["rgb_map"])
-            disp.append(ret["disp_map"])
-            acc.append(ret["acc_map"])
-    return {
-        "rgb": torch.cat(rgb).cpu().numpy().reshape(H, W, -1),
-        "disp": torch.cat(disp).cpu().numpy().reshape(H, W),
-        "acc": torch.cat(acc).cpu().numpy().reshape(H, W),
-    }
+    with profiling.span("frame", index=tuple(key)):
+        pose = torch.as_tensor(np.asarray(pose), dtype=torch.float32,
+                               device=device)
+        K = torch.as_tensor(np.asarray(K), dtype=torch.float32, device=device)
+        hw = H * W
+        rgb, disp, acc = [], [], []
+        with torch.no_grad():
+            for i, start in enumerate(range(0, hw, chunk)):
+                with profiling.span("frame.chunk", index=(*key, i)):
+                    idx = torch.arange(start, min(start + chunk, hw),
+                                       device=device)
+                    with profiling.span("frame.draws"):
+                        keys = ({} if deterministic else rng_mod.generators(
+                            (*key, i), _CONSUMERS, device))
+                    with profiling.span("render.fwd"):
+                        ret = renderer_mod.render_poses_with_ray_idx(
+                            params["nerf"], params["nerf_fine"], pose[None],
+                            idx, K, H, W, settings, keys=keys)
+                    rgb.append(ret["rgb_map"])
+                    disp.append(ret["disp_map"])
+                    acc.append(ret["acc_map"])
+        with profiling.span("frame.to_host"):
+            return {
+                "rgb": torch.cat(rgb).cpu().numpy().reshape(H, W, -1),
+                "disp": torch.cat(disp).cpu().numpy().reshape(H, W),
+                "acc": torch.cat(acc).cpu().numpy().reshape(H, W),
+            }
 
 
 def render_trajectory(params, poses, K, H, W, settings, chunk=4096, key=(0,),

@@ -49,7 +49,7 @@ from pathlib import Path
 
 import torch
 
-from benerf_tpu_torch.core import libbuild
+from benerf_tpu_torch.core import libbuild, profiling
 from benerf_tpu_torch.models import nerf as nerf_mod
 
 WIDTH = 256
@@ -619,11 +619,12 @@ class _FusedMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         packed, pts, vd, band, prep = ctx.saved_tensors
-        dpacked, dpts, dvd_pt = launch_bwd(packed, pts, vd, band,
-                                           g.contiguous(), ctx.S, ctx.C,
-                                           ctx.splits, ctx.cd, prep=prep)
-        # a ray's viewdir is broadcast over its S samples: sum them
-        dvd = dvd_pt.view(vd.shape[0], ctx.S, 3).sum(dim=1)
+        with profiling.span("mlp.bwd"):
+            dpacked, dpts, dvd_pt = launch_bwd(packed, pts, vd, band,
+                                               g.contiguous(), ctx.S, ctx.C,
+                                               ctx.splits, ctx.cd, prep=prep)
+            # a ray's viewdir is broadcast over its S samples: sum them
+            dvd = dvd_pt.view(vd.shape[0], ctx.S, 3).sum(dim=1)
         return dpacked, dpts, dvd, None, None, None, None, None
 
 

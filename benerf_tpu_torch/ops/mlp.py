@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from benerf_tpu_torch.core import profiling
 from benerf_tpu_torch.models import nerf as nerf_model
 from benerf_tpu_torch.ops import fused_mlp, staged_mlp
 
@@ -83,31 +84,35 @@ def mlp_forward(
 ):
     """Evaluate the NeRF MLP on (R, S, 3) points. See models.nerf.apply.
     use_pallas: the JAX package's flag; off, every card call takes the
-    plain route. mesh: as in `route`."""
-    if pts.device.type == "cuda":
-        which = route(params, viewdirs, num_freqs, num_freqs_views,
-                      barf_weights is not None or barf_weights_views is not None,
-                      use_pallas, mesh)
-        if which == "fused":
-            return fused_mlp.fused_nerf_mlp(
-                params, pts, viewdirs, num_freqs=num_freqs,
-                num_freqs_views=num_freqs_views, barf_weights=barf_weights,
-                barf_weights_views=barf_weights_views,
-                compute_dtype=compute_dtype,
-            )
-        if which == "staged":
-            return staged_mlp.staged_nerf_mlp(
-                params, pts, viewdirs, num_freqs=num_freqs,
-                num_freqs_views=num_freqs_views, compute_dtype=compute_dtype,
-            )
-        ROUTES["plain"] += 1
-    cd = None if compute_dtype == "float32" else torch.bfloat16
-    return nerf_model.apply(
-        params, pts, viewdirs,
-        num_freqs=num_freqs, num_freqs_views=num_freqs_views,
-        barf_weights=barf_weights, barf_weights_views=barf_weights_views,
-        compute_dtype=cd,
-    )
+    plain route. mesh: as in `route`. The call is the span mlp.fwd (the
+    kernels' backward records mlp.bwd)."""
+    with profiling.span("mlp.fwd"):
+        if pts.device.type == "cuda":
+            barf_on = (barf_weights is not None
+                       or barf_weights_views is not None)
+            which = route(params, viewdirs, num_freqs, num_freqs_views,
+                          barf_on, use_pallas, mesh)
+            if which == "fused":
+                return fused_mlp.fused_nerf_mlp(
+                    params, pts, viewdirs, num_freqs=num_freqs,
+                    num_freqs_views=num_freqs_views, barf_weights=barf_weights,
+                    barf_weights_views=barf_weights_views,
+                    compute_dtype=compute_dtype,
+                )
+            if which == "staged":
+                return staged_mlp.staged_nerf_mlp(
+                    params, pts, viewdirs, num_freqs=num_freqs,
+                    num_freqs_views=num_freqs_views,
+                    compute_dtype=compute_dtype,
+                )
+            ROUTES["plain"] += 1
+        cd = None if compute_dtype == "float32" else torch.bfloat16
+        return nerf_model.apply(
+            params, pts, viewdirs,
+            num_freqs=num_freqs, num_freqs_views=num_freqs_views,
+            barf_weights=barf_weights, barf_weights_views=barf_weights_views,
+            compute_dtype=cd,
+        )
 
 
 def mlp_forward_families(params, families, mesh=None, **kw):

@@ -42,6 +42,7 @@ import ctypes
 
 import torch
 
+from benerf_tpu_torch.core import profiling
 from benerf_tpu_torch.models import embedder
 from benerf_tpu_torch.models import nerf as nerf_mod
 from benerf_tpu_torch.ops import fused_mlp
@@ -171,8 +172,10 @@ class _StagedMLP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         packed, pts, vb, prep = ctx.saved_tensors
-        dpacked, dpts, dvb = launch_bwd(packed, pts, vb, g.contiguous(), ctx.S,
-                                        ctx.C, ctx.splits, ctx.cd, prep=prep)
+        with profiling.span("mlp.bwd"):
+            dpacked, dpts, dvb = launch_bwd(packed, pts, vb, g.contiguous(),
+                                            ctx.S, ctx.C, ctx.splits, ctx.cd,
+                                            prep=prep)
         return dpacked, dpts, dvb, None, None, None, None
 
 

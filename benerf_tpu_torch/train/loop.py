@@ -6,7 +6,8 @@ from disk (or the caller's), the undistortion remaps, the trajectory init
 the latest checkpoint, g train steps per dispatch (g the gcd of the
 periodic-event intervals, as the JAX loop) with one JSONL record per
 iteration, the non-finite-loss guard, the event-window overflow warning and
-rays/s accounting, a profiler trace of one dispatch, periodic eval of the
+rays/s accounting, a profiler trace of one dispatch (with the program's
+spans, and their device ms printed as one [PROFILE] line), periodic eval of the
 recovered trajectory (images, KITTI poses, PSNR / SSIM / LPIPS of the mid
 frame, and on synthetic scenes ATE / RPE and the reprojection-flow error
 against the ground truth), the video and checkpoints.
@@ -28,6 +29,7 @@ launch cannot give raises ValueError (parallel/mesh.make_mesh).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from benerf_tpu_torch import resolve_device
+from benerf_tpu_torch.core import profiling
 from benerf_tpu_torch.data import datasets, undistort
 from benerf_tpu_torch.data import events as events_util
 from benerf_tpu_torch.eval import frames as frames_mod
@@ -99,6 +102,14 @@ def _start_profiler(device):
     prof = torch.profiler.profile(activities=acts)
     prof.start()
     return prof
+
+
+def _print_span_ms(span_ms, step):
+    """The [PROFILE] line: device ms of each span of the profiled
+    dispatch's last step (a name's spans summed); nothing off the card."""
+    if span_ms:
+        print(f"[PROFILE] iter {step} device ms by span: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in profiling.summed(span_ms).items()))
 
 
 def _write_run_config(cfg, logdir):
@@ -239,7 +250,9 @@ def train(cfg, scene=None, init_knots=None, device=None):
         print("[INFO] debug_nans: anomaly detection cannot run inside a CUDA "
               "graph, so every step runs alone and uncaptured")
     elif g > 1:
-        multi_fn = step_mod.make_multi_step(cfg, H, W, g, mesh)
+        # profile_iter: the graph holds the step's spans (core/profiling.py)
+        multi_fn = step_mod.make_multi_step(cfg, H, W, g, mesh,
+                                            spans=cfg.profile_iter > 0)
 
     rays_per_iter = (  # the global rays, under a mesh too
         2 * cfg.sampling_event_rays
@@ -261,15 +274,19 @@ def train(cfg, scene=None, init_knots=None, device=None):
                     # the dispatch that crosses profile_iter under the
                     # profiler, as the JAX loop traces one scan chunk
                     prof = _start_profiler(device)
-                if n > 1:
-                    state, metrics = multi_fn(state, batch, cfg.seed)
-                else:
-                    state, metrics = step_fn(state, batch, cfg.seed)
+                with (profiling.recording(device) if prof is not None
+                      else contextlib.nullcontext()) as spans:
+                    if n > 1:
+                        state, metrics = multi_fn(state, batch, cfg.seed)
+                    else:
+                        state, metrics = step_fn(state, batch, cfg.seed)
                 i = state.step
                 # the dispatch's one host sync: its stacked metrics
                 host = step_mod.metrics_to_host(metrics)
                 if prof is not None:
                     prof.stop()
+                    _print_span_ms(multi_fn.span_ms() if n > 1
+                                   else spans.device_ms(), i)
                     path = os.path.join(cfg.profile_dir,
                                         f"trace_iter{i - n + 1:06d}.json")
                     os.makedirs(cfg.profile_dir, exist_ok=True)

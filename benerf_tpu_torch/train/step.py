@@ -28,6 +28,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from benerf_tpu_torch import resolve_device
+from benerf_tpu_torch.core import profiling
 from benerf_tpu_torch.core import rng as rng_mod
 from benerf_tpu_torch.data import events as events_mod
 from benerf_tpu_torch.geometry import spline as spline_mod
@@ -210,24 +211,30 @@ def make_loss_fn(cfg, H: int, W: int, mesh=None):
 
     def loss_fn(params, batch: SceneBatch, draws, step):
         # 1. event window + ETA
-        if cfg.event_time_window:
-            low_t, up_t = draws["low_t"], draws["up_t"]
-            eta, eta_overflow = events_mod.eta_time_window(
-                batch.events, hw_evt, low_t, up_t, cap=cfg.event_window_cap)
-        else:
-            eta, low_t, up_t = events_mod.eta_count_window(
-                batch.events, hw_evt, draws["window_gen"],
-                cfg.accumulate_time_length, cfg.random_sampling_window)
-            eta_overflow = torch.zeros((), dtype=torch.int64,
-                                       device=eta.device)
+        with profiling.span("step.window"):
+            if cfg.event_time_window:
+                low_t, up_t = draws["low_t"], draws["up_t"]
+                eta, eta_overflow = events_mod.eta_time_window(
+                    batch.events, hw_evt, low_t, up_t, cap=cfg.event_window_cap)
+            else:
+                eta, low_t, up_t = events_mod.eta_count_window(
+                    batch.events, hw_evt, draws["window_gen"],
+                    cfg.accumulate_time_length, cfg.random_sampling_window)
+                eta_overflow = torch.zeros((), dtype=torch.int64,
+                                           device=eta.device)
 
-        # 2. spline poses
+        # 2. spline poses; its backward is the span spline.bwd
         knots = params["knots"]
-        evt_poses = spline_mod.interpolate_poses(knots, low_t, up_t, 2, cfg.traj)
-        rgb_knots = knots + params["transform"][None, :]
-        rgb_poses = spline_mod.interpolate_poses(
-            rgb_knots, batch.rgb_exp_ts[0], batch.rgb_exp_ts[1], n_poses,
-            cfg.traj)
+        with profiling.span("spline.fwd"):
+            bwd = profiling.backward_span("spline.bwd")
+            knots_in, transform = bwd.inputs(knots, params["transform"])
+            evt_poses = spline_mod.interpolate_poses(knots_in, low_t, up_t, 2,
+                                                     cfg.traj)
+            rgb_knots = knots_in + transform[None, :]
+            rgb_poses = spline_mod.interpolate_poses(
+                rgb_knots, batch.rgb_exp_ts[0], batch.rgb_exp_ts[1], n_poses,
+                cfg.traj)
+            evt_poses, rgb_poses = bwd.outputs(evt_poses, rgb_poses)
 
         # 3-4. both families through one joint coarse+fine pass; under a
         # mesh this rank's pixels at every pose
@@ -236,68 +243,73 @@ def make_loss_fn(cfg, H: int, W: int, mesh=None):
         idx_evt_all = None
         if mesh is not None:
             idx_evt_all = ray_idx_evt
-            keys_evt = family_rows(keys_evt, 2, n_evt_rays, knots.dtype,
-                                   knots.device)
-            keys_rgb = family_rows(keys_rgb, n_poses, n_rgb_rays, knots.dtype,
-                                   knots.device)
-            ray_idx_evt = mesh_mod.shard_rows(ray_idx_evt, mesh)
-            ray_idx_rgb = mesh_mod.shard_rows(ray_idx_rgb, mesh)
-        ret_evt, ret_rgb = renderer_mod.render_pose_families_with_ray_idx(
-            params["nerf"], params["nerf_fine"],
-            [
-                dict(poses=evt_poses, ray_idx=ray_idx_evt, K=batch.K_evt,
-                     H=H_evt, W=W_evt, keys=keys_evt, remap=batch.evt_remap),
-                dict(poses=rgb_poses, ray_idx=ray_idx_rgb, K=batch.K_rgb,
-                     H=H, W=W, keys=keys_rgb, remap=batch.img_remap),
-            ],
-            settings, step=step, mesh=mesh,
-        )
+            with profiling.span("step.draws"):
+                keys_evt = family_rows(keys_evt, 2, n_evt_rays, knots.dtype,
+                                       knots.device)
+                keys_rgb = family_rows(keys_rgb, n_poses, n_rgb_rays,
+                                       knots.dtype, knots.device)
+                ray_idx_evt = mesh_mod.shard_rows(ray_idx_evt, mesh)
+                ray_idx_rgb = mesh_mod.shard_rows(ray_idx_rgb, mesh)
+        with profiling.span("render.fwd"):
+            ret_evt, ret_rgb = renderer_mod.render_pose_families_with_ray_idx(
+                params["nerf"], params["nerf_fine"],
+                [
+                    dict(poses=evt_poses, ray_idx=ray_idx_evt, K=batch.K_evt,
+                         H=H_evt, W=W_evt, keys=keys_evt,
+                         remap=batch.evt_remap),
+                    dict(poses=rgb_poses, ray_idx=ray_idx_rgb, K=batch.K_rgb,
+                         H=H, W=W, keys=keys_rgb, remap=batch.img_remap),
+                ],
+                settings, step=step, mesh=mesh,
+            )
         n_evt = ray_idx_evt.shape[0]
+        with profiling.span("step.losses"):
+            metrics = {}
+            total = torch.zeros((), device=knots.device, dtype=knots.dtype)
 
-        metrics = {}
-        total = torch.zeros((), device=knots.device, dtype=knots.dtype)
+            # 5. event loss on the window endpoints
+            if cfg.event_loss:
+                fine, coarse = ret_evt["rgb_map"], ret_evt["rgb0"]
+                b1_f, b2_f = fine[:n_evt], fine[n_evt:]
+                b1_c, b2_c = coarse[:n_evt], coarse[n_evt:]
+                if cfg.optimize_event_crf:
+                    b1_f, b2_f, b1_c, b2_c = (_apply_crf(params["event_crf"], b)
+                                              for b in (b1_f, b2_f, b1_c, b2_c))
+                eta_target = eta[ray_idx_evt][:, None]
+                kw = dict(dataset=cfg.dataset, channels=cfg.channels,
+                          event_threshold=cfg.event_threshold,
+                          coeff_syn=cfg.event_coeff_syn,
+                          coeff_real=cfg.event_coeff_real, mesh=mesh,
+                          eta_all=(None if mesh is None
+                                   else eta[idx_evt_all][:, None]))
+                ev_fine = loss_mod.event_loss_term(b1_f, b2_f, eta_target,
+                                                   **kw)
+                ev_coarse = loss_mod.event_loss_term(b1_c, b2_c, eta_target,
+                                                     **kw)
+                metrics["event_loss_fine"] = ev_fine
+                metrics["event_loss_coarse"] = ev_coarse
+                metrics["event_loss"] = ev_fine + ev_coarse
+                total = total + ev_fine + ev_coarse
 
-        # 5. event loss on the window endpoints
-        if cfg.event_loss:
-            fine, coarse = ret_evt["rgb_map"], ret_evt["rgb0"]
-            b1_f, b2_f = fine[:n_evt], fine[n_evt:]
-            b1_c, b2_c = coarse[:n_evt], coarse[n_evt:]
-            if cfg.optimize_event_crf:
-                b1_f, b2_f, b1_c, b2_c = (_apply_crf(params["event_crf"], b)
-                                          for b in (b1_f, b2_f, b1_c, b2_c))
-            eta_target = eta[ray_idx_evt][:, None]
-            kw = dict(dataset=cfg.dataset, channels=cfg.channels,
-                      event_threshold=cfg.event_threshold,
-                      coeff_syn=cfg.event_coeff_syn,
-                      coeff_real=cfg.event_coeff_real, mesh=mesh,
-                      eta_all=(None if mesh is None
-                               else eta[idx_evt_all][:, None]))
-            ev_fine = loss_mod.event_loss_term(b1_f, b2_f, eta_target, **kw)
-            ev_coarse = loss_mod.event_loss_term(b1_c, b2_c, eta_target, **kw)
-            metrics["event_loss_fine"] = ev_fine
-            metrics["event_loss_coarse"] = ev_coarse
-            metrics["event_loss"] = ev_fine + ev_coarse
-            total = total + ev_fine + ev_coarse
+            # 6. blur-synthesis rgb loss
+            if cfg.rgb_loss:
+                rgb_fine, rgb_coarse = ret_rgb["rgb_map"], ret_rgb["rgb0"]
+                if cfg.optimize_rgb_crf:
+                    rgb_fine = _apply_crf(params["rgb_crf"], rgb_fine)
+                    rgb_coarse = _apply_crf(params["rgb_crf"], rgb_coarse)
+                target = batch.image_flat[ray_idx_rgb]
+                n_all = None if mesh is None else n_rgb_rays
+                rgb_fine_l = loss_mod.blur_rgb_loss_term(rgb_fine, target,
+                                                         cfg.rgb_coeff, n_all)
+                rgb_coarse_l = loss_mod.blur_rgb_loss_term(rgb_coarse, target,
+                                                           cfg.rgb_coeff, n_all)
+                metrics["rgb_loss_fine"] = rgb_fine_l
+                metrics["rgb_loss_coarse"] = rgb_coarse_l
+                metrics["rgb_loss"] = rgb_fine_l + rgb_coarse_l
+                total = total + rgb_fine_l + rgb_coarse_l
 
-        # 6. blur-synthesis rgb loss
-        if cfg.rgb_loss:
-            rgb_fine, rgb_coarse = ret_rgb["rgb_map"], ret_rgb["rgb0"]
-            if cfg.optimize_rgb_crf:
-                rgb_fine = _apply_crf(params["rgb_crf"], rgb_fine)
-                rgb_coarse = _apply_crf(params["rgb_crf"], rgb_coarse)
-            target = batch.image_flat[ray_idx_rgb]
-            n_all = None if mesh is None else n_rgb_rays
-            rgb_fine_l = loss_mod.blur_rgb_loss_term(rgb_fine, target,
-                                                     cfg.rgb_coeff, n_all)
-            rgb_coarse_l = loss_mod.blur_rgb_loss_term(rgb_coarse, target,
-                                                       cfg.rgb_coeff, n_all)
-            metrics["rgb_loss_fine"] = rgb_fine_l
-            metrics["rgb_loss_coarse"] = rgb_coarse_l
-            metrics["rgb_loss"] = rgb_fine_l + rgb_coarse_l
-            total = total + rgb_fine_l + rgb_coarse_l
-
-        metrics["eta_window_overflow"] = eta_overflow
-        metrics["loss"] = total
+            metrics["eta_window_overflow"] = eta_overflow
+            metrics["loss"] = total
         return total, metrics
 
     return loss_fn, draw_fn
@@ -317,34 +329,42 @@ def _make_body(cfg, H: int, W: int, mesh=None):
         (cfg.rgb_loss, "rgb_loss", "knot_grad_rgb")) if on]
 
     def body(params, optimizer, batch, gens, step):
-        draws = draw_fn(gens)
+        with profiling.span("step.draws"):
+            draws = draw_fn(gens)
         for t in tree_leaves(params):
             t.grad = None
         total, metrics = loss_fn(params, batch, draws, step)
         knot_grads = {}
-        if cfg.log_knot_grad_terms:
-            # which loss steers the spline: each term's gradient w.r.t. the
-            # knots from this step's graph, before the total's backward
-            for term, key in terms:
-                knot_grads[key], = torch.autograd.grad(
-                    metrics[term], params["knots"], retain_graph=True)
-        total.backward()
+        with profiling.span("step.backward"):
+            if cfg.log_knot_grad_terms:
+                # which loss steers the spline: each term's gradient w.r.t.
+                # the knots from this step's graph, before the total's
+                # backward
+                for term, key in terms:
+                    knot_grads[key], = torch.autograd.grad(
+                        metrics[term], params["knots"], retain_graph=True)
+            total.backward()
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
             if mesh is not None:  # the step's one collective
-                mesh_mod.all_reduce_flat(
-                    [t.grad for t in tree_leaves(params) if t.grad is not None]
-                    + list(knot_grads.values())
-                    + [v for k, v in metrics.items()
-                       if k not in REPLICATED_METRICS], mesh)
-            metrics["grad_norm_knots"] = torch.linalg.norm(params["knots"].grad)
-            nerf_grads = [t.grad for c in ("nerf", "nerf_fine")
-                          for t in tree_leaves(params[c])]
-            metrics["grad_norm_nerf"] = torch.sqrt(
-                sum(torch.sum(g * g) for g in nerf_grads))
-            metrics.update({k: torch.linalg.norm(g)
-                            for k, g in knot_grads.items()})
-        optimizer.step()
+                with profiling.span("step.exchange"):
+                    mesh_mod.all_reduce_flat(
+                        [t.grad for t in tree_leaves(params)
+                         if t.grad is not None]
+                        + list(knot_grads.values())
+                        + [v for k, v in metrics.items()
+                           if k not in REPLICATED_METRICS], mesh)
+        with profiling.span("step.adam"):
+            with torch.no_grad():
+                metrics["grad_norm_knots"] = torch.linalg.norm(
+                    params["knots"].grad)
+                nerf_grads = [t.grad for c in ("nerf", "nerf_fine")
+                              for t in tree_leaves(params[c])]
+                metrics["grad_norm_nerf"] = torch.sqrt(
+                    sum(torch.sum(g * g) for g in nerf_grads))
+                metrics.update({k: torch.linalg.norm(g)
+                                for k, g in knot_grads.items()})
+            optimizer.step()
         return metrics
 
     return body
@@ -360,13 +380,16 @@ def make_train_step(cfg, H: int, W: int, mesh=None):
         gens = rng_mod.step_generators(seed, state.step,
                                        state.params["knots"].device)
         optim_mod.set_learning_rates(state.optimizer, state.step)
-        metrics = body(state.params, state.optimizer, batch, gens, state.step)
+        with profiling.span("step", index=state.step):
+            metrics = body(state.params, state.optimizer, batch, gens,
+                           state.step)
         return TrainState(state.params, state.optimizer, state.step + 1), metrics
 
     return step_fn
 
 
-def make_multi_step(cfg, H: int, W: int, n_inner: int, mesh=None):
+def make_multi_step(cfg, H: int, W: int, n_inner: int, mesh=None,
+                    spans: bool = False):
     """multi_fn(state, batch, seed) -> (state, metrics): n_inner iterations
     per dispatch, the counterpart of the JAX package's make_multi_step (its
     lax.scan of the step body). Each metric is a tensor of shape (n_inner,),
@@ -386,13 +409,19 @@ def make_multi_step(cfg, H: int, W: int, n_inner: int, mesh=None):
 
     Under an NCCL mesh the graph holds the step's all-reduce (the warm-up
     step launches it once first). A gloo mesh cannot be captured: with one
-    on the card this raises ValueError instead of running uncaptured."""
+    on the card this raises ValueError instead of running uncaptured.
+
+    spans: record the step's spans (core/profiling.py) inside the step, so
+    the graph holds their event-record nodes; after a dispatch's host read,
+    multi_fn.span_ms() gives the device ms of each span of its last step
+    ({} off the card). Off, no span of the step records, even under an
+    enclosing recording(), and the graph is that of the step alone."""
     if (mesh is not None and mesh.device.type == "cuda"
             and mesh.backend != "nccl"):
         raise ValueError(
             f"a {mesh.backend} mesh on the card cannot be captured in a CUDA "
             "graph: use NCCL, or make_train_step for uncaptured steps")
-    return _MultiStep(_make_body(cfg, H, W, mesh), n_inner)
+    return _MultiStep(_make_body(cfg, H, W, mesh), n_inner, spans)
 
 
 # CUDA graphs of the step captured and replayed on the card, over the
@@ -404,13 +433,15 @@ COUNTERS = mlp_ops.COUNTERS + (mesh_mod.COLLECTIVES,)
 
 
 class _MultiStep:
-    def __init__(self, body, n_inner: int):
+    def __init__(self, body, n_inner: int, spans: bool = False):
         if n_inner < 1:
             raise ValueError(f"n_inner must be >= 1, got {n_inner}")
-        self.body, self.n_inner = body, n_inner
+        self.body, self.n_inner, self.spans = body, n_inner, spans
         self.gens = self.step_t = self.row_t = self.buf = None
         self.names = self.dtypes = None
         self.graph, self.key, self.counts = None, None, None
+        # the spans of the last step run, and those the graph holds
+        self.records = self.graph_records = None
 
     def __call__(self, state: TrainState, batch: SceneBatch, seed: int):
         device = state.params["knots"].device
@@ -423,47 +454,66 @@ class _MultiStep:
         step, done = state.step, 0
         if device.type == "cuda" and (self.graph is None
                                       or self.key != _addresses(state, batch)):
-            self.graph = None  # frees the old graph's memory pool
-            self._prepare(state, seed, step)
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                self._step(state, batch)
-            torch.cuda.current_stream(device).wait_stream(side)
-            step, done = step + 1, 1
-            self._capture(state, batch)
+            with profiling.span("dispatch.capture"):
+                # frees the old graph's memory pool, then its events
+                self.graph = self.records = self.graph_records = None
+                self._prepare(state, seed, step)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    self._step(state, batch, step)
+                torch.cuda.current_stream(device).wait_stream(side)
+                step, done = step + 1, 1
+                self._capture(state, batch)
         for _ in range(done, self.n_inner):
             self._prepare(state, seed, step)
             if device.type == "cuda":
-                self.graph.replay()
+                with profiling.span("dispatch.replay", index=step):
+                    self.graph.replay()
+                self.records = self.graph_records
                 mlp_ops.add_counts(self.counts, counters=COUNTERS)
                 GRAPHS["replayed"] += 1
             else:
-                self._step(state, batch)
+                self._step(state, batch, step)
             step += 1
-        metrics = {k: self.buf[:, j].to(self.dtypes[k], copy=True)
-                   for j, k in enumerate(self.names)}
+        with profiling.span("dispatch.read"):
+            metrics = {k: self.buf[:, j].to(self.dtypes[k], copy=True)
+                       for j, k in enumerate(self.names)}
         return TrainState(state.params, state.optimizer, step), metrics
+
+    def span_ms(self) -> dict:
+        """{span name: [device ms]} of the last step (replayed or not) of
+        the last dispatch, read after its host read; {} without spans or
+        off the card."""
+        return {} if self.records is None else self.records.device_ms()
 
     def _prepare(self, state, seed, step):
         """The host's part of a step: its generators and its lrs."""
-        rng_mod.step_generators(seed, step, None, out=self.gens)
-        optim_mod.set_learning_rates(state.optimizer, step)
+        with profiling.span("dispatch.prepare", index=step):
+            rng_mod.step_generators(seed, step, None, out=self.gens)
+            optim_mod.set_learning_rates(state.optimizer, step)
 
-    def _step(self, state, batch):
+    def _step(self, state, batch, index):
         """One iteration on the persistent generators and step counter, its
-        metrics into row row_t of the buffer: what the graph captures."""
-        metrics = self.body(state.params, state.optimizer, batch, self.gens,
-                            self.step_t)
-        if self.buf is None:  # the first step, never under capture
-            self.names = list(metrics)
-            self.dtypes = {k: v.dtype for k, v in metrics.items()}
-            self.buf = torch.zeros((self.n_inner, len(self.names)),
-                                   dtype=torch.float64, device=self.step_t.device)
-        row = torch.stack([metrics[k].to(torch.float64) for k in self.names])
-        self.buf.index_copy_(0, self.row_t, row[None])
-        self.row_t.add_(1)
-        self.step_t.add_(1)
+        metrics into row row_t of the buffer: what the graph captures. With
+        spans, its spans are recorded in self.records; without, none."""
+        device = self.step_t.device
+        with profiling.recording(device, enabled=self.spans) as records, \
+                profiling.span("step", index=index):
+            metrics = self.body(state.params, state.optimizer, batch, self.gens,
+                                self.step_t)
+            with profiling.span("step.row"):
+                if self.buf is None:  # the first step, never under capture
+                    self.names = list(metrics)
+                    self.dtypes = {k: v.dtype for k, v in metrics.items()}
+                    self.buf = torch.zeros((self.n_inner, len(self.names)),
+                                           dtype=torch.float64, device=device)
+                row = torch.stack([metrics[k].to(torch.float64)
+                                   for k in self.names])
+                self.buf.index_copy_(0, self.row_t, row[None])
+                self.row_t.add_(1)
+                self.step_t.add_(1)
+        self.records = records
 
     def _capture(self, state, batch):
         before = mlp_ops.counts(COUNTERS)
@@ -472,8 +522,12 @@ class _MultiStep:
         graph = torch.cuda.CUDAGraph()
         for g in self.gens.values():
             graph.register_generator_state(g)
+        last = self.records
         with torch.cuda.graph(graph):
-            self._step(state, batch)
+            self._step(state, batch, None)
+        # the graph's events time its replays; the last step run is still
+        # the eager one
+        self.graph_records, self.records = self.records, last
         # the capture launched nothing: count its launches at each replay
         self.counts = mlp_ops.counts_since(before, COUNTERS)
         mlp_ops.add_counts(self.counts, -1, COUNTERS)
@@ -497,6 +551,7 @@ def metrics_to_host(metrics) -> dict:
     (n,) tensors, in one device-to-host copy: the train loop's one read of
     a dispatch."""
     names = list(metrics)
-    vals = torch.stack([metrics[k].reshape(-1).to(torch.float64)
-                        for k in names]).cpu().numpy()
+    with profiling.span("dispatch.read"):
+        vals = torch.stack([metrics[k].reshape(-1).to(torch.float64)
+                            for k in names]).cpu().numpy()
     return dict(zip(names, vals))

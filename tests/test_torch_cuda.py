@@ -6,7 +6,9 @@ alone against the float64 product of its scratch, the MLP dispatcher's
 card routes (use_pallas off included), and the train step captured in a
 CUDA graph (train/step.py make_multi_step): equal to the uncaptured steps,
 counted per replay, checkpointed and resumed, and under a one-rank NCCL
-mesh equal to the unmeshed capture; cli/test.py and cli/evaluate.py on the
+mesh equal to the unmeshed capture, and with its spans' event nodes equal to
+the capture without them, each span read and the step's children summing to
+it; cli/test.py and cli/evaluate.py on the
 card, LPIPS on the card by default, and cli/bench.py at its workload. CUDA kernels have no CPU mode:
 every test here
 carries the `cuda` marker and skips without a card. Imports no JAX, so it
@@ -558,6 +560,137 @@ def test_card_checkpoint_resumes_on_the_card_and_the_cpu(card, tmp_path):
     st = on_cpu.optimizer.state[on_cpu.params["knots"]]["step"]
     assert st.device.type == "cpu" and float(st) == 4.0
     assert not on_cpu.optimizer.param_groups[0]["capturable"]
+
+
+# ---- spans inside the captured step (core/profiling.py) -------------------
+
+# the children of the span `step`, each name's spans summed
+STEP_CHILDREN = ("step.draws", "step.window", "spline.fwd", "render.fwd",
+                 "step.losses", "step.backward", "step.adam", "step.row")
+
+
+def test_captured_dispatch_with_spans_equals_one_without(card):
+    """Two dispatches of 4 with spans (their event-record nodes in the
+    graph) against two without, from equal states: every metric,
+    parameter and Adam tensor bit for bit; the spans' graph holds only
+    event nodes more, so both count the same launches."""
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, make_state = _small_run()
+    plain = step_mod.make_multi_step(cfg, 40, 40, 4)
+    spanned = step_mod.make_multi_step(cfg, 40, 40, 4, spans=True)
+    a, b = make_state(), make_state()
+    for _ in range(2):
+        before = mlp_ops.counts()
+        a, ma = plain(a, batch, cfg.seed)
+        n_plain = mlp_ops.counts_since(before)
+        before = mlp_ops.counts()
+        b, mb = spanned(b, batch, cfg.seed)
+        assert mlp_ops.counts_since(before) == n_plain
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]), k
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        assert torch.equal(x, y)
+    assert plain.span_ms() == {}
+
+
+def test_every_span_of_the_captured_step_reads_and_the_children_sum(card):
+    """After a dispatch's host read: every span of the replayed step reads
+    > 0 device ms, mlp.fwd and mlp.bwd twice (coarse, fine), the children
+    of `step` sum to it within 2%, and render.fwd holds mlp.fwd as
+    step.backward holds mlp.bwd and spline.bwd."""
+    from benerf_tpu_torch.core import profiling
+    from benerf_tpu_torch.train import step as step_mod
+
+    cfg, batch, make_state = _small_run()
+    multi = step_mod.make_multi_step(cfg, 40, 40, 4, spans=True)
+    state = make_state()
+    for _ in range(2):
+        state, m = multi(state, batch, cfg.seed)
+        step_mod.metrics_to_host(m)
+        ms = multi.span_ms()
+        assert set(ms) == set(STEP_CHILDREN) | {"step", "mlp.fwd", "mlp.bwd",
+                                                "spline.bwd"}
+        assert all(v > 0 for vs in ms.values() for v in vs), ms
+        assert len(ms["mlp.fwd"]) == len(ms["mlp.bwd"]) == 2
+        tot = profiling.summed(ms)
+        children = sum(tot[k] for k in STEP_CHILDREN)
+        assert abs(children - tot["step"]) <= 0.02 * tot["step"], ms
+        assert tot["render.fwd"] > tot["mlp.fwd"]
+        assert tot["step.backward"] > tot["mlp.bwd"] + tot["spline.bwd"]
+    parents = {r.name: r.parent for r in multi.graph_records.spans}
+    assert parents["spline.bwd"] == "step.backward"
+    assert parents["mlp.bwd"] == "step.backward"
+
+
+def test_profile_iter_prints_the_device_ms_of_each_span(card, tmp_path,
+                                                        capsys):
+    """train() on the card with profile_iter 6 (dispatches of 4): the
+    second dispatch runs under the profiler, writes its Chrome trace and
+    prints one [PROFILE] line with the device ms of every span of its last
+    step, the backward's among them."""
+    import dataclasses
+
+    from benerf_tpu_torch.data import datasets
+    from benerf_tpu_torch.train import loop
+
+    cfg, _, _ = _small_run()
+    cfg = dataclasses.replace(
+        cfg, max_iter=8, console_log_iter=4, render_image_iter=0,
+        render_video_iter=0, save_model_iter=0, profile_iter=6,
+        profile_dir=str(tmp_path / "trace"), logdir=str(tmp_path / "run"))
+    scene = datasets.random_scene(cfg, 4000, seed=1, device="cuda")
+    loop.train(cfg, scene, device="cuda")
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("[PROFILE]")]
+    assert len(lines) == 1, lines
+    for name in ("step ", "spline.fwd ", "mlp.fwd ", "mlp.bwd ",
+                 "spline.bwd ", "step.adam ", "step.row "):
+        assert name in lines[0], (name, lines[0])
+    assert (tmp_path / "trace" / "trace_iter000005.json").is_file()
+
+
+def test_an_event_pair_in_a_graph_times_a_kernel_as_eager_events_do(card):
+    """External timing events around 20 products of 4096 x 4096 matrices,
+    captured in a CUDA graph and replayed, read within 5% of the same
+    events around the same work run eagerly (medians of 7)."""
+    import statistics
+
+    a = torch.randn(4096, 4096, device="cuda")
+    b = torch.randn(4096, 4096, device="cuda")
+    out = torch.empty_like(a)
+
+    def work():
+        for _ in range(20):
+            torch.mm(a, b, out=out)
+
+    def pair():
+        return (torch.cuda.Event(enable_timing=True, external=True),
+                torch.cuda.Event(enable_timing=True, external=True))
+
+    work()
+    torch.cuda.synchronize()
+    eager = []
+    for _ in range(7):
+        s, e = pair()
+        s.record()
+        work()
+        e.record()
+        torch.cuda.synchronize()
+        eager.append(s.elapsed_time(e))
+    s, e = pair()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        s.record()
+        work()
+        e.record()
+    replayed = []
+    for _ in range(7):
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed.append(s.elapsed_time(e))
+    me, mr = statistics.median(eager), statistics.median(replayed)
+    assert abs(mr - me) <= 0.05 * me, (eager, replayed)
 
 
 @pytest.fixture
