@@ -223,17 +223,16 @@ def make_loss_fn(cfg, H: int, W: int, mesh=None):
                 eta_overflow = torch.zeros((), dtype=torch.int64,
                                            device=eta.device)
 
-        # 2. spline poses; its backward is the span spline.bwd
+        # 2. spline poses, the event and the rgb knot sets in one pass; its
+        # backward is the span spline.bwd
         knots = params["knots"]
         with profiling.span("spline.fwd"):
             bwd = profiling.backward_span("spline.bwd")
             knots_in, transform = bwd.inputs(knots, params["transform"])
-            evt_poses = spline_mod.interpolate_poses(knots_in, low_t, up_t, 2,
-                                                     cfg.traj)
-            rgb_knots = knots_in + transform[None, :]
-            rgb_poses = spline_mod.interpolate_poses(
-                rgb_knots, batch.rgb_exp_ts[0], batch.rgb_exp_ts[1], n_poses,
-                cfg.traj)
+            evt_poses, rgb_poses = spline_mod.interpolate_pose_sets(
+                torch.stack([knots_in, knots_in + transform[None, :]]),
+                [(low_t, up_t), (batch.rgb_exp_ts[0], batch.rgb_exp_ts[1])],
+                [2, n_poses], cfg.traj)
             evt_poses, rgb_poses = bwd.outputs(evt_poses, rgb_poses)
 
         # 3-4. both families through one joint coarse+fine pass; under a

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from benerf_tpu.geometry import se3 as jse3
 from benerf_tpu.geometry import spline as jspline
@@ -119,6 +120,109 @@ def test_grads_finite_at_zero():
         out = sum(o.sum() for o in out) if isinstance(out, tuple) else out.sum()
         (g,) = torch.autograd.grad(out, x)
         assert torch.isfinite(g).all(), fn.__name__
+    # the step's joint pass, with zero and with random knots
+    for knots in (torch.zeros(4, 6), 0.3 * torch.randn(4, 6, generator=torch.Generator().manual_seed(0))):
+        knots = knots.requires_grad_(True)
+        transform = torch.zeros(6, requires_grad=True)
+        evt, rgb = _step_poses(knots, transform, (0.0, 0.1), (0.35, 0.65))
+        grads = torch.autograd.grad(evt.sum() + rgb.sum(), (knots, transform))
+        assert all(torch.isfinite(g).all() for g in grads)
+
+
+def _step_poses(knots, transform, window, exposure):
+    """The train step's one spline pass: 2 event poses over the window on
+    the knots, 19 rgb poses over the exposure on knots + transform."""
+    return tspline.interpolate_pose_sets(
+        torch.stack([knots, knots + transform[None, :]]), [window, exposure],
+        [2, 19])
+
+
+@pytest.mark.parametrize("knot_scale", [0.0, 0.01, 0.4])
+def test_joint_pass_and_grads_match_two_jax_calls(knot_scale):
+    """The step's one pass over both knot sets against the JAX package's two
+    interpolate_poses calls (event poses on the knots, rgb poses on knots +
+    transform): poses, and d (sum(evt^2 + evt) + 2 sum(rgb^2 + rgb)) / d
+    knots and / d transform, at the tolerances of the one-set test above.
+    The window starts at 0 and the exposure ends at 1: the endpoint nudge
+    on both sets; at knot_scale 0 the transform is zero too."""
+    rng = np.random.default_rng(int(knot_scale * 100) + 17)
+    knots = (rng.normal(size=(4, 6)) * knot_scale).astype(np.float32)
+    transform = (rng.normal(size=6) * 0.1 * knot_scale).astype(np.float32)
+    window, exposure = (0.0, 0.1), (0.35, 1.0)
+
+    def loss(evt, rgb, xp):
+        return xp.sum(evt * evt + evt) + 2.0 * xp.sum(rgb * rgb + rgb)
+
+    def jloss(k, tr):
+        evt = jspline.interpolate_poses(k, *window, 2, "spline")
+        rgb = jspline.interpolate_poses(k + tr[None, :], *exposure, 19, "spline")
+        return loss(evt, rgb, jnp), (evt, rgb)
+
+    (_, want), jgrads = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(knots), jnp.asarray(transform))
+    k = _t(knots).requires_grad_(True)
+    tr = _t(transform).requires_grad_(True)
+    ends = torch.tensor([window, exposure], dtype=torch.float32)  # 0-d tensors, as the step's
+    got = _step_poses(k, tr, (ends[0, 0], ends[0, 1]), (ends[1, 0], ends[1, 1]))
+    grads = torch.autograd.grad(loss(*got, torch), (k, tr))
+
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=0, atol=1e-5)
+    for g, w in zip(grads, jgrads):
+        assert torch.isfinite(g).all()
+        w = np.asarray(w)
+        scale = max(np.abs(w).max(), 1.0)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=5e-5 * scale)
+
+
+# ops that launch no kernel: views, allocations, no-op casts, scalars
+_NO_LAUNCH = {
+    "aten::view", "aten::select", "aten::slice", "aten::expand", "aten::as_strided",
+    "aten::unsqueeze", "aten::squeeze", "aten::permute", "aten::transpose",
+    "aten::reshape", "aten::_reshape_alias", "aten::t", "aten::alias", "aten::detach",
+    "aten::view_as", "aten::unbind", "aten::split", "aten::split_with_sizes",
+    "aten::narrow", "aten::expand_as", "aten::_unsafe_view", "aten::empty",
+    "aten::empty_like", "aten::empty_strided", "aten::resize_", "aten::item",
+    "aten::_local_scalar_dense", "aten::lift_fresh", "aten::result_type", "aten::to",
+    "aten::scalar_tensor", "aten::resolve_conj", "aten::resolve_neg",
+}
+# Leaf ops of one forward and backward over the step's 2 + 19 poses: 478 for
+# the batched pass, 4,565 when the spline walked knots and rotations one at a
+# time and built each se3 result by component selects and stacks.
+STEP_SPLINE_OP_CEILING = 1000
+
+
+def test_step_spline_stays_a_few_hundred_ops():
+    """The op count of the step's spline, forward and backward, counted as
+    the card would launch them: every aten op none of whose children is
+    counted, less views, allocations and no-op casts."""
+
+    def launches(ev):
+        n = sum(launches(c) for c in ev.cpu_children)
+        if n == 0 and ev.name.startswith("aten::") and ev.name not in _NO_LAUNCH:
+            return 1
+        return n
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        knots = (0.3 * torch.randn(4, 6, generator=torch.Generator().manual_seed(1))
+                 ).requires_grad_(True)
+        transform = torch.zeros(6, requires_grad=True)
+        ends = torch.tensor([0.3, 0.4, 0.35, 0.65])
+
+        def step():
+            evt, rgb = _step_poses(knots, transform, (ends[0], ends[1]), (ends[2], ends[3]))
+            torch.autograd.grad(evt.sum() + rgb.sum(), (knots, transform))
+
+        step()  # the constant tables are made at the first call
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step()
+    finally:
+        torch.set_num_threads(threads)
+    n = sum(launches(ev) for ev in prof.events() if ev.cpu_parent is None)
+    assert 100 < n <= STEP_SPLINE_OP_CEILING, n
 
 
 @pytest.mark.parametrize("traj", ["spline", "linear"])
