@@ -4,6 +4,23 @@
 // the weight gradients as deterministic split-K products over a
 // feature-major scratch of activations X and pre-activation gradients D
 // (see fused_mlp_bwd.cu); every layer product of both runs on wgmma.
+//
+// The scratch's format follows the operand mode. TF32X3: X and D in fp32,
+// every row of Scratch, [row][point] (19,872 B a point for K2: the split
+// needs the fp32 value). BF16: what each reader consumes, 11,384 B a point
+// for K2 (-43%):
+//  - X's first X_HV rows and D's first D_G rows (every row a matrix product
+//    reads), as the bf16 (rn) operands the products read; tile-blocked,
+//    [tile][row][64 points]: a tile's 64 points of a row are 128 B, its
+//    rows follow each other, so a TMA box of 128 rows is 16 KB of
+//    contiguous memory;
+//  - fp32 rows for what reads fp32 (Side): h7, hv and the cotangent for the
+//    thin jobs, and K4's d vb per point, which the wrapper sums per ray;
+//  - the biases' sums of D's rows from the fp32 values: one partial a
+//    64-point tile and row, [tile][BIAS_ROWS], read back from the layer's
+//    tile in shared memory after its epilogue (wl::tile_sums: ~1% of the
+//    tile pass, where a shuffle tree over the accumulators cost ~6%),
+//    which the weight-gradient pass adds chunk by chunk.
 #pragma once
 
 #include "fused_mlp_wg.cuh"
@@ -27,6 +44,19 @@ struct Scratch {
   static constexpr int D_G = D_HV + HEAD;            // cotangent rows (rgb..., alpha)
 };
 
+// BF16: the fp32 rows of the scratch (row stride n_pad), and the rows of
+// the per-tile sums of D (D's rows 0..BIAS_ROWS, the products' D rows)
+template <bool VIEW_PE>
+struct Side {
+  static constexpr int H7 = 0;                       // h7 (wa's gradient)
+  static constexpr int HV = H7 + WIDTH;              // hv (wrgb's)
+  static constexpr int DHV = HV + HEAD;              // K4: d vb per point
+  static constexpr int G = DHV + (VIEW_PE ? 0 : HEAD);  // cotangent rows
+};
+constexpr int BIAS_ROWS = Scratch<true>::D_G;        // 2432
+static_assert(BIAS_ROWS == wg::BIAS_ROWS && Scratch<false>::D_G == BIAS_ROWS,
+              "the pass reads the tile sums as the tile pass writes them");
+
 // VJP of the encoding for one point: d_enc (the point's row of a
 // point-major tile, weighted by band; all ones when band is null) back to
 // the 3 input coordinates
@@ -48,19 +78,45 @@ __device__ __forceinline__ void encode_bwd(const float* denc, int L,
   }
 }
 
+// Where the tile pass writes D's row d_row of its tile (rows of width N):
+// TF32X3: to D in fp32 (row stride ld = n_pad, column col0 = p0). BF16: to
+// the tile's block of D as bf16 (ld 64, col0 0); once the rows sit in the
+// shared tile (H), `d_sums` adds them to the tile's sums bsum[d_row..].
+struct DOut {
+  float* D;
+  int64_t ld, col0;
+  float* bsum;  // BF16: this tile's row of [tile][BIAS_ROWS]
+};
+
+template <tc::Mode MODE, int N>
+__device__ __forceinline__ void d_put(const float (&acc)[N / 4], const DOut& o,
+                                      int d_row) {
+  if constexpr (MODE == tc::BF16)
+    wl::store_global_bf16<N>(reinterpret_cast<__nv_bfloat16*>(o.D) + (int64_t)d_row * o.ld,
+                             o.ld, o.col0, acc);
+  else
+    wl::store_global<N>(o.D + (int64_t)d_row * o.ld, o.ld, o.col0, acc);
+}
+
+template <tc::Mode MODE, int N>
+__device__ __forceinline__ void d_sums(const float* H, int ldh, const DOut& o,
+                                       int d_row) {
+  if constexpr (MODE == tc::BF16) wl::tile_sums<N>(H, ldh, o.bsum + d_row);
+}
+
 // epilogue of a data-gradient product for d h_l: mask by h_l > 0, store
 // d pre_l to D (row d_row) and, once every consumer has read H, to H (row
-// stride ldh)
-template <int N>
+// stride ldh); BF16: then its tile sums from H
+template <tc::Mode MODE, int N>
 __device__ __forceinline__ void dgrad_out(float (&acc)[N / 4],
-                                          const uint32_t* masks, float* D,
-                                          int d_row, int64_t n_pad, int64_t p0,
-                                          float* H, int ldh) {
+                                          const uint32_t* masks, const DOut& o,
+                                          int d_row, float* H, int ldh) {
   wl::apply_signs(acc, masks);
-  wl::store_global<N>(D + (int64_t)d_row * n_pad, n_pad, p0, acc);
+  d_put<MODE, N>(acc, o, d_row);
   wg::consumers_sync();
   wl::store_act<N>(H, ldh, acc);
   wg::consumers_sync();
+  d_sums<MODE, N>(H, ldh, o, d_row);
 }
 
 // ---- pass (a): the tile pass ----------------------------------------------
@@ -72,8 +128,9 @@ __device__ __forceinline__ void dgrad_out(float (&acc)[N / 4],
 // products B[i][o] = W[i][o] (the W copies of the prepared buffer, which
 // the forward launch wrote), writes d pts (and K2's per-point d viewdir),
 // and stores every activation (X) and every pre-activation gradient (D) of
-// the tile to the scratch from the accumulators. K4's d vb per point is
-// D's rows D_HV, which the wrapper sums per ray.
+// the tile to the scratch from the accumulators, in the mode's format (see
+// the top). K4's d vb per point is D's rows D_HV (BF16: Side::DHV), which
+// the wrapper sums per ray.
 //
 // Shared memory (227 KB a block): the ring (96 KB: three TF32X3 or six
 // BF16 stages), H (64 points, row stride Ld<MODE>::H), PE (Ld::P) and the
@@ -102,8 +159,9 @@ constexpr size_t tile_smem_bytes() {
 // wmap / sched: the prepared weights' map and the tile pass's schedule
 // (wl::make_sched with backward); view: K2's viewdirs vd (n / S, 3) or K4's
 // per-ray bias vb (n / S, 128); band: K2's band weights (14,), null for K4
-// (no BARF); dvd: K2's d viewdir per point (n, 3), null for K4. smem:
-// tile_smem_bytes<MODE, VIEW_PE>() bytes.
+// (no BARF); dvd: K2's d viewdir per point (n, 3), null for K4; X, D: the
+// scratch (BF16: bf16 arrays); side, bsum: BF16's fp32 rows and tile sums
+// (unused in TF32X3). smem: tile_smem_bytes<MODE, VIEW_PE>() bytes.
 template <tc::Mode MODE, bool VIEW_PE>
 __device__ __forceinline__ void tile_pass(
     const CUtensorMap* wmap, const wl::Sched& sched,
@@ -111,8 +169,10 @@ __device__ __forceinline__ void tile_pass(
     int S, const float* __restrict__ P, const float* __restrict__ band,
     const float* __restrict__ g, int C, int64_t n_pad, float* __restrict__ X,
     float* __restrict__ D, float* __restrict__ dpts, float* __restrict__ dvd,
-    uint8_t* smem) {
+    float* __restrict__ side, float* __restrict__ bsum, uint8_t* smem) {
   using R = Scratch<VIEW_PE>;
+  using SR = Side<VIEW_PE>;
+  constexpr bool B = MODE == tc::BF16;
   using F128 = wl::Frag<HEAD>;
   using F256 = wl::Frag<WIDTH>;
   using L = wl::Ld<MODE>;
@@ -129,8 +189,17 @@ __device__ __forceinline__ void tile_pass(
   const int w = wl::warpgroup();
   const Offsets o = offsets(C, VIEW_PE);
   const int64_t p0 = (int64_t)blockIdx.x * TP;
+  // BF16: this tile's blocks of the bf16 X and D (rows of 64 points)
+  float* Xt = B ? reinterpret_cast<float*>(reinterpret_cast<__nv_bfloat16*>(X) +
+                                           (int64_t)blockIdx.x * R::X_HV * TP)
+                : X;
+  float* Dt = B ? reinterpret_cast<float*>(reinterpret_cast<__nv_bfloat16*>(D) +
+                                           (int64_t)blockIdx.x * R::D_G * TP)
+                : D;
+  const int64_t ldt = B ? TP : n_pad, colt = B ? 0 : p0;
+  const DOut dout{Dt, ldt, colt, B ? bsum + (int64_t)blockIdx.x * BIAS_ROWS : nullptr};
   // the cotangent tile (zero past n): K2 into G, K4 into H's columns
-  // 128.. and its alpha row into GA; and to D's rows
+  // 128.. and its alpha row into GA; and to D's rows (BF16: Side's)
   auto load_g = [&](int rows) {
     for (int e = threadIdx.x; e < rows * TP; e += wl::CONSUMERS) {
       const int r = e / TP, c = e % TP;
@@ -142,7 +211,10 @@ __device__ __forceinline__ void tile_pass(
         H[c * L::H + HEAD + r] = v;
         if (r == C) GA[c] = v;
       }
-      D[(int64_t)(R::D_G + r) * n_pad + p0 + c] = v;
+      if constexpr (B)
+        side[(int64_t)(SR::G + r) * n_pad + p0 + c] = v;
+      else
+        D[(int64_t)(R::D_G + r) * n_pad + p0 + c] = v;
     }
   };
   // cotangent row k at point p
@@ -152,14 +224,23 @@ __device__ __forceinline__ void tile_pass(
 
   encode_pm(pts, VIEW_PE ? view : nullptr, n, S, band, p0, PE, L::P, VPE, L::V);
   wg::consumers_sync();
-  copy_cols(PE, L::P, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
+  if constexpr (B)
+    copy_cols_bf16(PE, L::P, PE_PAD,
+                   reinterpret_cast<__nv_bfloat16*>(Xt) + (int64_t)R::X_PE * TP, TP, 0);
+  else
+    copy_cols(PE, L::P, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
   if constexpr (VIEW_PE) {
-    copy_cols(VPE, L::V, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
+    if constexpr (B)
+      copy_cols_bf16(VPE, L::V, VPE_PAD,
+                     reinterpret_cast<__nv_bfloat16*>(Xt) + (int64_t)R::X_VPE * TP, TP, 0);
+    else
+      copy_cols(VPE, L::V, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
     load_g(G_PAD);
   }
 
   // forward, keeping every activation in X and every ReLU sign in masks
-  const Keep keep{X, n_pad, p0, R::X_H, R::X_F, R::X_HV, masks};
+  const Keep keep{Xt, ldt, colt, R::X_H, R::X_F, R::X_HV, masks,
+                  side, n_pad, p0, SR::H7, SR::HV};
   if constexpr (VIEW_PE)
     forward_wg<MODE>(P, o, PE, ViewPE{VPE}, H, ring, &keep, [](const float*) {}, w);
   else
@@ -184,9 +265,12 @@ __device__ __forceinline__ void tile_pass(
       }
     }
     wl::apply_signs(acc, masks + DEPTH * 2 * wl::CONSUMERS);
-    wl::store_global<HEAD>(D + (int64_t)R::D_HV * n_pad, n_pad, p0, acc);
+    d_put<MODE, HEAD>(acc, dout, R::D_HV);
+    if constexpr (B && !VIEW_PE)  // K4's d vb per point, summed per ray in fp32
+      wl::store_global<HEAD>(side + (int64_t)SR::DHV * n_pad, n_pad, p0, acc);
     wl::store_act<HEAD>(H, L::H, acc);
     wg::consumers_sync();
+    d_sums<MODE, HEAD>(H, L::H, dout, R::D_HV);
   }
   if constexpr (VIEW_PE) {
     // view encoding: dvpe = wvpe dhv -> VPE (columns 27..31 come out 0)
@@ -199,18 +283,19 @@ __device__ __forceinline__ void tile_pass(
   // feature: df = wfv dhv -> D_F, H
   wl::zero(acc);
   wl::product<MODE, WIDTH>(acc, H, L::H, HEAD, ring, w);
-  wl::store_global<WIDTH>(D + (int64_t)R::D_F * n_pad, n_pad, p0, acc);
+  d_put<MODE, WIDTH>(acc, dout, R::D_F);
   wg::consumers_sync();
   wl::store_act<WIDTH>(H, L::H, acc);
   wg::consumers_sync();
+  d_sums<MODE, WIDTH>(H, L::H, dout, R::D_F);
   // h7: dh = wf df + wa g_alpha, masked by h7 > 0 -> D_PRE + 7, H
   wl::zero(acc);
   wl::product<MODE, WIDTH>(acc, H, L::H, WIDTH, ring, w);
 #pragma unroll
   for (int i = 0; i < 64; ++i)
     acc[i] = fmaf(__ldg(P + o.wa + F256::feat(i)), GA[F256::point(i)], acc[i]);
-  dgrad_out<WIDTH>(acc, masks + (DEPTH - 1) * 2 * wl::CONSUMERS, D,
-                   R::D_PRE + (DEPTH - 1) * WIDTH, n_pad, p0, H, L::H);
+  dgrad_out<MODE, WIDTH>(acc, masks + (DEPTH - 1) * 2 * wl::CONSUMERS, dout,
+                         R::D_PRE + (DEPTH - 1) * WIDTH, H, L::H);
   // trunk: dpre_{l-1} = (wh_l dpre_l) * (h_{l-1} > 0); dpe from layer SKIP
   // (kept in PE, whose encoding X already holds) and layer 0
   float dpe[16];
@@ -222,8 +307,8 @@ __device__ __forceinline__ void tile_pass(
     }
     wl::zero(acc);
     wl::product<MODE, WIDTH>(acc, H, L::H, WIDTH, ring, w);
-    dgrad_out<WIDTH>(acc, masks + (l - 1) * 2 * wl::CONSUMERS, D,
-                     R::D_PRE + (l - 1) * WIDTH, n_pad, p0, H, L::H);
+    dgrad_out<MODE, WIDTH>(acc, masks + (l - 1) * 2 * wl::CONSUMERS, dout,
+                           R::D_PRE + (l - 1) * WIDTH, H, L::H);
   }
   // layer 0: dpe += w0 dpre0 -> PE (each thread adds to its own elements)
   wl::zero(dpe);
@@ -332,10 +417,17 @@ inline void number_jobs(GemmJobs* g, ThinJobs* t) {
 // The jobs that together cover the packed gradient vector: the matrix
 // products (K2's 12; K4 has no wvpe, the last, and takes the first 11),
 // which also sum their D rows into the biases b (layer by layer), bf and
-// K2's bv, then the alpha head, its bias, the rgb head and its bias.
+// K2's bv, then the alpha head, its bias, the rgb head and its bias. The
+// thin jobs' rows are the fp32 scratch's (TF32X3) or Side's (BF16: X and D
+// there are both the fp32 rows).
 template <bool VIEW_PE>
-inline void make_jobs(int C, GemmJobs* g, ThinJobs* t) {
+inline void make_jobs(int C, GemmJobs* g, ThinJobs* t, int mode) {
   using R = Scratch<VIEW_PE>;
+  using SR = Side<VIEW_PE>;
+  const bool bf = mode == tc::BF16;
+  const int h7 = bf ? SR::H7 : R::X_H + (DEPTH - 1) * WIDTH;
+  const int hv = bf ? SR::HV : R::X_HV;
+  const int dg = bf ? SR::G : R::D_G;
   const Offsets o = offsets(C, VIEW_PE);
   const int64_t WW = (int64_t)WIDTH * WIDTH;
   const int64_t b = o.b;
@@ -354,10 +446,10 @@ inline void make_jobs(int C, GemmJobs* g, ThinJobs* t) {
       {R::X_VPE, VPE_ROWS, R::D_HV, HEAD, 0, 0, o.wvpe, -1},
   }};
   *t = ThinJobs{4, 0, {
-      {R::X_H + (DEPTH - 1) * WIDTH, WIDTH, R::D_G + C, 1, 0, o.wa},
-      {-1, 1, R::D_G + C, 1, 0, o.ba},
-      {R::X_HV, HEAD, R::D_G, C, 0, o.wrgb},
-      {-1, 1, R::D_G, C, 0, o.brgb},
+      {h7, WIDTH, dg + C, 1, 0, o.wa},
+      {-1, 1, dg + C, 1, 0, o.ba},
+      {hv, HEAD, dg, C, 0, o.wrgb},
+      {-1, 1, dg, C, 0, o.brgb},
   }};
   number_jobs(g, t);
 }
@@ -366,10 +458,10 @@ inline void make_jobs(int C, GemmJobs* g, ThinJobs* t) {
 // matrix products first, then the thin jobs (x_row0 = -1: a row of ones;
 // bias_off -1), 16 rows (K4: 15); returns the row count.
 template <bool VIEW_PE>
-inline int job_rows(int C, int64_t* out, int cap) {
+inline int job_rows(int C, int mode, int64_t* out, int cap) {
   GemmJobs g;
   ThinJobs t;
-  make_jobs<VIEW_PE>(C, &g, &t);
+  make_jobs<VIEW_PE>(C, &g, &t, mode);
   if (g.count + t.count > cap) return g.count + t.count;  // write nothing
   int n = 0;
   for (int q = 0; q < g.count; ++q, ++n) {
@@ -391,21 +483,28 @@ inline int gemm_tiles(const GemmJobs& g) {
 }
 
 // Pass (b): every weight gradient dP (Ptot floats, packed layout) from the
-// scratch X, D (row stride n_pad) through `splits` partials `part`; the
-// matrix products in `mode` (tc::TF32X3 or tc::BF16), the thin jobs fp32.
-// Returns the first launch error.
-inline int weight_gradients(const float* X, const float* D, int64_t n_pad,
+// scratch (row stride n_pad) through `splits` partials `part`, the matrix
+// products in `mode` (tc::TF32X3 or tc::BF16), the thin jobs fp32: TF32X3
+// X, D fp32; BF16 X, D the tile-blocked bf16 arrays of xr and dr rows a
+// tile, side and bsum as the tile pass wrote them (the thin jobs, by
+// make_jobs's table in that mode, read side). Returns the first launch
+// error.
+inline int weight_gradients(const void* X, const void* D, const float* side,
+                            const float* bsum, int64_t n_pad, int xr, int dr,
                             int splits, int64_t Ptot, const GemmJobs& gj,
                             const ThinJobs& tj, float* part, float* dP,
                             int mode, cudaStream_t stream) {
+  const int ks = mode == tc::BF16 ? wg::B_KS : wg::KS;  // a stage's points
   int64_t chunk = (n_pad + splits - 1) / splits;
-  chunk = (chunk + wg::KS - 1) / wg::KS * wg::KS;
-  int err = launch_wgmma(X, D, n_pad, chunk, splits, gj, gemm_tiles(gj), part,
-                         Ptot, mode, stream);
+  chunk = (chunk + ks - 1) / ks * ks;
+  int err = launch_wgmma(X, D, bsum, n_pad, xr, dr, chunk, splits, gj,
+                         gemm_tiles(gj), part, Ptot, mode, stream);
   if (err) return err;
+  const float* tx = mode == tc::BF16 ? side : static_cast<const float*>(X);
+  const float* td = mode == tc::BF16 ? side : static_cast<const float*>(D);
   const int thin_blocks = (tj.total * 32 + THREADS - 1) / THREADS;
   wgrad_thin_kernel<<<dim3(thin_blocks, splits), THREADS, 0, stream>>>(
-      X, D, n_pad, chunk, part, Ptot, tj);
+      tx, td, n_pad, chunk, part, Ptot, tj);
   err = (int)cudaGetLastError();
   if (err) return err;
   reduce_kernel<<<(unsigned)((Ptot + 255) / 256), 256, 0, stream>>>(

@@ -75,6 +75,17 @@ __device__ __forceinline__ void copy_cols(const float* src, int ld, int rows,
   }
 }
 
+// the same to a bf16 scratch, rounded (rn), two points a 32-bit word
+__device__ __forceinline__ void copy_cols_bf16(const float* src, int ld, int rows,
+                                               __nv_bfloat16* G, int64_t ldg,
+                                               int64_t col0) {
+  for (int e = threadIdx.x; e < rows * TP / 2; e += wl::CONSUMERS) {
+    const int r = e / (TP / 2), c = 2 * (e % (TP / 2));
+    *reinterpret_cast<uint32_t*>(G + (int64_t)r * ldg + col0 + c) =
+        tc::bf16x2(src[c * ld + r], src[(c + 1) * ld + r]);
+  }
+}
+
 // The views layer's second input, a compile-time choice:
 //  - ViewPE (K1/K2): the view encoding in the block, VPE:
 //    hv = relu(wfv^T f + wvpe^T vpe + bv);
@@ -112,12 +123,18 @@ __device__ __forceinline__ void ray_bias_relu(float (&acc)[32], const ViewBias& 
 // is written to the feature-major scratch X (row stride ldx, column col0)
 // at rows x_h + 256 l (trunk), x_f (feature), x_hv (views), and the ReLU
 // signs of h0..h7 and hv to `masks` (DEPTH * 2 + 1 words a consumer
-// thread).
+// thread). BF16 (fused_mlp_bwd_common.cuh): X is the tile's block of the
+// bf16 scratch (ldx 64, col0 0) and holds the trunk and the feature; h7
+// also goes to the fp32 rows `side` + s_h7 (row stride lds, column cols),
+// hv only to `side` + s_hv.
 struct Keep {
   float* X;
   int64_t ldx, col0;
   int x_h, x_f, x_hv;
   uint32_t* masks;
+  float* side;
+  int64_t lds, cols;
+  int s_h7, s_hv;
 };
 
 // The forward on one tile whose point encoding is in PE (the ring's
@@ -143,8 +160,18 @@ __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
       if (l == SKIP) wl::product<MODE, WIDTH>(acc, PE, L::P, PE_PAD, ring, w);
       wl::bias_act<WIDTH>(acc, P + o.b + l * WIDTH, true);
       if (keep) {
-        wl::store_global<WIDTH>(keep->X + (int64_t)(keep->x_h + l * WIDTH) * keep->ldx,
-                                keep->ldx, keep->col0, acc);
+        if constexpr (MODE == tc::BF16) {
+          wl::store_global_bf16<WIDTH>(
+              reinterpret_cast<__nv_bfloat16*>(keep->X) +
+                  (int64_t)(keep->x_h + l * WIDTH) * keep->ldx,
+              keep->ldx, keep->col0, acc);
+          if (l == DEPTH - 1)
+            wl::store_global<WIDTH>(keep->side + (int64_t)keep->s_h7 * keep->lds,
+                                    keep->lds, keep->cols, acc);
+        } else {
+          wl::store_global<WIDTH>(keep->X + (int64_t)(keep->x_h + l * WIDTH) * keep->ldx,
+                                  keep->ldx, keep->col0, acc);
+        }
         wl::save_signs(keep->masks + l * 2 * wl::CONSUMERS, acc);
       }
       wg::consumers_sync();  // every consumer has read h_{l-1}
@@ -156,9 +183,15 @@ __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
     wl::zero(acc);
     wl::product<MODE, WIDTH>(acc, H, L::H, WIDTH, ring, w);
     wl::bias_act<WIDTH>(acc, P + o.bf, false);
-    if (keep)
-      wl::store_global<WIDTH>(keep->X + (int64_t)keep->x_f * keep->ldx,
-                              keep->ldx, keep->col0, acc);
+    if (keep) {
+      if constexpr (MODE == tc::BF16)
+        wl::store_global_bf16<WIDTH>(
+            reinterpret_cast<__nv_bfloat16*>(keep->X) + (int64_t)keep->x_f * keep->ldx,
+            keep->ldx, keep->col0, acc);
+      else
+        wl::store_global<WIDTH>(keep->X + (int64_t)keep->x_f * keep->ldx,
+                                keep->ldx, keep->col0, acc);
+    }
     wg::consumers_sync();
     wl::store_act<WIDTH>(H, L::H, acc);
     wg::consumers_sync();
@@ -174,8 +207,12 @@ __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
     ray_bias_relu(acc, view);
   }
   if (keep) {
-    wl::store_global<HEAD>(keep->X + (int64_t)keep->x_hv * keep->ldx,
-                           keep->ldx, keep->col0, acc);
+    if constexpr (MODE == tc::BF16)
+      wl::store_global<HEAD>(keep->side + (int64_t)keep->s_hv * keep->lds,
+                             keep->lds, keep->cols, acc);
+    else
+      wl::store_global<HEAD>(keep->X + (int64_t)keep->x_hv * keep->ldx,
+                             keep->ldx, keep->col0, acc);
     wl::save_signs(keep->masks + DEPTH * 2 * wl::CONSUMERS, acc);
   }
   wg::consumers_sync();  // every consumer has read f

@@ -8,8 +8,9 @@
 //    (~1e-6 relative) at three TF32 products per step;
 //  - BF16: operands rounded to bf16 (cvt.rn), fp32 accumulation, as the
 //    JAX kernel's compute_dtype="bfloat16" and the TPU's MXU.
-// Both modes keep fp32 in shared memory and in the scratch; only the
-// operands the tensor core reads differ.
+// Both modes keep fp32 in shared memory; only the operands the tensor core
+// reads differ, and so does the backward's scratch, which BF16 stores as
+// the bf16 operands its products read (fused_mlp_bwd_common.cuh).
 #pragma once
 
 #include <cuda_bf16.h>

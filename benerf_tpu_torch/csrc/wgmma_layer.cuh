@@ -550,6 +550,62 @@ __device__ __forceinline__ void store_global(float* G, int64_t ld, int64_t col0,
   }
 }
 
+// The same as bf16 (rn) to a feature-major bf16 array: lanes l and l ^ 4
+// hold the same features at neighbouring points (2m, 2m + 1), so each
+// trades one value of every feature pair with the other (one shuffle) and
+// stores one 32-bit word, two points of one feature (the even point's
+// thread feature f, the odd point's f + 1): half the bytes of store_global
+// in half its store instructions.
+__device__ __forceinline__ int thread_index() {  // read anew at each use
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+template <int N>
+__device__ __forceinline__ void store_global_bf16(__nv_bfloat16* G, int64_t ld,
+                                                  int64_t col0,
+                                                  const float (&acc)[N / 4]) {
+  // this thread's first word, Frag<N>'s position from a fresh read of its
+  // index: kept across the tile pass's ~20 stores, the offset spilled
+  const int t = thread_index();
+  const int odd = (t >> 2) & 1;
+  const int feat = (t / 128) * (N / 2) + 2 * (t % 4) + odd;
+  const int point = (t % 128) / 32 * 16 + (t % 32) / 4 - odd;
+  uint32_t* g = reinterpret_cast<uint32_t*>(G + (int64_t)feat * ld + col0 + point);
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j, g += 4 * ld) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // points p and p + 8
+      const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+      const float r = __shfl_xor_sync(0xffffffffu, odd ? a0 : a1, 4);
+      __stcs(g + 4 * h, odd ? tc::bf16x2(r, a1) : tc::bf16x2(a0, r));
+    }
+  }
+}
+
+// Each of the first N features' fp32 sum over a point-major tile of TP
+// points in shared memory (row stride ld), to dst[feature]: the thread of
+// a feature adds the points in four interleaved sums, then those in order
+// (fixed order, no atomics; consecutive threads read consecutive words).
+// Every consumer thread calls it; the tile must stay unwritten until every
+// thread has passed a barrier after the call.
+template <int N>
+__device__ __forceinline__ void tile_sums(const float* act, int ld, float* dst) {
+  const int t = threadIdx.x;
+  if (t < N) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+#pragma unroll 4
+    for (int p = 0; p < tc::TP; p += 4) {
+      s0 += act[p * ld + t];
+      s1 += act[(p + 1) * ld + t];
+      s2 += act[(p + 2) * ld + t];
+      s3 += act[(p + 3) * ld + t];
+    }
+    __stcs(dst + t, (s0 + s1) + (s2 + s3));
+  }
+}
+
 // ReLU signs as bits, one word per 32 accumulators, word-major in shared
 // memory ([word][consumer thread]: conflict-free)
 template <int R>

@@ -46,6 +46,7 @@ import re
 import shutil
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -74,6 +75,12 @@ PREP_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # name + "_bf16"
 LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
             "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
+# bytes of the backward scratch that each K2 / K4 call allocated, by the
+# keys of LAUNCHES and staged_mlp.LAUNCHES ("float32": the fp32 format,
+# "bfloat16": the bf16 one, `Scratch`): a call's bytes a point are
+# SCRATCH_BYTES[k] / LAUNCHES[k] / n_pad
+SCRATCH_BYTES = {"fused_mlp_bwd": 0, "fused_mlp_bwd_bf16": 0,
+                 "staged_mlp_bwd": 0, "staged_mlp_bwd_bf16": 0}
 
 
 def launch_key(name, compute_dtype):
@@ -299,23 +306,23 @@ _API = {
         "fused_mlp_prep": ([_P, _I, _I, _P, _I, _P], _I)},
     "fused_mlp_bwd": {
         "fused_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I64, _P, _P,
-                           _P, _P, _P, _I, _P, _I, _P], _I),
+                           _P, _P, _P, _P, _P, _I, _P, _I, _P], _I),
         "fused_mlp_tile": ([_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I64, _P, _P,
-                            _P, _P, _I, _P], _I),
-        "fused_mlp_wgrad": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
-        "fused_mlp_wgrad_jobs": ([_I, _P, _I], _I),
-        "fused_mlp_bwd_scratch": ([_I64, _P], None)},
+                            _P, _P, _P, _P, _I, _P], _I),
+        "fused_mlp_wgrad": ([_P, _P, _P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
+        "fused_mlp_wgrad_jobs": ([_I, _I, _P, _I], _I),
+        "fused_mlp_bwd_scratch": ([_I64, _I, _P], None)},
     "staged_mlp_fwd": {
         "staged_mlp_fwd": ([_P, _P, _I64, _I, _P, _P, _I, _P, _I, _P], _I),
         "staged_mlp_layout": ([_I, _P], None)},
     "staged_mlp_bwd": {
         "staged_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P,
-                            _P, _P, _I, _P, _I, _P], _I),
+                            _P, _P, _P, _P, _I, _P, _I, _P], _I),
         "staged_mlp_tile": ([_P, _P, _I64, _I, _P, _P, _P, _I, _I64, _P, _P,
-                             _P, _I, _P], _I),
-        "staged_mlp_wgrad": ([_P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
-        "staged_mlp_wgrad_jobs": ([_I, _P, _I], _I),
-        "staged_mlp_bwd_scratch": ([_I64, _I, _P], None)},
+                             _P, _P, _P, _I, _P], _I),
+        "staged_mlp_wgrad": ([_P, _P, _P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
+        "staged_mlp_wgrad_jobs": ([_I, _I, _P, _I], _I),
+        "staged_mlp_bwd_scratch": ([_I64, _I, _I, _P], None)},
 }
 # the layout each library reports, checked against the Python one at load:
 # name -> (C function, view_pe). K2 and K4 read the layouts of K1 and K3,
@@ -325,11 +332,12 @@ _LAYOUT_OF = {
     "fused_mlp_fwd": ("fused_mlp_layout", True),
     "staged_mlp_fwd": ("staged_mlp_layout", False),
 }
-# the weight-gradient job table each backward library reports, checked
-# against `wgrad_jobs` at load: name -> (C function, view_pe)
+# the weight-gradient job table and the scratch sizes each backward library
+# reports, checked against `wgrad_jobs` and `scratch_sizes` at load: name ->
+# (jobs C function, view_pe, scratch C function)
 _JOBS_OF = {
-    "fused_mlp_bwd": ("fused_mlp_wgrad_jobs", True),
-    "staged_mlp_bwd": ("staged_mlp_wgrad_jobs", False),
+    "fused_mlp_bwd": ("fused_mlp_wgrad_jobs", True, "fused_mlp_bwd_scratch"),
+    "staged_mlp_bwd": ("staged_mlp_wgrad_jobs", False, "staged_mlp_bwd_scratch"),
 }
 
 
@@ -347,9 +355,11 @@ def _lib(name):
         for C in (1, 3, 8, 127):
             _check_layout(getattr(lib, fn), _layout(C, view_pe), C)
     if name in _JOBS_OF:
-        fn, view_pe = _JOBS_OF[name]
-        for C in (1, 3, 7):
-            _check_jobs(getattr(lib, fn), view_pe, C)
+        fn, view_pe, fn_scratch = _JOBS_OF[name]
+        for cd in MODES:
+            for C in (1, 3, 7):
+                _check_jobs(getattr(lib, fn), view_pe, C, cd)
+                _check_scratch(getattr(lib, fn_scratch), view_pe, C, cd)
     if name == "fused_mlp_fwd":
         for view_pe in (True, False):
             for cd in MODES:
@@ -386,17 +396,40 @@ def _check_layout(fn, layout, C):
                            f" vs python {want}")
 
 
-def _check_jobs(fn, view_pe, C):
-    products, thin = wgrad_jobs(C, view_pe)
+def _check_jobs(fn, view_pe, C, compute_dtype):
+    products, thin = wgrad_jobs(C, view_pe, compute_dtype)
     want = [list(j[1:]) for j in products + thin]
-    got = _table_rows(fn, C, len(want))
+    got = _table_rows(fn, C, len(want), MODES[compute_dtype])
     if got != want:
         raise RuntimeError(f"weight-gradient jobs mismatch (C={C}, view_pe="
-                           f"{view_pe}): kernel {got} vs python {want}")
+                           f"{view_pe}, {compute_dtype}): kernel {got} vs "
+                           f"python {want}")
+
+
+def _scratch_report(fn, view_pe, C, compute_dtype, n_pad):
+    """The library's scratch sizes: (x, d, side, bsum elements[, K4's first
+    d vb row])."""
+    got = (ctypes.c_int64 * 5)()
+    if view_pe:
+        fn(n_pad, MODES[compute_dtype], got)
+        return tuple(got[:4])
+    fn(n_pad, C, MODES[compute_dtype], got)
+    return tuple(got)
+
+
+def _check_scratch(fn, view_pe, C, compute_dtype):
+    n_pad = 3 * TILE
+    want = scratch_sizes(n_pad, C, view_pe, compute_dtype)
+    got = _scratch_report(fn, view_pe, C, compute_dtype, n_pad)
+    if got != want:
+        raise RuntimeError(f"backward scratch mismatch (C={C}, view_pe="
+                           f"{view_pe}, {compute_dtype}): kernel {got} vs "
+                           f"python {want}")
 
 
 def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's data pointer; None -> a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _check(name, t, shape, dtype=torch.float32):
@@ -449,17 +482,86 @@ def launch_fwd(packed, pts, vd, band, S, C, compute_dtype="float32", *, prep):
     return out
 
 
-def bwd_scratch(n, device):
-    """K2's scratch for n points: (n_pad, X, D), feature-major fp32."""
+class Scratch(NamedTuple):
+    """The backward scratch of K2 or K4 for n_pad points (a multiple of
+    TILE), in the format of compute_dtype (csrc/fused_mlp_bwd_common.cuh),
+    row-major [row][point] with row stride n_pad unless named otherwise:
+      - "float32": x, d fp32, every row (X_*, D_*); side and bsum None;
+      - "bfloat16": x, d bf16, the rows the matrix products read (X's first
+        `x_rows_bf16`, D's first D_G), tile-blocked: [tile][row][TILE
+        points] (`rows` gathers them); side fp32, the SIDE_* rows (h7, hv,
+        K4's d vb per point, the cotangent); bsum fp32 (n_pad / TILE,
+        BIAS_ROWS), each D row's sum over each 64-point tile (the biases)."""
+    n_pad: int
+    compute_dtype: str
+    x: torch.Tensor
+    d: torch.Tensor
+    side: torch.Tensor | None = None
+    bsum: torch.Tensor | None = None
+
+    def nbytes(self):
+        return sum(t.numel() * t.element_size()
+                   for t in (self.x, self.d, self.side, self.bsum) if t is not None)
+
+    def rows(self, name):
+        """x or d ("x", "d") as [row][point]: a view of the "float32"
+        format, a copy of the "bfloat16" format's tile blocks."""
+        t = getattr(self, name)
+        if self.side is None:
+            return t.view(-1, self.n_pad)
+        return t.view(self.n_pad // TILE, -1, TILE).transpose(0, 1).reshape(-1, self.n_pad)
+
+
+def scratch_sizes(n_pad, C, view_pe=True, compute_dtype="float32"):
+    """Elements of (x, d, side, bsum) of the scratch (`Scratch`) for n_pad
+    points, and for K4 (view_pe False) then its first row of d vb per
+    point (of d in "float32", of side in "bfloat16"); mirrors
+    fused_mlp_bwd_scratch / staged_mlp_bwd_scratch, checked at load."""
+    _mode(compute_dtype)
+    x_hv = X_VPE + (32 if view_pe else 0)
+    g_rows = G_PAD if view_pe else C + 1
+    if compute_dtype == "float32":
+        sizes = ((x_hv + HEAD) * n_pad, (D_G + g_rows) * n_pad, 0, 0)
+        dvb = D_HV
+    else:
+        sizes = (x_hv * n_pad, D_G * n_pad, (side_g(view_pe) + g_rows) * n_pad,
+                 n_pad // TILE * BIAS_ROWS)
+        dvb = SIDE_DHV
+    return sizes if view_pe else sizes + (dvb,)
+
+
+def scratch_bytes(n_pad, C, view_pe=True, compute_dtype="float32"):
+    """Bytes of the scratch for n_pad points (`Scratch.nbytes`)."""
+    x, d, side, bsum = scratch_sizes(n_pad, C, view_pe, compute_dtype)[:4]
+    return (x + d) * (4 if compute_dtype == "float32" else 2) + (side + bsum) * 4
+
+
+def alloc_scratch(n_pad, sizes, compute_dtype, device):
+    """A `Scratch` of the given element counts (`scratch_sizes`'s first
+    four), uninitialised."""
+    dt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    side = bsum = None
+    if compute_dtype != "float32":
+        side = torch.empty(sizes[2], device=device)
+        bsum = torch.empty((sizes[3] // BIAS_ROWS, BIAS_ROWS), device=device)
+    return Scratch(n_pad, compute_dtype, torch.empty(sizes[0], device=device, dtype=dt),
+                   torch.empty(sizes[1], device=device, dtype=dt), side, bsum)
+
+
+def bwd_scratch(n, device, compute_dtype="float32"):
+    """K2's scratch for n points in the format of compute_dtype, a
+    `Scratch` sized by the library: "float32" 19,872 B a point (fp32 X and
+    D, every row); "bfloat16" 11,384 B at C = 3 (the products' rows as
+    bf16, 392 fp32 side rows, a tile sum of each of D's 2,432 product rows
+    a 64-point tile)."""
     n_pad = -(-n // TILE) * TILE
-    sizes = (ctypes.c_int64 * 2)()
-    _lib("fused_mlp_bwd").fused_mlp_bwd_scratch(n_pad, sizes)
-    return (n_pad, torch.empty(sizes[0], device=device),
-            torch.empty(sizes[1], device=device))
+    lib = _lib("fused_mlp_bwd")
+    sizes = _scratch_report(lib.fused_mlp_bwd_scratch, True, 0, compute_dtype, n_pad)
+    return alloc_scratch(n_pad, sizes, compute_dtype, device)
 
 
 def _bwd_args(packed, pts, vd, band, g, S, C, compute_dtype, prep):
-    """Check K2's inputs; -> (mode, prep, n, n_pad, X, D, dpts, dvd)."""
+    """Check K2's inputs; -> (mode, prep, n, scratch, dpts, dvd)."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
     _check("packed", packed, (_offsets(_layout(C))[-1],))
@@ -469,9 +571,8 @@ def _bwd_args(packed, pts, vd, band, g, S, C, compute_dtype, prep):
     _check("cotangent", g, (n, C + 1))
     check_prep(prep, True, compute_dtype)
     dev = pts.device
-    n_pad, x_scr, d_scr = bwd_scratch(n, dev)
-    return (mode, prep, n, n_pad, x_scr, d_scr, torch.empty((n, 3), device=dev),
-            torch.empty((n, 3), device=dev))
+    return (mode, prep, n, bwd_scratch(n, dev, compute_dtype),
+            torch.empty((n, 3), device=dev), torch.empty((n, 3), device=dev))
 
 
 def launch_bwd(packed, pts, vd, band, g, S, C, splits=DEFAULT_SPLITS,
@@ -480,34 +581,38 @@ def launch_bwd(packed, pts, vd, band, g, S, C, splits=DEFAULT_SPLITS,
     (n, 3)); prep: the weights' wgmma copies K1's launch wrote."""
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
-    mode, prep, n, n_pad, x_scr, d_scr, dpts, dvd = _bwd_args(
+    mode, prep, n, scr, dpts, dvd = _bwd_args(
         packed, pts, vd, band, g, S, C, compute_dtype, prep)
     lib = _lib("fused_mlp_bwd")
     part = torch.empty((splits, packed.numel()), device=pts.device)
     dpacked = torch.empty_like(packed)
     rc = lib.fused_mlp_bwd(
         _ptr(pts), _ptr(vd), n, S, _ptr(packed), _ptr(prep), _ptr(band),
-        _ptr(g), C, n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(dvd),
-        _ptr(part), splits, _ptr(dpacked), mode, _stream())
+        _ptr(g), C, scr.n_pad, _ptr(scr.x), _ptr(scr.d), _ptr(scr.side),
+        _ptr(scr.bsum), _ptr(dpts), _ptr(dvd), _ptr(part), splits,
+        _ptr(dpacked), mode, _stream())
     if rc:
         raise RuntimeError(f"fused_mlp_bwd: CUDA error {rc}")
-    LAUNCHES[launch_key("fused_mlp_bwd", compute_dtype)] += 1
+    key = launch_key("fused_mlp_bwd", compute_dtype)
+    LAUNCHES[key] += 1
+    SCRATCH_BYTES[key] += scr.nbytes()
     return dpacked, dpts, dvd
 
 
 def run_tile(packed, pts, vd, band, g, S, C, compute_dtype="float32", *,
              prep):
     """K2's tile pass alone (pass (a), for timing it apart; not counted: the
-    main path runs it inside K2) -> (n_pad, X, D, d pts, d vd per point)."""
-    mode, prep, n, n_pad, x_scr, d_scr, dpts, dvd = _bwd_args(
+    main path runs it inside K2) -> (its `Scratch`, d pts, d vd per
+    point)."""
+    mode, prep, n, scr, dpts, dvd = _bwd_args(
         packed, pts, vd, band, g, S, C, compute_dtype, prep)
     rc = _lib("fused_mlp_bwd").fused_mlp_tile(
         _ptr(pts), _ptr(vd), n, S, _ptr(packed), _ptr(prep), _ptr(band),
-        _ptr(g), C, n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(dvd),
-        mode, _stream())
+        _ptr(g), C, scr.n_pad, _ptr(scr.x), _ptr(scr.d), _ptr(scr.side),
+        _ptr(scr.bsum), _ptr(dpts), _ptr(dvd), mode, _stream())
     if rc:
         raise RuntimeError(f"fused_mlp_tile: CUDA error {rc}")
-    return n_pad, x_scr, d_scr, dpts, dvd
+    return scr, dpts, dvd
 
 
 # rows of the backward scratch (fmlp::Scratch in
@@ -518,22 +623,42 @@ X_VPE = X_F + WIDTH                   # K2's view encoding (32 rows)
 D_F = DEPTH * WIDTH                   # after d pre-activation of layers 0..7
 D_HV = D_F + WIDTH
 D_G = D_HV + HEAD                     # the cotangent's C + 1 rows
+G_PAD = 8                             # K2's cotangent rows (C + 1 <= 8)
+# "bfloat16": the fp32 rows (fmlp::Side) and the rows with a tile sum
+SIDE_H7 = 0                           # h7
+SIDE_HV = SIDE_H7 + WIDTH             # hv
+SIDE_DHV = SIDE_HV + HEAD             # K4: d vb per point (128 rows)
+BIAS_ROWS = D_G                       # D's rows 0..2432: the products' D rows
 
 
-def wgrad_jobs(C, view_pe=True):
+def side_g(view_pe=True):
+    """The first cotangent row of the "bfloat16" scratch's side rows."""
+    return SIDE_DHV + (0 if view_pe else HEAD)
+
+
+def x_rows_bf16(view_pe=True):
+    """X's rows in the "bfloat16" scratch: those the matrix products read."""
+    return X_VPE + (32 if view_pe else 0)
+
+
+def wgrad_jobs(C, view_pe=True, compute_dtype="float32"):
     """The weight-gradient pass's job table (mirrors fmlp::make_jobs,
     checked against the library's at load): (matrix products, thin jobs),
     each a list of (name, x_row0, I, d_row0, O, out_off, bias_off): the
     packed gradient's entries [out_off, out_off + I O) are X[x_row0:+I] @
     D[d_row0:+O]^T over the scratch's points, row-major; x_row0 = -1 stands
     for a row of ones (a bias); bias_off >= 0: the entries [bias_off,
-    bias_off + O) are the sums of those D rows (the kernel forms them while
-    it splits D). view_pe as for `_layout`: K2's table (12 products), else
-    K4's (11, no wvpe)."""
+    bias_off + O) are the sums of those D rows. view_pe as for `_layout`:
+    K2's table (12 products), else K4's (11, no wvpe). In "bfloat16" the
+    thin jobs' rows are the scratch's side rows (X and D both), the
+    products' the same."""
     layout = _layout(C, view_pe)
     off = dict(zip([name for name, _ in layout], _offsets(layout)))
     x_hv = X_VPE + (32 if view_pe else 0)
     h7 = X_H + (DEPTH - 1) * WIDTH
+    d_g = D_G
+    if _mode(compute_dtype):
+        x_hv, d_g = SIDE_HV, side_g(view_pe)
     products = [("w0", 0, 63, 0, WIDTH, off["w0"], off["b"])]
     products += [(f"wh{l + 1}", X_H + l * WIDTH, WIDTH, (l + 1) * WIDTH, WIDTH,
                   off["wh"] + l * WIDTH * WIDTH, off["b"] + (l + 1) * WIDTH)
@@ -544,10 +669,12 @@ def wgrad_jobs(C, view_pe=True):
                   off["bv"] if view_pe else -1)]
     if view_pe:
         products.append(("wvpe", X_VPE, 27, D_HV, HEAD, off["wvpe"], -1))
-    thin = [("wa", h7, WIDTH, D_G + C, 1, off["wa"], -1),
-            ("ba", -1, 1, D_G + C, 1, off["ba"], -1),
-            ("wrgb", x_hv, HEAD, D_G, C, off["wrgb"], -1),
-            ("brgb", -1, 1, D_G, C, off["brgb"], -1)]
+    if _mode(compute_dtype):
+        h7 = SIDE_H7
+    thin = [("wa", h7, WIDTH, d_g + C, 1, off["wa"], -1),
+            ("ba", -1, 1, d_g + C, 1, off["ba"], -1),
+            ("wrgb", x_hv, HEAD, d_g, C, off["wrgb"], -1),
+            ("brgb", -1, 1, d_g, C, off["brgb"], -1)]
     return products, thin
 
 
@@ -560,48 +687,85 @@ def wgrad_ranges(C, view_pe=True):
     return out + [(f"bias of {j[0]}", j[6], j[4]) for j in products if j[6] >= 0]
 
 
-def wgrad_plain(x_scr, d_scr, n_pad, C, view_pe=True, compute_dtype="float32"):
+def wgrad_plain(scr, C, view_pe=True, compute_dtype=None):
     """The weight-gradient pass's plain version: the packed gradient from a
-    scratch by `wgrad_jobs`, in float64; in "bfloat16" the matrix products'
-    operands are rounded to bf16 first, as the kernel does (the thin jobs
-    read fp32 in both modes)."""
-    _mode(compute_dtype)
-    X, D = x_scr.view(-1, n_pad), d_scr.view(-1, n_pad)
-    products, thin = wgrad_jobs(C, view_pe)
+    `Scratch` by `wgrad_jobs` in its format, in float64. The matrix
+    products read bf16 operands in "bfloat16" (compute_dtype, by default
+    the scratch's; an fp32 scratch is rounded first, as the pass rounded it
+    before the bf16 format); the thin jobs read fp32; the biases are the
+    sums of D's fp32 rows, or of the bf16 format's tile sums."""
+    cd = compute_dtype or scr.compute_dtype
+    if _mode(cd) < _mode(scr.compute_dtype):
+        raise ValueError(f"a {scr.compute_dtype} scratch holds no {cd} operands")
+    n_pad = scr.n_pad
+    X, D = scr.rows("x"), scr.rows("d")
+    bf16 = scr.side is not None
+    products, thin = wgrad_jobs(C, view_pe, scr.compute_dtype)
     out = torch.zeros(_offsets(_layout(C, view_pe))[-1], dtype=torch.float64,
-                      device=x_scr.device)
-    for q, (_, x0, I, d0, O, off, bias) in enumerate(products + thin):
+                      device=scr.x.device)
+    for _, x0, I, d0, O, off, bias in products:
         d = D[d0:d0 + O]
         if bias >= 0:
-            out[bias:bias + O] = d.double().sum(dim=1)
-        x = X[x0:x0 + I] if x0 >= 0 else torch.ones_like(d[:1])
-        if q < len(products) and compute_dtype == "bfloat16":
+            out[bias:bias + O] = (scr.bsum[:, d0:d0 + O].double().sum(0) if bf16
+                                  else d.double().sum(dim=1))
+        x = X[x0:x0 + I]
+        if cd == "bfloat16":
             x, d = (t.to(torch.bfloat16) for t in (x, d))
         out[off:off + I * O] = (x.double() @ d.double().t()).reshape(-1)
+    Xt, Dt = (scr.side.view(-1, n_pad),) * 2 if bf16 else (X, D)
+    for _, x0, I, d0, O, off, _ in thin:
+        d = Dt[d0:d0 + O].double()
+        x = Xt[x0:x0 + I].double() if x0 >= 0 else torch.ones_like(d[:1])
+        out[off:off + I * O] = (x @ d.t()).reshape(-1)
     return out
 
 
-def run_wgrad(x_scr, d_scr, n_pad, C, splits=DEFAULT_SPLITS,
-              compute_dtype="float32", view_pe=True):
+def bf16_scratch_plain(scr, C, view_pe=True):
+    """The "bfloat16" format of a "float32" `Scratch` (the plain version of
+    what the tile pass writes in BF16 mode): the products' rows rounded to
+    bf16 (rn) and tile-blocked, the side rows copied, each D row's tile
+    sums in float64 rounded to fp32."""
+    if scr.compute_dtype != "float32":
+        raise ValueError("bf16_scratch_plain takes a float32 scratch")
+    n_pad = scr.n_pad
+    X, D = scr.x.view(-1, n_pad), scr.d.view(-1, n_pad)
+    x_hv = x_rows_bf16(view_pe)
+    g_rows = G_PAD if view_pe else C + 1
+    side = [X[X_H + (DEPTH - 1) * WIDTH:X_F], X[x_hv:x_hv + HEAD]]
+    if not view_pe:
+        side.append(D[D_HV:D_G])
+    side.append(D[D_G:D_G + g_rows])
+    tiles = n_pad // TILE
+    bsum = D[:D_G].double().view(D_G, tiles, TILE).sum(-1).float()
+
+    def blocked(rows):
+        return rows.to(torch.bfloat16).view(-1, tiles, TILE).transpose(0, 1).reshape(-1)
+
+    return Scratch(n_pad, "bfloat16", blocked(X[:x_hv]), blocked(D[:D_G]),
+                   torch.cat(side).reshape(-1), bsum.t().contiguous())
+
+
+def run_wgrad(scr, C, splits=DEFAULT_SPLITS, view_pe=True):
     """The weight-gradient pass alone (K2's table, or K4's with view_pe
-    False) on a scratch from `bwd_scratch` / `staged_mlp.bwd_scratch`, for
-    timing and checking it apart (not counted: the main path runs it inside
-    K2 and K4). On the CPU: the plain version, `wgrad_plain`, in fp32."""
-    if x_scr.device.type == "cpu":
-        return wgrad_plain(x_scr, d_scr, n_pad, C, view_pe,
-                           compute_dtype).float()
-    _check("X scratch", x_scr, tuple(x_scr.shape))
-    _check("D scratch", d_scr, tuple(d_scr.shape))
+    False) on a `Scratch` (from `bwd_scratch`, `staged_mlp.bwd_scratch` or
+    `bf16_scratch_plain`), in the mode of its format, for timing and
+    checking it apart (not counted: the main path runs it inside K2 and
+    K4). On the CPU: the plain version, `wgrad_plain`, in fp32."""
+    if scr.x.device.type == "cpu":
+        return wgrad_plain(scr, C, view_pe).float()
+    dt = torch.float32 if scr.compute_dtype == "float32" else torch.bfloat16
+    _check("X scratch", scr.x, tuple(scr.x.shape), dt)
+    _check("D scratch", scr.d, tuple(scr.d.shape), dt)
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     part = torch.empty((splits, _offsets(_layout(C, view_pe))[-1]),
-                       device=x_scr.device)
-    dpacked = torch.empty(part.shape[1], device=x_scr.device)
+                       device=scr.x.device)
+    dpacked = torch.empty(part.shape[1], device=scr.x.device)
     name = "fused_mlp_wgrad" if view_pe else "staged_mlp_wgrad"
     lib = _lib("fused_mlp_bwd" if view_pe else "staged_mlp_bwd")
     rc = getattr(lib, name)(
-        _ptr(x_scr), _ptr(d_scr), n_pad, C, _ptr(part), splits,
-        _ptr(dpacked), _mode(compute_dtype), _stream())
+        _ptr(scr.x), _ptr(scr.d), _ptr(scr.side), _ptr(scr.bsum), scr.n_pad, C,
+        _ptr(part), splits, _ptr(dpacked), _mode(scr.compute_dtype), _stream())
     if rc:
         raise RuntimeError(f"{name}: CUDA error {rc}")
     return dpacked

@@ -33,8 +33,10 @@ ROUTES = {"plain": 0}
 # host where they launch, which a CUDA graph's replay does not pass through:
 # train/step.py counts what a captured step launched (counts_since) and adds
 # it at each replay (add_counts), so the counters count launches on the card
-# whether a graph replays them or not.
-COUNTERS = (fused_mlp.LAUNCHES, staged_mlp.LAUNCHES, ROUTES)
+# whether a graph replays them or not; the backward's scratch bytes
+# (fused_mlp.SCRATCH_BYTES) the same way.
+COUNTERS = (fused_mlp.LAUNCHES, staged_mlp.LAUNCHES, ROUTES,
+            fused_mlp.SCRATCH_BYTES)
 
 
 def counts(counters=COUNTERS):

@@ -38,8 +38,6 @@ in K1's layout without the view-encoding entries:
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from benerf_tpu_torch.core import profiling
@@ -47,9 +45,11 @@ from benerf_tpu_torch.models import embedder
 from benerf_tpu_torch.models import nerf as nerf_mod
 from benerf_tpu_torch.ops import fused_mlp
 from benerf_tpu_torch.ops.fused_mlp import (DEFAULT_SPLITS, DEPTH, HEAD,
-                                            SKIP_LAYER, TILE, WIDTH, _check,
-                                            _layout, _lib, _mode, _offsets,
-                                            _ptr, _stream, check_prep,
+                                            SCRATCH_BYTES, SKIP_LAYER, TILE,
+                                            WIDTH, _check, _layout, _lib,
+                                            _mode, _offsets, _ptr,
+                                            _scratch_report, _stream,
+                                            alloc_scratch, check_prep,
                                             launch_key, prep_buffer)
 
 # launches on the card, one per wrapper call that launched its kernel(s),
@@ -96,18 +96,25 @@ def launch_fwd(packed, pts, vb, S, C, compute_dtype="float32", *, prep):
     return out
 
 
-def bwd_scratch(n, C, device):
-    """K4's scratch for n points and C channels: (n_pad, X, D, first row of
-    d vb per point in D), feature-major fp32."""
+def bwd_scratch(n, C, device, compute_dtype="float32"):
+    """K4's scratch for n points and C channels in the format of
+    compute_dtype, sized by the library: (a `fused_mlp.Scratch`, the first
+    of the 128 rows of d vb per point: of its d in "float32", of its side
+    in "bfloat16")."""
     n_pad = -(-n // TILE) * TILE
-    sizes = (ctypes.c_int64 * 3)()
-    _lib("staged_mlp_bwd").staged_mlp_bwd_scratch(n_pad, C, sizes)
-    return (n_pad, torch.empty(sizes[0], device=device),
-            torch.empty(sizes[1], device=device), sizes[2])
+    sizes = _scratch_report(_lib("staged_mlp_bwd").staged_mlp_bwd_scratch,
+                            False, C, compute_dtype, n_pad)
+    return alloc_scratch(n_pad, sizes, compute_dtype, device), sizes[4]
+
+
+def dvb_rows(scr, dvb_row):
+    """The (128, n_pad) rows of d vb per point in a K4 scratch."""
+    rows = scr.d if scr.side is None else scr.side
+    return rows.view(-1, scr.n_pad)[dvb_row:dvb_row + HEAD]
 
 
 def _bwd_args(packed, pts, vb, g, S, C, compute_dtype, prep):
-    """Check K4's inputs; -> (mode, prep, n, n_pad, X, D, first d vb row,
+    """Check K4's inputs; -> (mode, prep, n, scratch, first d vb row,
     dpts)."""
     mode = _mode(compute_dtype)
     n = pts.shape[0]
@@ -116,9 +123,8 @@ def _bwd_args(packed, pts, vb, g, S, C, compute_dtype, prep):
     _check("vb", vb, (n // S, HEAD))
     _check("cotangent", g, (n, C + 1))
     check_prep(prep, False, compute_dtype)
-    n_pad, x_scr, d_scr, dvb_row = bwd_scratch(n, C, pts.device)
-    return (mode, prep, n, n_pad, x_scr, d_scr, dvb_row,
-            torch.empty((n, 3), device=pts.device))
+    scr, dvb_row = bwd_scratch(n, C, pts.device, compute_dtype)
+    return mode, prep, n, scr, dvb_row, torch.empty((n, 3), device=pts.device)
 
 
 def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
@@ -127,37 +133,41 @@ def launch_bwd(packed, pts, vb, g, S, C, splits=DEFAULT_SPLITS,
     128)); prep: the weights' wgmma copies K3's launch wrote."""
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
-    mode, prep, n, n_pad, x_scr, d_scr, dvb_row, dpts = _bwd_args(
+    mode, prep, n, scr, dvb_row, dpts = _bwd_args(
         packed, pts, vb, g, S, C, compute_dtype, prep)
     lib = _lib("staged_mlp_bwd")
     part = torch.empty((splits, packed.numel()), device=pts.device)
     dpacked = torch.empty_like(packed)
     rc = lib.staged_mlp_bwd(
         _ptr(pts), _ptr(vb), n, S, _ptr(packed), _ptr(prep), _ptr(g), C,
-        n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), _ptr(part), splits,
-        _ptr(dpacked), mode, _stream())
+        scr.n_pad, _ptr(scr.x), _ptr(scr.d), _ptr(scr.side), _ptr(scr.bsum),
+        _ptr(dpts), _ptr(part), splits, _ptr(dpacked), mode, _stream())
     if rc:
         raise RuntimeError(f"staged_mlp_bwd: CUDA error {rc}")
-    LAUNCHES[launch_key("staged_mlp_bwd", compute_dtype)] += 1
-    # K4 leaves d vb per point in the scratch's rows [dvb_row, +128); a
-    # ray's bias is broadcast over its S samples: sum them
+    key = launch_key("staged_mlp_bwd", compute_dtype)
+    LAUNCHES[key] += 1
+    SCRATCH_BYTES[key] += scr.nbytes()
+    # K4 leaves d vb per point in the scratch's rows [dvb_row, +128) (fp32
+    # in both formats); a ray's bias is broadcast over its S samples: sum
+    # them
     R = n // S
-    dvb_pt = d_scr.view(-1, n_pad)[dvb_row:dvb_row + HEAD, :n]
+    dvb_pt = dvb_rows(scr, dvb_row)[:, :n]
     dvb = dvb_pt.unflatten(1, (R, S)).sum(dim=2).t()
     return dpacked, dpts, dvb
 
 
 def run_tile(packed, pts, vb, g, S, C, compute_dtype="float32", *, prep):
     """K4's tile pass alone (pass (a), for timing it apart; not counted: the
-    main path runs it inside K4) -> (n_pad, X, D, d pts)."""
-    mode, prep, n, n_pad, x_scr, d_scr, _, dpts = _bwd_args(
+    main path runs it inside K4) -> (its `fused_mlp.Scratch`, d pts)."""
+    mode, prep, n, scr, _, dpts = _bwd_args(
         packed, pts, vb, g, S, C, compute_dtype, prep)
     rc = _lib("staged_mlp_bwd").staged_mlp_tile(
         _ptr(pts), _ptr(vb), n, S, _ptr(packed), _ptr(prep), _ptr(g), C,
-        n_pad, _ptr(x_scr), _ptr(d_scr), _ptr(dpts), mode, _stream())
+        scr.n_pad, _ptr(scr.x), _ptr(scr.d), _ptr(scr.side), _ptr(scr.bsum),
+        _ptr(dpts), mode, _stream())
     if rc:
         raise RuntimeError(f"staged_mlp_tile: CUDA error {rc}")
-    return n_pad, x_scr, d_scr, dpts
+    return scr, dpts
 
 
 class _StagedMLP(torch.autograd.Function):

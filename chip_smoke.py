@@ -180,20 +180,25 @@ TC_PEAK = {"float32": 495e12 / 3,   # TF32X3: three TF32 products a FLOP
            "bfloat16": 989e12}      # dense bf16
 MODE_NAME = {"float32": "tf32x3", "bfloat16": "bf16"}
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
-# K2's fp32 scratch a point, each way: a cost of its two-pass design, not of
-# the function, so outside its bound (reported as scratch_floor_ms); K4's
-# has no view-encoding rows and C + 1 cotangent rows
-K2_SCRATCH_B = (2528 + 2440) * 4
+def scratch_point_bytes(C, view_pe, compute_dtype):
+    """The backward's scratch a point, each way (fused_mlp.scratch_bytes):
+    a cost of K2's and K4's two-pass design, not of the function, so
+    outside its bound (reported as scratch_floor_ms). fp32 in fp32 mode
+    (K2 19,872 B), the bf16 format in bf16 mode (K2 11,384 B at C = 3);
+    K4's has no view-encoding rows and C + 1 cotangent rows."""
+    from benerf_tpu_torch.ops import fused_mlp
 
-
-def k4_scratch_bytes(C):
-    return (2496 + 2432 + C + 1) * 4
+    n_pad = 64 * fused_mlp.TILE
+    return fused_mlp.scratch_bytes(n_pad, C, view_pe, compute_dtype) / n_pad
 
 # the weight-gradient pass alone against the float64 product of the same
 # scratch (bf16 mode: of its bf16-rounded operands), per job, x max |ref|:
 # its TF32X3 (or bf16-operand) products with fp32 sums promoted every 32
 # points sit at ~1e-6 (tests/test_torch_wgrad.py); one TF32 product at ~3e-4
 WGRAD_TOL = 1e-5
+# (R, S) of the bf16 scratch checks (check_tile_sums): n = 1, 63, 65, 200
+# (ragged tiles), and the training path's two calls
+SCRATCH_SHAPES = [(1, 1), (7, 9), (5, 13), (8, 25), (3055, 64), (3055, 128)]
 
 
 def flops_fwd_per_point(depth=8, width=256, input_ch=63, views_ch=27,
@@ -571,34 +576,35 @@ def time_tile_pass(torch, S, C=3, compute_dtype="float32", view_pe=True):
 
 
 def wgrad_scratch(torch, view_pe, n, C=3, seed=3):
-    """A backward scratch for n points (K2's rows with view_pe, else K4's),
-    filled with normal numbers: (n_pad, X, D). The pass's work does not
-    depend on the values."""
+    """A float32 backward scratch (fused_mlp.Scratch) for n points (K2's
+    rows with view_pe, else K4's), filled with normal numbers. The pass's
+    work does not depend on the values."""
     from benerf_tpu_torch.ops import fused_mlp, staged_mlp
 
-    if view_pe:
-        n_pad, x_scr, d_scr = fused_mlp.bwd_scratch(n, "cuda")
-    else:
-        n_pad, x_scr, d_scr, _ = staged_mlp.bwd_scratch(n, C, "cuda")
+    scr = (fused_mlp.bwd_scratch(n, "cuda") if view_pe
+           else staged_mlp.bwd_scratch(n, C, "cuda")[0])
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    x_scr.normal_(generator=g)
-    d_scr.normal_(generator=g)
-    return n_pad, x_scr, d_scr
+    scr.x.normal_(generator=g)
+    scr.d.normal_(generator=g)
+    return scr
 
 
 def check_wgrad(torch, view_pe, n, C=3):
     """The weight-gradient pass alone (K2's job table with view_pe, else
     K4's) at n points, both modes, splits 32 and 7, against
-    fused_mlp.wgrad_plain: the float64 product of the same scratch (bf16
-    mode: of its bf16-rounded operands), within WGRAD_TOL x max |ref| for
-    every job -> {mode: {"splits_32": worst err/scale, "splits_7": ...,
-    "max_abs_err": ..., and in bf16 mode "vs_fp32_operands": distance to
-    the float64 product of the unrounded scratch}}."""
+    fused_mlp.wgrad_plain of an fp32 scratch of normal numbers: its float64
+    product (bf16 mode: the pass runs on the bf16 format of that scratch,
+    fused_mlp.bf16_scratch_plain, against the float64 product of its
+    bf16-rounded operands; its biases against the float64 sums of the fp32
+    D rows), within WGRAD_TOL x max |ref| for every job -> {mode:
+    {"splits_32": worst err/scale, "splits_7": ..., "max_abs_err": ...,
+    and in bf16 mode "vs_fp32_operands": distance to the float64 product of
+    the unrounded scratch}}."""
     from benerf_tpu_torch.ops import fused_mlp
 
     name = "K2" if view_pe else "K4"
-    n_pad, x_scr, d_scr = wgrad_scratch(torch, view_pe, n, C)
+    scr32 = wgrad_scratch(torch, view_pe, n, C)
     ranges = fused_mlp.wgrad_ranges(C, view_pe)
 
     def worst(got, ref):
@@ -611,10 +617,11 @@ def check_wgrad(torch, view_pe, n, C=3):
 
     out = {}
     for cd in ("float32", "bfloat16"):
-        ref = fused_mlp.wgrad_plain(x_scr, d_scr, n_pad, C, view_pe, cd)
+        ref = fused_mlp.wgrad_plain(scr32, C, view_pe, cd)
+        scr = scr32 if cd == "float32" else fused_mlp.bf16_scratch_plain(scr32, C, view_pe)
         r = {}
         for splits in (32, 7):
-            got = fused_mlp.run_wgrad(x_scr, d_scr, n_pad, C, splits, cd, view_pe)
+            got = fused_mlp.run_wgrad(scr, C, splits, view_pe)
             torch.cuda.synchronize()
             rel, err = worst(got, ref)
             if not (bool(torch.isfinite(got).all()) and rel <= WGRAD_TOL):
@@ -624,7 +631,7 @@ def check_wgrad(torch, view_pe, n, C=3):
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         if cd == "bfloat16":
             r["vs_fp32_operands"] = worst(got, fused_mlp.wgrad_plain(
-                x_scr, d_scr, n_pad, C, view_pe))[0]
+                scr32, C, view_pe))[0]
         out[MODE_NAME[cd]] = r
         print(f"  {name} weight-gradient pass {MODE_NAME[cd]} n={n}: vs float64 "
               f"worst err/scale {r['splits_32']:.3e} (splits 32), "
@@ -634,19 +641,78 @@ def check_wgrad(torch, view_pe, n, C=3):
     return out
 
 
+def check_tile_sums(torch, view_pe, R, S, C=3):
+    """K2's (view_pe) or K4's tile pass in bf16 mode at R x S points: the
+    scratch beside its bf16 rows (csrc/fused_mlp_bwd_common.cuh). Its fp32
+    rows are what the bf16 rows round: h7 (and K4's d vb per point) to the
+    bit, the cotangent equal to the input, zero past n; each tile sum of a
+    D row (a bias's partial, summed from the fp32 values) is within
+    (2^-8 + 2^-18) x sum |d| of the float64 sum of that tile's bf16 row:
+    rounding to bf16 moves an element by at most half an ulp, 2^-8 of its
+    rounded value (8 significant bits), and 64 fp32 adds at most 2^-18 of
+    sum |d|; zero in padding -> {"tile_sum_gap_over_bound": worst,
+    "points": n}."""
+    from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+
+    params, pts, vd, _, _ = _inputs(torch, R, S, C, 5, False,
+                                    views_ch=27 if view_pe else 39)
+    n = R * S
+    packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
+    x = pts.reshape(n, 3).contiguous()
+    g = torch.randn((n, C + 1), device="cuda")
+    prep = fused_mlp.prepare_weights(packed, C, view_pe, "bfloat16")
+    if view_pe:
+        band = fused_mlp.band_weights(None, None, "cuda")
+        scr = fused_mlp.run_tile(packed, x, vd, band, g, S, C, "bfloat16",
+                                 prep=prep)[0]
+    else:
+        with torch.no_grad():
+            vb = staged_mlp.view_bias(params, vd, 6, "bfloat16").contiguous()
+        scr = staged_mlp.run_tile(packed, x, vb, g, S, C, "bfloat16", prep=prep)[0]
+    torch.cuda.synchronize()
+    n_pad = scr.n_pad
+    X, D = scr.rows("x"), scr.rows("d")
+    side = scr.side.view(-1, n_pad)
+    h7 = fused_mlp.X_H + (fused_mlp.DEPTH - 1) * fused_mlp.WIDTH
+    pairs = [("h7", side[fused_mlp.SIDE_H7:fused_mlp.SIDE_HV], X[h7:fused_mlp.X_F])]
+    if not view_pe:
+        pairs.append(("d vb", side[fused_mlp.SIDE_DHV:fused_mlp.SIDE_DHV + 128],
+                      D[fused_mlp.D_HV:fused_mlp.D_G]))
+    for name, fp32, bf in pairs:
+        if not torch.equal(fp32.to(torch.bfloat16), bf):
+            raise AssertionError(f"{'K2' if view_pe else 'K4'} bf16 scratch: the fp32 "
+                                 f"{name} rows do not round to its bf16 rows")
+    g0 = fused_mlp.side_g(view_pe)
+    want_g = torch.zeros((C + 1, n_pad), device="cuda")
+    want_g[:, :n] = g.t()
+    if not torch.equal(side[g0:g0 + C + 1], want_g):
+        raise AssertionError("bf16 scratch: the cotangent rows differ from the input")
+    rows = D.double().view(fused_mlp.BIAS_ROWS, n_pad // fused_mlp.TILE, fused_mlp.TILE)
+    ref, bound = rows.sum(-1).t(), (2.0 ** -8 + 2.0 ** -18) * rows.abs().sum(-1).t()
+    gap = (scr.bsum.double() - ref).abs()
+    worst = float((gap / bound.clamp_min(1e-30)).max())
+    if not (bool(torch.isfinite(scr.bsum).all()) and bool((gap <= bound).all())):
+        raise AssertionError(f"{'K2' if view_pe else 'K4'} tile sums off their bf16 "
+                             f"rows at {R}x{S}: worst gap / bound {worst}")
+    print(f"  {'K2' if view_pe else 'K4'} bf16 tile pass {R}x{S}: fp32 rows round to "
+          f"the bf16 ones; tile sums at {worst:.4f} of their bound")
+    return {"tile_sum_gap_over_bound": worst, "points": n}
+
+
 def time_wgrad(torch, S, C=3, compute_dtype="float32", view_pe=True):
     """(the weight-gradient pass ms, torch.matmul of the same products ms in
     fp32, the same in TF32, the same on bf16 operands) at n = RAYS * S, K2's
     job table with view_pe, else K4's. The pass runs alone on a scratch of
-    random numbers; torch.matmul is the yardstick only: the port never
-    calls it."""
+    random numbers, in the mode's format; torch.matmul is the yardstick
+    only: the port never calls it."""
     from benerf_tpu_torch.ops import fused_mlp
 
     n = RAYS * S
-    n_pad, x_scr, d_scr = wgrad_scratch(torch, view_pe, n, C)
-    k = time_ms(torch, lambda: fused_mlp.run_wgrad(
-        x_scr, d_scr, n_pad, C, compute_dtype=compute_dtype, view_pe=view_pe))
-    del x_scr, d_scr
+    scr = wgrad_scratch(torch, view_pe, n, C)
+    if compute_dtype == "bfloat16":
+        scr = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
+    k = time_ms(torch, lambda: fused_mlp.run_wgrad(scr, C, view_pe=view_pe))
+    del scr
     shapes = [(j[2], j[4]) for j in fused_mlp.wgrad_jobs(C, view_pe)[0]]
     xs = torch.randn((sum(i for i, _ in shapes), n), device="cuda")
     ds = torch.randn((sum(o for _, o in shapes), n), device="cuda")
@@ -702,7 +768,7 @@ def _tile_per_n(torch, per, n, C, compute_dtype, view_pe, peak, flops,
     """Time the tile pass (pass (a) of K2 or K4) at n = RAYS * S into `per`
     (the tile_* keys): its time and its bound, the larger of its products
     (twice the forward's: the forward again, then the data gradients) at
-    the mode's tensor-core rate and its fp32 scratch written once."""
+    the mode's tensor-core rate and its scratch written once."""
     S = n // RAYS
     n_pad = -(-n // 64) * 64
     t = time_tile_pass(torch, S, C, compute_dtype, view_pe)
@@ -755,9 +821,26 @@ def reset_counts():
     """Every kernel's launch count and the plain route's count to 0."""
     from benerf_tpu_torch.ops import fused_mlp, mlp, staged_mlp
 
-    for d in (fused_mlp.LAUNCHES, staged_mlp.LAUNCHES, mlp.ROUTES):
+    for d in (fused_mlp.LAUNCHES, staged_mlp.LAUNCHES, mlp.ROUTES,
+              fused_mlp.SCRATCH_BYTES):
         for k in d:
             d[k] = 0
+
+
+def expect_scratch(key, iters, view_pe, compute_dtype, C=3):
+    """fused_mlp.SCRATCH_BYTES[key] since reset_counts: each of `iters`
+    steps allocated the scratch of one coarse and one fine call (RAYS x 64
+    and x 128 points) in the format of compute_dtype -> bytes a point."""
+    from benerf_tpu_torch.ops import fused_mlp
+
+    got = fused_mlp.SCRATCH_BYTES[key]
+    points = iters * RAYS * (64 + 128)
+    want = iters * sum(fused_mlp.scratch_bytes(RAYS * S, C, view_pe, compute_dtype)
+                       for S in (64, 128))
+    if got != want:
+        raise AssertionError(f"{key}: {got} B of scratch, expected {want}")
+    print(f"  {key}: scratch {got / points:,.1f} B a point ({compute_dtype} format)")
+    return got / points
 
 
 def counts():
@@ -822,6 +905,8 @@ def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
         raise AssertionError(f"losses not all finite: {losses}")
     expect_counts(launches, iters, tuple(fused_mlp.launch_key(k, compute_dtype)
                                          for k in ("fused_mlp_fwd", "fused_mlp_bwd")))
+    expect_scratch(fused_mlp.launch_key("fused_mlp_bwd", compute_dtype), iters, True,
+                   compute_dtype)
     steady = rates[-1]  # the last LOG_EVERY iterations
     print(f"  {iters} iterations in {wall:.2f} s; losses {losses[0]:.5f} -> "
           f"{losses[-1]:.5f}; launches {launches}")
@@ -902,6 +987,8 @@ def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32",
         raise AssertionError(f"losses not all finite: {losses}")
     expect_counts(launches, iters, tuple(staged_mlp.launch_key(k, compute_dtype)
                                          for k in ("staged_mlp_fwd", "staged_mlp_bwd")))
+    expect_scratch(staged_mlp.launch_key("staged_mlp_bwd", compute_dtype), iters,
+                   False, compute_dtype)
     expect_graphs(graphs, 1, iters - warmup - 1)
     print(f"  {iters} iterations ({warmup} single, then dispatches of {L6_G}); "
           f"losses {losses[0]:.5f} -> {losses[-1]:.5f}; launches {launches}")
@@ -1823,8 +1910,8 @@ def _per_n_fused(torch, compute_dtype, C=3):
     cotangent, d pts, d viewdir per point and the weight gradients.
     Operations: 1x (K1) and 3x (K2) the forward's FLOP, at the tensor-core
     rate of the mode (TC_PEAK) for the bound and at FP32_PEAK for the
-    CUDA-core bound beside it. K2's fp32 scratch, written and read back
-    (K2_SCRATCH_B a point each way), is its design's own floor
+    CUDA-core bound beside it. K2's scratch, written and read back
+    (scratch_point_bytes a point each way), is its design's own floor
     (bwd_scratch_floor_ms), not part of the bound. K2's weight-gradient pass
     is timed alone too, beside torch.matmul of its products (its
     `library_ms`); its byte bound counts the scratch, which is its input."""
@@ -1833,6 +1920,7 @@ def _per_n_fused(torch, compute_dtype, C=3):
     flops_pt = flops_fwd_per_point()
     weights = fused_mlp._offsets(fused_mlp._layout(C))[-1]
     peak = TC_PEAK[compute_dtype]
+    scratch_b = scratch_point_bytes(C, True, compute_dtype)
     out = {}
     for S in (64, 128):
         n = RAYS * S
@@ -1844,13 +1932,13 @@ def _per_n_fused(torch, compute_dtype, C=3):
         d = dict(fwd_ms=kf, fwd_plain_ms=pf, bwd_ms=kb, bwd_plain_ms=pb,
                  fwd_fp32_core_bound_ms=flops / FP32_PEAK * 1e3,
                  bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3,
-                 bwd_scratch_floor_ms=2 * K2_SCRATCH_B * n_pad / HBM_BYTES_S * 1e3)
+                 bwd_scratch_floor_ms=2 * scratch_b * n_pad / HBM_BYTES_S * 1e3)
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
         wline = _wgrad_per_n(torch, d, n, C, compute_dtype, True, peak, weights,
-                             K2_SCRATCH_B)
+                             scratch_b)
         tline = _tile_per_n(torch, d, n, C, compute_dtype, True, peak, flops,
-                            K2_SCRATCH_B)
+                            scratch_b)
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K1 {kf:.3f} ms (plain {pf:.3f}, "
               f"bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
@@ -1868,7 +1956,7 @@ def _per_n_staged(torch, compute_dtype, C=3):
     weights; backward adds the cotangent, d pts, the bias gradient and the
     weight gradients. Operations: 1x (K3) and 3x (K4) the forward's FLOP,
     at the tensor-core rate of the mode, with the fp32 CUDA-core bound
-    beside it. K4's fp32 scratch (k4_scratch_bytes a point each way) is its
+    beside it. K4's scratch (scratch_point_bytes a point each way) is its
     design's own floor (bwd_scratch_floor_ms), as K2's; its weight-gradient
     pass (K4's job table) is timed alone as K2's."""
     from benerf_tpu_torch.ops import fused_mlp
@@ -1876,6 +1964,7 @@ def _per_n_staged(torch, compute_dtype, C=3):
     flops_pt = flops_fwd_per_point(views_ch=0)
     weights = fused_mlp._offsets(fused_mlp._layout(C, view_pe=False))[-1]
     peak = TC_PEAK[compute_dtype]
+    scratch_b = scratch_point_bytes(C, False, compute_dtype)
     out = {}
     for S in (64, 128):
         n = RAYS * S
@@ -1888,14 +1977,13 @@ def _per_n_staged(torch, compute_dtype, C=3):
         d = dict(fwd_ms=kf, fwd_plain_ms=pf, bwd_ms=kb, bwd_plain_ms=pb,
                  fwd_fp32_core_bound_ms=flops / FP32_PEAK * 1e3,
                  bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3,
-                 bwd_scratch_floor_ms=2 * k4_scratch_bytes(C) * n_pad
-                 / HBM_BYTES_S * 1e3)
+                 bwd_scratch_floor_ms=2 * scratch_b * n_pad / HBM_BYTES_S * 1e3)
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
         wline = _wgrad_per_n(torch, d, n, C, compute_dtype, False, peak, weights,
-                             k4_scratch_bytes(C))
+                             scratch_b)
         tline = _tile_per_n(torch, d, n, C, compute_dtype, False, peak, flops,
-                            k4_scratch_bytes(C))
+                            scratch_b)
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K3 {kf:.3f} ms (plain "
               f"{pf:.3f}, bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
@@ -1999,6 +2087,9 @@ def main():
     check_splits(torch, "K1/K2", g32, 1e-4)
     print("    K2's weight-gradient pass alone vs float64 of the same scratch")
     wg2 = {n: check_wgrad(torch, True, n) for n in (RAYS * 64, RAYS * 128, 3 * 37)}
+    print("    K2's tile pass in bf16 mode: its scratch's fp32 rows and tile sums")
+    tile_sums = {"float32": None, "bfloat16": {
+        f"{R}x{S}": check_tile_sums(torch, True, R, S) for R, S in SCRATCH_SHAPES}}
     print("    bf16 mode vs nerf.apply with bf16 operands and vs float64")
     bf = {RAYS * S: check_bf16(torch, "K1/K2", RAYS, S, 3, False)
           for S in (64, 128)}
@@ -2042,6 +2133,9 @@ def main():
     check_splits(torch, "K3/K4", g32, 1e-5)
     print("    K4's weight-gradient pass alone vs float64 of the same scratch")
     wg4 = {n: check_wgrad(torch, False, n) for n in (RAYS * 64, RAYS * 128, 3 * 37)}
+    print("    K4's tile pass in bf16 mode: its scratch's fp32 rows and tile sums")
+    tile_sums4 = {"float32": None, "bfloat16": {
+        f"{R}x{S}": check_tile_sums(torch, False, R, S) for R, S in SCRATCH_SHAPES}}
     print("    bf16 mode vs nerf.apply with bf16 operands and vs float64")
     bf34 = {RAYS * S: check_bf16(torch, "K3/K4", RAYS, S, 3, False)
             for S in (64, 128)}
@@ -2142,8 +2236,14 @@ def main():
     k2_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf.items()}
     k3_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf34.items()}
     k4_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf34.items()}
-    scratch = {"scratch_floor_ms": k12["float32"][RAYS * 128]["bwd_scratch_floor_ms"]}
-    scratch4 = {"scratch_floor_ms": k34["float32"][RAYS * 128]["bwd_scratch_floor_ms"]}
+    scratch = {cd: {"scratch_floor_ms": k12[cd][RAYS * 128]["bwd_scratch_floor_ms"],
+                    "scratch_bytes_per_point": scratch_point_bytes(3, True, cd),
+                    "tile_sums": tile_sums[cd]}
+               for cd in ("float32", "bfloat16")}
+    scratch4 = {cd: {"scratch_floor_ms": k34[cd][RAYS * 128]["bwd_scratch_floor_ms"],
+                     "scratch_bytes_per_point": scratch_point_bytes(3, False, cd),
+                     "tile_sums": tile_sums4[cd]}
+                for cd in ("float32", "bfloat16")}
     fwd_src, bwd_src = ("benerf_tpu_torch/csrc/fused_mlp_fwd.cu",
                         "benerf_tpu_torch/csrc/fused_mlp_bwd.cu")
     k1_rep = "benerf_tpu/ops/pallas_mlp_t.py:244 _fwd_kernel_t"
@@ -2190,7 +2290,7 @@ def main():
                      quality_shapes={k: {"max_abs_err": e, "max_err_over_scale": r}
                                      for k, (e, r) in k2_q_err.items()},
                      weight_gradient_pass=_wgrad_line(k12["float32"], wg2, "tf32x3"),
-                     tile_pass=_tile_line(k12["float32"]), **scratch),
+                     tile_pass=_tile_line(k12["float32"]), **scratch["float32"]),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "bf16",
                      sum(v["fused_mlp_bwd_bf16"] for v in bf_paths.values()),
                      k2_bf, bf_bwd_tol, k12["bfloat16"], "bwd",
@@ -2198,7 +2298,7 @@ def main():
                                        for k, v in bf_paths.items()},
                      bf16_vs_float64={str(n): d for n, d in bf.items()},
                      weight_gradient_pass=_wgrad_line(k12["bfloat16"], wg2, "bf16"),
-                     tile_pass=_tile_line(k12["bfloat16"]), **scratch),
+                     tile_pass=_tile_line(k12["bfloat16"]), **scratch["bfloat16"]),
         _kernel_line("K3 staged_mlp_fwd", k3_src, k3_rep, "tf32x3",
                      l6_launches["staged_mlp_fwd"], k3_err, fwd_tol,
                      k34["float32"], "fwd", weight_copies=prep["K3/K4 tf32x3"]),
@@ -2210,13 +2310,13 @@ def main():
                      k34["float32"], "bwd",
                      pointwise_outside_tol={str(n): v for n, v in k4_outside.items()},
                      weight_gradient_pass=_wgrad_line(k34["float32"], wg4, "tf32x3"),
-                     tile_pass=_tile_line(k34["float32"]), **scratch4),
+                     tile_pass=_tile_line(k34["float32"]), **scratch4["float32"]),
         _kernel_line("K4 staged_mlp_bwd", k4_src, k4_rep, "bf16",
                      l6bf_launches["staged_mlp_bwd_bf16"], k4_bf, bf_bwd_tol,
                      k34["bfloat16"], "bwd",
                      bf16_vs_float64={str(n): d for n, d in bf34.items()},
                      weight_gradient_pass=_wgrad_line(k34["bfloat16"], wg4, "bf16"),
-                     tile_pass=_tile_line(k34["bfloat16"]), **scratch4),
+                     tile_pass=_tile_line(k34["bfloat16"]), **scratch4["bfloat16"]),
     ]
     print(json.dumps({"kernels": kernels, "slices": {
         "tanabata": {"ms_per_iter": ms_iter, "rays_per_sec": rays_s,

@@ -102,9 +102,11 @@ def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     """K1/K2 in bf16 mode: the forward within test_bfloat16_mode's 2e-2 x
     scale of nerf.apply with bf16 operands; gradients finite, and no
     farther from a float64 run than twice the plain bf16 version's
-    distance (chip_smoke.py's BF16_GRAD_FACTOR)."""
+    distance (chip_smoke.py's BF16_GRAD_FACTOR). The backward's scratch is
+    the bf16 format's bytes (fused_mlp.SCRATCH_BYTES)."""
     params, pts, vd, kw = _inputs(R, S, C, barf)
     before = dict(fused_mlp.LAUNCHES)
+    scratch = dict(fused_mlp.SCRATCH_BYTES)
     with torch.no_grad():
         out_k = fused_mlp.fused_nerf_mlp(params, pts, vd, compute_dtype="bfloat16", **kw)
         out_p = nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16, **kw)
@@ -114,6 +116,10 @@ def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     assert fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"] == before["fused_mlp_fwd_bf16"] + 2
     assert fused_mlp.LAUNCHES["fused_mlp_bwd_bf16"] == before["fused_mlp_bwd_bf16"] + 1
     assert fused_mlp.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"]
+    n_pad = -(-R * S // fused_mlp.TILE) * fused_mlp.TILE
+    assert (fused_mlp.SCRATCH_BYTES["fused_mlp_bwd_bf16"] - scratch["fused_mlp_bwd_bf16"]
+            == fused_mlp.scratch_bytes(n_pad, C, True, "bfloat16"))
+    assert fused_mlp.SCRATCH_BYTES["fused_mlp_bwd"] == scratch["fused_mlp_bwd"]
     gp = _grads(nerf.apply, params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     g64 = _grads(nerf.apply, bridge.tree_map(lambda t: t.double(), params),
                  pts.double(), vd.double(), **{k: t.double() for k, t in kw.items()})
@@ -166,10 +172,11 @@ def test_staged_bf16_kernels_match_plain_at_a_ragged_size(card, C, R, S):
     """K3/K4 in bf16 mode, held as K1/K2's bf16 mode is: the forward within
     2e-2 x scale of nerf.apply with bf16 operands; gradients finite and no
     farther from a float64 run than twice the plain bf16 version's
-    distance."""
+    distance; its scratch the bf16 format's bytes."""
     params, pts, vd, _ = _inputs(R, S, C, False, seed=C, views_ch=39)
     kw = dict(num_freqs_views=6)
     before = dict(staged_mlp.LAUNCHES)
+    scratch = dict(fused_mlp.SCRATCH_BYTES)
     with torch.no_grad():
         out_k = staged_mlp.staged_nerf_mlp(params, pts, vd, compute_dtype="bfloat16", **kw)
         out_p = nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16, **kw)
@@ -179,6 +186,9 @@ def test_staged_bf16_kernels_match_plain_at_a_ragged_size(card, C, R, S):
     assert staged_mlp.LAUNCHES["staged_mlp_fwd_bf16"] == before["staged_mlp_fwd_bf16"] + 2
     assert staged_mlp.LAUNCHES["staged_mlp_bwd_bf16"] == before["staged_mlp_bwd_bf16"] + 1
     assert staged_mlp.LAUNCHES["staged_mlp_fwd"] == before["staged_mlp_fwd"]
+    n_pad = -(-R * S // fused_mlp.TILE) * fused_mlp.TILE
+    assert (fused_mlp.SCRATCH_BYTES["staged_mlp_bwd_bf16"] - scratch["staged_mlp_bwd_bf16"]
+            == fused_mlp.scratch_bytes(n_pad, C, False, "bfloat16"))
     gp = _grads(nerf.apply, params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     g64 = _grads(nerf.apply, bridge.tree_map(lambda t: t.double(), params),
                  pts.double(), vd.double(), **kw)
@@ -202,13 +212,9 @@ def test_staged_weight_gradients_do_not_depend_on_the_split_count(card):
 
 
 def _filled_scratch(view_pe, n, C=3, seed=0):
-    if view_pe:
-        n_pad, x_scr, d_scr = fused_mlp.bwd_scratch(n, "cuda")
-    else:
-        n_pad, x_scr, d_scr, _ = staged_mlp.bwd_scratch(n, C, "cuda")
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    return n_pad, x_scr.normal_(generator=g), d_scr.normal_(generator=g)
+    """An fp32 scratch of normal numbers (the pass's work does not depend on
+    the values)."""
+    return _smoke().wgrad_scratch(torch, view_pe, n, C, seed)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -216,21 +222,37 @@ def _filled_scratch(view_pe, n, C=3, seed=0):
 @pytest.mark.parametrize("n", [111, 320, 4000])
 def test_weight_gradient_pass_matches_float64(card, n, view_pe, compute_dtype):
     """The TMA + wgmma weight-gradient pass alone, K2's and K4's job tables,
-    against the float64 product of the same scratch (bf16 mode: of its
-    bf16-rounded operands), every job within chip_smoke.py's WGRAD_TOL
-    (1e-5) x max |ref|, at split counts that leave chunks empty (111 points
-    at 32 splits), ragged or whole."""
+    against the float64 product of the same scratch (bf16 mode: on the bf16
+    format of that scratch, fused_mlp.bf16_scratch_plain, against the
+    float64 product of its bf16-rounded operands and the float64 sums of
+    its fp32 D rows), every job within chip_smoke.py's WGRAD_TOL (1e-5) x
+    max |ref|, at split counts that leave chunks empty (111 points at 32
+    splits), ragged or whole."""
     C = 3
-    n_pad, x_scr, d_scr = _filled_scratch(view_pe, n, C)
-    ref = fused_mlp.wgrad_plain(x_scr, d_scr, n_pad, C, view_pe, compute_dtype)
+    scr = _filled_scratch(view_pe, n, C)
+    ref = fused_mlp.wgrad_plain(scr, C, view_pe, compute_dtype)
+    if compute_dtype == "bfloat16":
+        scr = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
     for splits in (1, 7, 32):
-        got = fused_mlp.run_wgrad(x_scr, d_scr, n_pad, C, splits, compute_dtype,
-                                  view_pe)
+        got = fused_mlp.run_wgrad(scr, C, splits, view_pe)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all())
         for name, off, size in fused_mlp.wgrad_ranges(C, view_pe):
             a, b = got[off:off + size].double(), ref[off:off + size]
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
+
+
+@pytest.mark.parametrize("view_pe", [True, False], ids=["K2", "K4"])
+@pytest.mark.parametrize("R,S", [(1, 1), (7, 9), (5, 13), (8, 25)],
+                         ids=["n1", "n63", "n65", "n200"])
+def test_bf16_tile_pass_scratch_beside_its_bf16_rows(card, view_pe, R, S):
+    """The bf16 format the tile pass writes (chip_smoke.check_tile_sums):
+    its fp32 rows round to its bf16 rows, its cotangent rows are the input,
+    and each tile sum of a D row is within (2^-8 + 2^-18) x sum |d| of the
+    float64 sum of that tile's bf16 row (bf16's rounding and fp32's), at
+    ragged n."""
+    r = _smoke().check_tile_sums(torch, view_pe, R, S)
+    assert r["tile_sum_gap_over_bound"] <= 1.0
 
 
 # ---- the wgmma layer products (csrc/wgmma_layer.cuh) at ragged sizes -------
@@ -525,7 +547,7 @@ def test_launch_counters_count_replays(card):
     before, graphs = mlp_ops.counts(), dict(step_mod.GRAPHS)
     for _ in range(3):
         state, _ = multi_fn(state, batch, cfg.seed)
-    fused, staged, routes = mlp_ops.counts_since(before)
+    fused, staged, routes, _ = mlp_ops.counts_since(before)
     assert fused == {"fused_mlp_fwd": 24, "fused_mlp_bwd": 24,
                      "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
     assert set(staged.values()) == {0} and routes == {"plain": 0}
@@ -742,7 +764,7 @@ def test_one_rank_nccl_capture_equals_the_unmeshed_capture(nccl_mesh, views_ch):
     for x, y in zip(_state_tensors(a), _state_tensors(b)):
         assert torch.equal(x, y)
     assert mesh_mod.COLLECTIVES["all_reduce"] - coll["all_reduce"] == 8
-    fused, staged, routes = mlp_ops.counts_since(before)
+    fused, staged, routes, _ = mlp_ops.counts_since(before)
     if views_ch == 27:
         assert fused["fused_mlp_fwd"] == fused["fused_mlp_bwd"] == 32
         assert routes == {"plain": 0}
@@ -786,7 +808,7 @@ def test_cli_test_renders_a_card_run_through_k1(card, tmp_path):
                                  "--optimize_trans", "True",
                                  "--extract_poses", "True", "--render_images",
                                  "True", "--render_video", "True"))
-    fused, staged, routes = mlp_ops.counts_since(before)
+    fused, staged, routes, _ = mlp_ops.counts_since(before)
     assert fused == {"fused_mlp_fwd": 2 * (19 + 90), "fused_mlp_bwd": 0,
                      "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
     assert set(staged.values()) == {0} and routes == {"plain": 0}
@@ -847,7 +869,7 @@ def test_reference_tar_imports_onto_the_card(card, tmp_path):
         on_card, poses, cli_test.intrinsics(cfg)[2], 40, 40,
         renderer.RenderSettings.from_config(cfg), chunk=cfg.chunk,
         device=torch.device("cuda")))
-    fused, _, routes = mlp_ops.counts_since(before)
+    fused, _, routes, _ = mlp_ops.counts_since(before)
     assert fused["fused_mlp_fwd"] == 4 and fused["fused_mlp_bwd"] == 0
     assert routes == {"plain": 0}
     assert all(f["rgb"].shape == (40, 40, 3) for f in fr)

@@ -2,15 +2,17 @@
 csrc/fused_mlp_bwd_common.cuh), on the CPU.
 
 - a plain torch emulation of the pass's arithmetic: the point axis cut into
-  `splits` chunks whose ends are multiples of the 32-point stage (as
-  fmlp::weight_gradients cuts it); each stage's product in the kernel's
-  mode into a fresh fp32 sum, added to the chunk's running fp32 sum (the
-  promotion every stage); the chunk partials summed in chunk order
+  `splits` chunks whose ends are multiples of the stage (32 points, BF16's
+  128, as fmlp::weight_gradients cuts it); each stage's product in the
+  kernel's mode into a fresh fp32 sum, added to the chunk's running fp32
+  sum (the promotion every stage); the chunk partials summed in chunk order
   (reduce_kernel). TF32X3: big = cvt.rna(x), written back to the stage;
   small = x - big, which the tensor core reads with its low 13 bits
   dropped; small*big + big*small + big*big. BF16: operands rounded to bf16
   (rn). The sums of D's rows (the biases) and the thin jobs (the 1- and
-  C-column heads and their biases) stay fp32;
+  C-column heads and their biases) stay fp32: in TF32X3 each stage's sum
+  of D's fp32 rows, in BF16 the tile pass's sums of each 64-point tile,
+  added per chunk in tile order;
 - on a contraction 12,288 points deep, TF32X3 holds float64 to WGRAD_GATE x
   scale at every split count, where one TF32 product misses it by two
   orders of magnitude; BF16 holds the float64 product of its bf16-rounded
@@ -20,7 +22,13 @@ csrc/fused_mlp_bwd_common.cuh), on the CPU.
   the job table `fused_mlp.wgrad_jobs`), the emulation and the pass's plain
   version (`run_wgrad` on CPU tensors) give the JAX package's weight
   gradients (jax.grad of benerf_tpu nerf.apply), for K2's table and K4's;
-- the job table covers the packed gradient vector once.
+- the job table covers the packed gradient vector once;
+- BF16's scratch format (csrc/fused_mlp_bwd_common.cuh: the products' rows
+  as bf16, fp32 side rows, tile sums of D), built from an fp32 scratch by
+  `fused_mlp.bf16_scratch_plain`, gives the pass's plain version the same
+  float64 products bit for bit as the fp32 scratch with bf16 operands, the
+  same heads, and the biases to the rounding of a reordered fp32 sum; its
+  sizes are the library's mirror `scratch_sizes`.
 The card tests (tests/test_torch_cuda.py) hold the kernel itself to the
 float64 product.
 """
@@ -40,6 +48,7 @@ from benerf_tpu_torch.models import embedder as temb
 from benerf_tpu_torch.ops import fused_mlp
 
 KS = 32                # points a stage (wg::KS)
+B_KS = 128             # BF16's points a stage (wg::B_KS)
 DEEP = 12_288          # ~ a chunk at the fine call and splits = 32
 # TF32X3 (and BF16 against its rounded operands) vs float64, x max |ref|:
 # the emulation sits at 2e-7 to 6e-7 for 1 to 32 splits; one TF32 product at
@@ -50,9 +59,9 @@ WGRAD_GATE = 2e-6
 # ---- the emulation ------------------------------------------------------------
 
 
-def _chunks(n_pad, splits):
+def _chunks(n_pad, splits, ks=KS):
     chunk = -(-n_pad // splits)
-    chunk = -(-chunk // KS) * KS
+    chunk = -(-chunk // ks) * ks
     return [(z * chunk, min(z * chunk + chunk, n_pad)) for z in range(splits)]
 
 
@@ -71,16 +80,33 @@ def _stage_products(xs, ds, mode):
 
 
 def emulate_product(x, d, mode, splits):
-    """x (I, n_pad) @ d (O, n_pad)^T as the pass computes it, fp32."""
+    """x (I, n_pad) @ d (O, n_pad)^T as the pass computes it, fp32: BF16
+    in stages (and chunks) of B_KS points, the others of KS."""
     I, O = x.shape[0], d.shape[0]
+    ks = B_KS if mode == "bf16" else KS
     out = torch.zeros(I, O)
-    for k0, k1 in _chunks(x.shape[1], splits):
+    for k0, k1 in _chunks(x.shape[1], splits, ks):
         acc = torch.zeros(I, O)
         if k1 > k0:
-            xs = x[:, k0:k1].reshape(I, -1, KS).transpose(0, 1)
-            ds = d[:, k0:k1].reshape(O, -1, KS).transpose(0, 1)
+            xs = x[:, k0:k1].reshape(I, -1, ks).transpose(0, 1)
+            ds = d[:, k0:k1].reshape(O, -1, ks).transpose(0, 1)
             for part in _stage_products(xs, ds, mode):
                 acc += part
+        out += acc
+    return out
+
+
+def emulate_tile_bias(d, splits):
+    """BF16's bias of D rows d (O, n_pad): each 64-point tile's fp32 sum
+    (the tile pass), the tiles that start in a chunk added in tile order,
+    the chunks in chunk order (reduce_kernel)."""
+    tp = fused_mlp.TILE
+    tiles = d.reshape(d.shape[0], -1, tp).sum(-1)
+    out = torch.zeros(d.shape[0])
+    for k0, k1 in _chunks(d.shape[1], splits, B_KS):
+        acc = torch.zeros(d.shape[0])
+        for t in range(-(-k0 // tp), -(-k1 // tp)):
+            acc += tiles[:, t]
         out += acc
     return out
 
@@ -92,7 +118,9 @@ def emulate_pass(X, D, C, view_pe, mode, splits):
     out = torch.zeros(fused_mlp._offsets(fused_mlp._layout(C, view_pe))[-1])
     for q, (_, x0, I, d0, O, off, bias) in enumerate(products + thin):
         d = D[d0:d0 + O]
-        if bias >= 0:  # summed in fp32 while the kernel splits D
+        if bias >= 0 and mode == "bf16":  # the tile pass's sums
+            out[bias:bias + O] = emulate_tile_bias(d, splits)
+        elif bias >= 0:  # summed in fp32 while the kernel splits D
             out[bias:bias + O] = emulate_product(
                 torch.ones_like(d[:1]), d, "fp32", splits).reshape(-1)
         x = X[x0:x0 + I] if x0 >= 0 else torch.ones_like(d[:1])
@@ -221,14 +249,17 @@ def test_emulated_pass_gives_the_jax_weight_gradients(small_nerf, mode, view_pe)
         a, b = got[offs[q]:offs[q + 1]], want[offs[q]:offs[q + 1]]
         if b.numel():
             assert _rel(a, b) <= NERF_TOL[mode], name
-    if mode == "tf32x3":  # the pass's plain version, the CPU path of run_wgrad
-        plain = fused_mlp.run_wgrad(X.reshape(-1), D.reshape(-1), n_pad, 3,
-                                    view_pe=view_pe)
-        assert plain.dtype == torch.float32 and plain.shape == want.shape
-        for q, (name, _) in enumerate(layout):
-            a, b = plain[offs[q]:offs[q + 1]], want[offs[q]:offs[q + 1]]
-            if b.numel():
-                assert _rel(a, b) <= NERF_TOL[mode], name
+    # the pass's plain version, the CPU path of run_wgrad: on the fp32
+    # scratch, and in bf16 on the bf16 format of it
+    scr = fused_mlp.Scratch(n_pad, "float32", X.reshape(-1), D.reshape(-1))
+    if mode == "bf16":
+        scr = fused_mlp.bf16_scratch_plain(scr, 3, view_pe)
+    plain = fused_mlp.run_wgrad(scr, 3, view_pe=view_pe)
+    assert plain.dtype == torch.float32 and plain.shape == want.shape
+    for q, (name, _) in enumerate(layout):
+        a, b = plain[offs[q]:offs[q + 1]], want[offs[q]:offs[q + 1]]
+        if b.numel():
+            assert _rel(a, b) <= NERF_TOL[mode], name
 
 
 @pytest.mark.parametrize("view_pe,C", [(True, 1), (True, 7), (False, 3),
@@ -250,3 +281,91 @@ def test_job_table_covers_the_packed_vector_once(view_pe, C):
     assert len(products) == (12 if view_pe else 11)
     k2 = [j[:5] for j in fused_mlp.wgrad_jobs(C, True)[0]]
     assert [j[:5] for j in products] == k2[:len(products)]
+
+
+# ---- BF16's scratch format ---------------------------------------------------------
+
+
+def _random_scratch(view_pe, C, tiles=5, seed=3):
+    """An fp32 scratch of normal numbers, K2's rows (view_pe) or K4's."""
+    n_pad = tiles * fused_mlp.TILE
+    sizes = fused_mlp.scratch_sizes(n_pad, C, view_pe)
+    g = torch.Generator().manual_seed(seed)
+    return fused_mlp.Scratch(n_pad, "float32",
+                             torch.randn(sizes[0], generator=g),
+                             torch.randn(sizes[1], generator=g))
+
+
+# the biases from fp32 tile sums against float64 sums of the fp32 rows, x the
+# range's largest entry: the tile sums' rounding to fp32 (2^-24 each)
+BIAS_TOL = 1e-6
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("view_pe", [True, False], ids=["K2", "K4"])
+def test_bf16_scratch_gives_the_pass_of_the_fp32_scratch_in_bf16(view_pe, C):
+    """wgrad_plain on the bf16 format of a random fp32 scratch against
+    wgrad_plain on that scratch with bf16 operands: every product bit for
+    bit in float64, the heads too (their fp32 rows are copies), each bias
+    within BIAS_TOL of its range's largest entry."""
+    scr = _random_scratch(view_pe, C)
+    ref = fused_mlp.wgrad_plain(scr, C, view_pe, "bfloat16")
+    b16 = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
+    got = fused_mlp.wgrad_plain(b16, C, view_pe)
+    products, thin = fused_mlp.wgrad_jobs(C, view_pe)
+    for name, _, I, _, O, off, bias in products + thin:
+        assert torch.equal(got[off:off + I * O], ref[off:off + I * O]), name
+        if bias >= 0:
+            a, b = got[bias:bias + O], ref[bias:bias + O]
+            assert float((a - b).abs().max()) <= BIAS_TOL * float(b.abs().max()), name
+    # and the plain version refuses fp32 operands of a bf16 scratch
+    with pytest.raises(ValueError):
+        fused_mlp.wgrad_plain(b16, C, view_pe, "float32")
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("view_pe", [True, False], ids=["K2", "K4"])
+def test_bf16_scratch_has_the_library_sizes(view_pe, C):
+    """The plain bf16 format fills the sizes of `scratch_sizes` (the
+    library's, checked at load) with the row map its job table reads: the
+    thin jobs' side rows hold h7, hv and the cotangent of the fp32 scratch,
+    K4's d vb rows its D_HV rows; bf16 rows are the fp32 ones rounded, in
+    blocks of a tile's 64 points."""
+    scr = _random_scratch(view_pe, C)
+    n_pad = scr.n_pad
+    b16 = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
+    sizes = fused_mlp.scratch_sizes(n_pad, C, view_pe, "bfloat16")
+    assert (b16.x.numel(), b16.d.numel(), b16.side.numel(), b16.bsum.numel()) == sizes[:4]
+    assert b16.x.dtype == b16.d.dtype == torch.bfloat16
+    X, D, side = scr.x.view(-1, n_pad), scr.d.view(-1, n_pad), b16.side.view(-1, n_pad)
+    _, thin = fused_mlp.wgrad_jobs(C, view_pe)
+    _, thin_b = fused_mlp.wgrad_jobs(C, view_pe, "bfloat16")
+    for (name, x0, I, d0, O, *_), (_, xb, _, db, *_) in zip(thin, thin_b):
+        assert torch.equal(side[db:db + O], D[d0:d0 + O]), name
+        if x0 >= 0:
+            assert torch.equal(side[xb:xb + I], X[x0:x0 + I]), name
+    if not view_pe:
+        assert sizes[4] == fused_mlp.SIDE_DHV
+        assert torch.equal(side[sizes[4]:sizes[4] + 128],
+                           D[fused_mlp.D_HV:fused_mlp.D_G])
+    rows = fused_mlp.x_rows_bf16(view_pe)
+    assert torch.equal(b16.rows("x"), X[:rows].to(torch.bfloat16))
+    assert torch.equal(b16.rows("d"), D[:fused_mlp.D_G].to(torch.bfloat16))
+    # tile-blocked: a tile's 64 points of a row, then its next row
+    t = fused_mlp.TILE
+    assert torch.equal(b16.x[t:2 * t], X[1, :t].to(torch.bfloat16))
+    assert torch.equal(b16.x[rows * t:rows * t + t], X[0, t:2 * t].to(torch.bfloat16))
+    products, _ = fused_mlp.wgrad_jobs(C, view_pe, "bfloat16")
+    assert all(x0 + I <= rows and d0 + O <= fused_mlp.BIAS_ROWS
+               for _, x0, I, d0, O, *_ in products)
+
+
+@pytest.mark.parametrize("view_pe,fp32,bf16", [(True, 19_872, 11_384),
+                                               (False, 19_728, 11_816)],
+                         ids=["K2", "K4"])
+def test_bf16_scratch_bytes_a_point(view_pe, fp32, bf16):
+    """At C = 3: K2's fp32 scratch 19,872 B a point, its bf16 format 11,384
+    (-43%); K4's 19,728 and 11,816."""
+    n_pad = 6110 * fused_mlp.TILE
+    assert fused_mlp.scratch_bytes(n_pad, 3, view_pe) == fp32 * n_pad
+    assert fused_mlp.scratch_bytes(n_pad, 3, view_pe, "bfloat16") == bf16 * n_pad

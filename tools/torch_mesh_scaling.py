@@ -79,8 +79,8 @@ def rank_run(args):
         t0 = time.perf_counter()
         loop.train(cfg, scene, device=device)
         wall = time.perf_counter() - t0
-        fused, _, routes, coll = mlp_ops.counts_since(before,
-                                                      step_mod.COUNTERS)
+        fused, _, routes, _, coll = mlp_ops.counts_since(before,
+                                                         step_mod.COUNTERS)
         if rank == 0:
             with open(os.path.join(logdir, "0", "metrics.jsonl")) as f:
                 recs = [json.loads(line) for line in f]
