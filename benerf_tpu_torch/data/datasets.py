@@ -81,7 +81,7 @@ def _list_images(d: str):
     ]
 
 
-def _load_image_stack(datadir: str, sub: str, gray: bool, index: int):
+def load_image_stack(datadir: str, sub: str, gray: bool, index: int):
     files = _list_images(os.path.join(datadir, sub))
     img = _imread(files[index])
     if gray:
@@ -185,8 +185,8 @@ def load_scene(datadir: str, cfg, device=None) -> SceneData:
     has_gt = cfg.dataset in ("BeNeRF_Blender", "BeNeRF_Unreal",
                              "E2NeRF_Synthetic")
 
-    image = _load_image_stack(datadir, "images", gray, cfg.index)
-    imgtest = (_load_image_stack(datadir, "images_test", gray, cfg.index)
+    image = load_image_stack(datadir, "images", gray, cfg.index)
+    imgtest = (load_image_stack(datadir, "images_test", gray, cfg.index)
                if has_gt else None)
 
     img_s, img_e, evt_s, evt_e = load_timestamps(datadir, cfg)

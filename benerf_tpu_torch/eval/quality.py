@@ -189,7 +189,7 @@ def run_quality(workdir: str, iters: int = 4000, evals: int = 4,
         # inject it for metrics only (never touches training).
         scene = dataclasses.replace(
             scene,
-            imgtest=datasets._load_image_stack(
+            imgtest=datasets.load_image_stack(
                 datadir, "images_test", cfg.channels == 1, 0
             ),
         )

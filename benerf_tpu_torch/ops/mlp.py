@@ -25,18 +25,16 @@ import torch
 
 from benerf_tpu_torch.core import profiling
 from benerf_tpu_torch.models import nerf as nerf_model
-from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
 
 # card calls that took the plain route (the kernels count their launches)
 ROUTES = {"plain": 0}
-# every launch and route counter of the card path. The wrappers count on the
-# host where they launch, which a CUDA graph's replay does not pass through:
+# every launch and route counter of the card path. The launches count on the
+# host (mlp_kernels.call), which a CUDA graph's replay does not pass through:
 # train/step.py counts what a captured step launched (counts_since) and adds
 # it at each replay (add_counts), so the counters count launches on the card
-# whether a graph replays them or not; the backward's scratch bytes
-# (fused_mlp.SCRATCH_BYTES) the same way.
-COUNTERS = (fused_mlp.LAUNCHES, staged_mlp.LAUNCHES, ROUTES,
-            fused_mlp.SCRATCH_BYTES)
+# whether a graph replays them or not.
+COUNTERS = (mlp_kernels.LAUNCHES, ROUTES)
 
 
 def counts(counters=COUNTERS):

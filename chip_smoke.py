@@ -180,17 +180,6 @@ TC_PEAK = {"float32": 495e12 / 3,   # TF32X3: three TF32 products a FLOP
            "bfloat16": 989e12}      # dense bf16
 MODE_NAME = {"float32": "tf32x3", "bfloat16": "bf16"}
 HBM_BYTES_S = 3.35e12        # H100 SXM HBM3
-def scratch_point_bytes(C, view_pe, compute_dtype):
-    """The backward's scratch a point, each way (fused_mlp.scratch_bytes):
-    a cost of K2's and K4's two-pass design, not of the function, so
-    outside its bound (reported as scratch_floor_ms). fp32 in fp32 mode
-    (K2 19,872 B), the bf16 format in bf16 mode (K2 11,384 B at C = 3);
-    K4's has no view-encoding rows and C + 1 cotangent rows."""
-    from benerf_tpu_torch.ops import fused_mlp
-
-    n_pad = 64 * fused_mlp.TILE
-    return fused_mlp.scratch_bytes(n_pad, C, view_pe, compute_dtype) / n_pad
-
 # the weight-gradient pass alone against the float64 product of the same
 # scratch (bf16 mode: of its bf16-rounded operands), per job, x max |ref|:
 # its TF32X3 (or bf16-operand) products with fp32 sums promoted every 32
@@ -230,27 +219,27 @@ def kernel_spills(build_log):
 def check_weight_copies(torch):
     """The weights' wgmma copies (csrc/wgmma_layer.cuh prep_kernel, run
     inside every K1 and K3 launch) against their plain version,
-    fused_mlp.prepare_weights_plain, bit for bit: K1/K2's and K3/K4's
+    mlp_kernels.prepare_weights_plain, bit for bit: K1/K2's and K3/K4's
     tables, both modes, on the training path's weights -> {table/mode:
     {"bits_differing", "ms", "plain_ms"}}."""
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     out = {}
     for view_pe in (True, False):
         params, _, _, _, _ = _inputs(torch, 1, 1, 3, 5, False,
                                      views_ch=27 if view_pe else 39)
-        packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
+        packed = mlp_kernels.pack_params(params, view_pe=view_pe).contiguous()
         for cd in ("float32", "bfloat16"):
-            got = fused_mlp.prepare_weights(packed, 3, view_pe, cd)
-            want = fused_mlp.prepare_weights_plain(packed, view_pe, cd)
+            got = mlp_kernels.prepare_weights(packed, 3, view_pe, cd)
+            want = mlp_kernels.prepare_weights_plain(packed, view_pe, cd)
             bits = torch.int16 if cd == "bfloat16" else torch.int32
             bad = int((got.view(bits) != want.view(bits)).sum())
             key = f"{'K1/K2' if view_pe else 'K3/K4'} {MODE_NAME[cd]}"
             out[key] = {
                 "bits_differing": bad,
-                "ms": time_ms(torch, lambda: fused_mlp.prepare_weights(
+                "ms": time_ms(torch, lambda: mlp_kernels.prepare_weights(
                     packed, 3, view_pe, cd)),
-                "plain_ms": time_ms(torch, lambda: fused_mlp.prepare_weights_plain(
+                "plain_ms": time_ms(torch, lambda: mlp_kernels.prepare_weights_plain(
                     packed, view_pe, cd))}
             print(f"  weight copies {key}: {bad} of {got.numel()} values differ "
                   f"from the plain version; {out[key]['ms']:.4f} ms (plain "
@@ -338,7 +327,7 @@ def _grads(torch, fn, params, pts, vd, **kw):
     return torch.autograd.grad(loss, leaves + [x, v])
 
 
-def check_bwd(torch, which, R, S, C, barf, seed=0, splits=None):
+def check_bwd(torch, which, R, S, C, barf, seed=0):
     """K2 or K4 vs autograd through nerf.apply: gradients of sum(sin(out))
     w.r.t. every weight, pts and viewdirs.
 
@@ -356,8 +345,7 @@ def check_bwd(torch, which, R, S, C, barf, seed=0, splits=None):
     name = which.split("/")[1]
     params, pts, vd, bw, bwv = _inputs(torch, R, S, C, seed, barf, views_ch)
     kw = {**kw, **_barf_kw(bw, bwv)}
-    gk = _grads(torch, op, params, pts, vd, **kw,
-                **({} if splits is None else {"splits": splits}))
+    gk = _grads(torch, op, params, pts, vd, **kw)
     gp = _grads(torch, nerf.apply, params, pts, vd, **kw)
     torch.cuda.synchronize()
     n_w = len(gp) - 2
@@ -449,17 +437,46 @@ def check_bf16(torch, which, R, S, C, barf, seed=0):
                 plain_points_rms_vs_f64=pp)
 
 
-def check_splits(torch, which, g_default, tol):
-    """The backward kernel at 7 splits against `g_default` (its default
-    split count) on the fine shape: weight gradients within tol x scale,
-    per-point gradients bitwise equal (they do not pass the reduction)."""
+def check_splits(torch, which, tol, R=RAYS, S=128, counts=(32, 7), seed=2):
+    """The backward kernel (K2 or K4, fp32 mode, C = 3) launched at each
+    split count of `counts` on the same inputs and cotangent (that of
+    sum(sin(out))): its weight gradients, leaf by leaf, within tol x scale
+    of the first count's; d pts and d of the per-ray input bitwise equal
+    (they do not pass the reduction)."""
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
+
     name = which.split("/")[1]
-    g7 = check_bwd(torch, which, RAYS, 128, 3, False, seed=2, splits=7)[3]
-    worst = max(_max_err(a, b)[0] / _max_err(a, b)[1]
-                for a, b in zip(g7[:-2], g_default[:-2]))
-    same_points = all(torch.equal(a, b) for a, b in zip(g7[-2:], g_default[-2:]))
-    print(f"  {name} splits 7 vs 32: weight grads worst diff/scale {worst:.3e}; "
-          f"per-point grads bitwise equal: {same_points}")
+    pair = mlp_kernels.FUSED if which == "K1/K2" else mlp_kernels.STAGED
+    params, pts, vd, _, _ = _inputs(torch, R, S, 3, seed, False,
+                                    views_ch=27 if pair.view_pe else 39)
+    packed = mlp_kernels.pack_params(params, pair.view_pe).detach().contiguous()
+    x = pts.reshape(R * S, 3).contiguous()
+    if pair.view_pe:
+        ray, band = vd, fused_mlp.band_weights(None, None, "cuda")
+    else:
+        with torch.no_grad():
+            ray, band = staged_mlp.view_bias(params, vd, 6).contiguous(), None
+    prep = mlp_kernels.prep_buffer(pair.view_pe, "float32", "cuda")
+    g = torch.cos(mlp_kernels.launch_fwd(pair, packed, x, ray, band, S, 3,
+                                         prep=prep))
+    runs = [mlp_kernels.launch_bwd(pair, packed, x, ray, band, g, S, 3,
+                                   prep=prep, splits=n) for n in counts]
+
+    def leaves(dpacked):
+        """The weight gradient by parameter leaf (wh and b stack a layer
+        each)."""
+        entries = mlp_kernels.unpack(dpacked, 3, pair.view_pe).items()
+        return [t for k, v in entries
+                for t in (v.unbind(0) if k in ("wh", "b") else (v,)) if t.numel()]
+
+    want = leaves(runs[0][0])
+    worst, same_points = 0.0, True
+    for run in runs[1:]:
+        worst = max([worst] + [_max_err(a, b)[0] / _max_err(a, b)[1]
+                               for a, b in zip(leaves(run[0]), want)])
+        same_points &= all(torch.equal(a, b) for a, b in zip(run[1:], runs[0][1:]))
+    print(f"  {name} splits {counts[1:]} vs {counts[0]}: weight grads worst "
+          f"diff/scale {worst:.3e}; per-point grads bitwise equal: {same_points}")
     if not (worst <= tol and same_points):
         raise AssertionError(f"{name} depends on the split count: {worst}")
 
@@ -484,12 +501,12 @@ def time_kernels(torch, S, C=3, compute_dtype="float32"):
     """(K1 ms, plain fwd ms, K2 ms, plain fwd+bwd ms) at n = RAYS * S in the
     kernels' mode for `compute_dtype`; the plain version runs in it too."""
     from benerf_tpu_torch.models import bridge, nerf
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels
 
     params, pts, vd, _, _ = _inputs(torch, RAYS, S, C, 1, False)
     n = RAYS * S
     cd = None if compute_dtype == "float32" else torch.bfloat16
-    packed = fused_mlp.pack_params(params).contiguous()
+    packed = mlp_kernels.pack_params(params).contiguous()
     band = fused_mlp.band_weights(None, None, "cuda")
     x = pts.reshape(n, 3).contiguous()
     g = torch.randn((n, C + 1), device="cuda")
@@ -507,11 +524,12 @@ def time_kernels(torch, S, C=3, compute_dtype="float32"):
 
     # K1's launch writes the weights' wgmma copies that K2 reads, as on the
     # path
-    prep = fused_mlp.prep_buffer(True, compute_dtype, "cuda")
-    k1 = time_ms(torch, lambda: fused_mlp.launch_fwd(packed, x, vd, band, S, C,
-                                                     compute_dtype, prep=prep))
-    k2 = time_ms(torch, lambda: fused_mlp.launch_bwd(
-        packed, x, vd, band, g, S, C, compute_dtype=compute_dtype, prep=prep))
+    prep = mlp_kernels.prep_buffer(True, compute_dtype, "cuda")
+    fused = mlp_kernels.FUSED
+    k1 = time_ms(torch, lambda: mlp_kernels.launch_fwd(
+        fused, packed, x, vd, band, S, C, compute_dtype, prep=prep))
+    k2 = time_ms(torch, lambda: mlp_kernels.launch_bwd(
+        fused, packed, x, vd, band, g, S, C, compute_dtype, prep=prep))
     p1 = time_ms(torch, plain_fwd)
     p2 = time_ms(torch, plain_fwd_bwd)
     return k1, p1, k2, p2
@@ -522,14 +540,14 @@ def time_eval_k1(torch, C=3):
     64 (coarse) and x 128 (fine), no grad: {n: times and bound}. Bytes and
     operations as _per_n_fused counts them for the forward."""
     from benerf_tpu_torch.models import nerf
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels
 
-    weights = fused_mlp._offsets(fused_mlp._layout(C))[-1]
+    weights = mlp_kernels.packed_size(C)
     out = {}
     for S in (64, 128):
         params, pts, vd, _, _ = _inputs(torch, EVAL_RAYS, S, C, 4, False)
         n = EVAL_RAYS * S
-        packed = fused_mlp.pack_params(params).contiguous()
+        packed = mlp_kernels.pack_params(params).contiguous()
         band = fused_mlp.band_weights(None, None, "cuda")
         x = pts.reshape(n, 3).contiguous()
 
@@ -537,9 +555,9 @@ def time_eval_k1(torch, C=3):
             with torch.no_grad():
                 nerf.apply(params, pts, vd)
 
-        prep = fused_mlp.prep_buffer(True, "float32", "cuda")
-        d = dict(fwd_ms=time_ms(torch, lambda: fused_mlp.launch_fwd(
-            packed, x, vd, band, S, C, "float32", prep=prep)),
+        prep = mlp_kernels.prep_buffer(True, "float32", "cuda")
+        d = dict(fwd_ms=time_ms(torch, lambda: mlp_kernels.launch_fwd(
+            mlp_kernels.FUSED, packed, x, vd, band, S, C, "float32", prep=prep)),
             fwd_plain_ms=time_ms(torch, plain))
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(
             flops_fwd_per_point() * n, TC_PEAK["float32"],
@@ -556,33 +574,34 @@ def time_tile_pass(torch, S, C=3, compute_dtype="float32", view_pe=True):
     RAYS * S, ms: its C entry (fused_mlp_tile / staged_mlp_tile) on the
     weights' wgmma copies a forward launch wrote. K4 runs with a view
     encoding of L = 6, as on its path."""
-    from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
 
     params, pts, vd, _, _ = _inputs(torch, RAYS, S, C, 1, False,
                                     views_ch=27 if view_pe else 39)
     n = RAYS * S
-    packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
+    packed = mlp_kernels.pack_params(params, view_pe=view_pe).contiguous()
     x = pts.reshape(n, 3).contiguous()
     g = torch.randn((n, C + 1), device="cuda")
-    prep = fused_mlp.prepare_weights(packed, C, view_pe, compute_dtype)
+    prep = mlp_kernels.prepare_weights(packed, C, view_pe, compute_dtype)
     if view_pe:
         band = fused_mlp.band_weights(None, None, "cuda")
-        return time_ms(torch, lambda: fused_mlp.run_tile(
-            packed, x, vd, band, g, S, C, compute_dtype, prep=prep))
+        return time_ms(torch, lambda: mlp_kernels.run_tile(
+            mlp_kernels.FUSED, packed, x, vd, band, g, S, C, compute_dtype,
+            prep=prep))
     with torch.no_grad():
         vb = staged_mlp.view_bias(params, vd, 6, compute_dtype).contiguous()
-    return time_ms(torch, lambda: staged_mlp.run_tile(
-        packed, x, vb, g, S, C, compute_dtype, prep=prep))
+    return time_ms(torch, lambda: mlp_kernels.run_tile(
+        mlp_kernels.STAGED, packed, x, vb, None, g, S, C, compute_dtype,
+        prep=prep))
 
 
 def wgrad_scratch(torch, view_pe, n, C=3, seed=3):
-    """A float32 backward scratch (fused_mlp.Scratch) for n points (K2's
+    """A float32 backward scratch (mlp_kernels.Scratch) for n points (K2's
     rows with view_pe, else K4's), filled with normal numbers. The pass's
     work does not depend on the values."""
-    from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
-    scr = (fused_mlp.bwd_scratch(n, "cuda") if view_pe
-           else staged_mlp.bwd_scratch(n, C, "cuda")[0])
+    scr = mlp_kernels.bwd_scratch(mlp_kernels.PAIRS[view_pe], n, C, "cuda")
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     scr.x.normal_(generator=g)
@@ -593,19 +612,19 @@ def wgrad_scratch(torch, view_pe, n, C=3, seed=3):
 def check_wgrad(torch, view_pe, n, C=3):
     """The weight-gradient pass alone (K2's job table with view_pe, else
     K4's) at n points, both modes, splits 32 and 7, against
-    fused_mlp.wgrad_plain of an fp32 scratch of normal numbers: its float64
+    mlp_kernels.wgrad_plain of an fp32 scratch of normal numbers: its float64
     product (bf16 mode: the pass runs on the bf16 format of that scratch,
-    fused_mlp.bf16_scratch_plain, against the float64 product of its
+    mlp_kernels.bf16_scratch_plain, against the float64 product of its
     bf16-rounded operands; its biases against the float64 sums of the fp32
     D rows), within WGRAD_TOL x max |ref| for every job -> {mode:
     {"splits_32": worst err/scale, "splits_7": ..., "max_abs_err": ...,
     and in bf16 mode "vs_fp32_operands": distance to the float64 product of
     the unrounded scratch}}."""
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     name = "K2" if view_pe else "K4"
     scr32 = wgrad_scratch(torch, view_pe, n, C)
-    ranges = fused_mlp.wgrad_ranges(C, view_pe)
+    ranges = mlp_kernels.wgrad_ranges(C, view_pe)
 
     def worst(got, ref):
         rel, err = 0.0, 0.0
@@ -617,11 +636,11 @@ def check_wgrad(torch, view_pe, n, C=3):
 
     out = {}
     for cd in ("float32", "bfloat16"):
-        ref = fused_mlp.wgrad_plain(scr32, C, view_pe, cd)
-        scr = scr32 if cd == "float32" else fused_mlp.bf16_scratch_plain(scr32, C, view_pe)
+        ref = mlp_kernels.wgrad_plain(scr32, C, view_pe, cd)
+        scr = scr32 if cd == "float32" else mlp_kernels.bf16_scratch_plain(scr32, C, view_pe)
         r = {}
         for splits in (32, 7):
-            got = fused_mlp.run_wgrad(scr, C, splits, view_pe)
+            got = mlp_kernels.run_wgrad(scr, C, splits, view_pe)
             torch.cuda.synchronize()
             rel, err = worst(got, ref)
             if not (bool(torch.isfinite(got).all()) and rel <= WGRAD_TOL):
@@ -630,7 +649,7 @@ def check_wgrad(torch, view_pe, n, C=3):
             r[f"splits_{splits}"] = rel
             r["max_abs_err"] = max(r.get("max_abs_err", 0.0), err)
         if cd == "bfloat16":
-            r["vs_fp32_operands"] = worst(got, fused_mlp.wgrad_plain(
+            r["vs_fp32_operands"] = worst(got, mlp_kernels.wgrad_plain(
                 scr32, C, view_pe))[0]
         out[MODE_NAME[cd]] = r
         print(f"  {name} weight-gradient pass {MODE_NAME[cd]} n={n}: vs float64 "
@@ -652,42 +671,43 @@ def check_tile_sums(torch, view_pe, R, S, C=3):
     rounded value (8 significant bits), and 64 fp32 adds at most 2^-18 of
     sum |d|; zero in padding -> {"tile_sum_gap_over_bound": worst,
     "points": n}."""
-    from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
 
     params, pts, vd, _, _ = _inputs(torch, R, S, C, 5, False,
                                     views_ch=27 if view_pe else 39)
     n = R * S
-    packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
+    packed = mlp_kernels.pack_params(params, view_pe=view_pe).contiguous()
     x = pts.reshape(n, 3).contiguous()
     g = torch.randn((n, C + 1), device="cuda")
-    prep = fused_mlp.prepare_weights(packed, C, view_pe, "bfloat16")
+    prep = mlp_kernels.prepare_weights(packed, C, view_pe, "bfloat16")
     if view_pe:
         band = fused_mlp.band_weights(None, None, "cuda")
-        scr = fused_mlp.run_tile(packed, x, vd, band, g, S, C, "bfloat16",
-                                 prep=prep)[0]
+        scr = mlp_kernels.run_tile(mlp_kernels.FUSED, packed, x, vd, band, g, S,
+                                   C, "bfloat16", prep=prep)[0]
     else:
         with torch.no_grad():
             vb = staged_mlp.view_bias(params, vd, 6, "bfloat16").contiguous()
-        scr = staged_mlp.run_tile(packed, x, vb, g, S, C, "bfloat16", prep=prep)[0]
+        scr = mlp_kernels.run_tile(mlp_kernels.STAGED, packed, x, vb, None, g, S,
+                                   C, "bfloat16", prep=prep)[0]
     torch.cuda.synchronize()
     n_pad = scr.n_pad
     X, D = scr.rows("x"), scr.rows("d")
     side = scr.side.view(-1, n_pad)
-    h7 = fused_mlp.X_H + (fused_mlp.DEPTH - 1) * fused_mlp.WIDTH
-    pairs = [("h7", side[fused_mlp.SIDE_H7:fused_mlp.SIDE_HV], X[h7:fused_mlp.X_F])]
+    h7 = mlp_kernels.X_H + (mlp_kernels.DEPTH - 1) * mlp_kernels.WIDTH
+    pairs = [("h7", side[mlp_kernels.SIDE_H7:mlp_kernels.SIDE_HV], X[h7:mlp_kernels.X_F])]
     if not view_pe:
-        pairs.append(("d vb", side[fused_mlp.SIDE_DHV:fused_mlp.SIDE_DHV + 128],
-                      D[fused_mlp.D_HV:fused_mlp.D_G]))
+        pairs.append(("d vb", side[mlp_kernels.SIDE_DHV:mlp_kernels.SIDE_DHV + 128],
+                      D[mlp_kernels.D_HV:mlp_kernels.D_G]))
     for name, fp32, bf in pairs:
         if not torch.equal(fp32.to(torch.bfloat16), bf):
             raise AssertionError(f"{'K2' if view_pe else 'K4'} bf16 scratch: the fp32 "
                                  f"{name} rows do not round to its bf16 rows")
-    g0 = fused_mlp.side_g(view_pe)
+    g0 = mlp_kernels.side_g(view_pe)
     want_g = torch.zeros((C + 1, n_pad), device="cuda")
     want_g[:, :n] = g.t()
     if not torch.equal(side[g0:g0 + C + 1], want_g):
         raise AssertionError("bf16 scratch: the cotangent rows differ from the input")
-    rows = D.double().view(fused_mlp.BIAS_ROWS, n_pad // fused_mlp.TILE, fused_mlp.TILE)
+    rows = D.double().view(mlp_kernels.BIAS_ROWS, n_pad // mlp_kernels.TILE, mlp_kernels.TILE)
     ref, bound = rows.sum(-1).t(), (2.0 ** -8 + 2.0 ** -18) * rows.abs().sum(-1).t()
     gap = (scr.bsum.double() - ref).abs()
     worst = float((gap / bound.clamp_min(1e-30)).max())
@@ -705,15 +725,15 @@ def time_wgrad(torch, S, C=3, compute_dtype="float32", view_pe=True):
     job table with view_pe, else K4's. The pass runs alone on a scratch of
     random numbers, in the mode's format; torch.matmul is the yardstick
     only: the port never calls it."""
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     n = RAYS * S
     scr = wgrad_scratch(torch, view_pe, n, C)
     if compute_dtype == "bfloat16":
-        scr = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
-    k = time_ms(torch, lambda: fused_mlp.run_wgrad(scr, C, view_pe=view_pe))
+        scr = mlp_kernels.bf16_scratch_plain(scr, C, view_pe)
+    k = time_ms(torch, lambda: mlp_kernels.run_wgrad(scr, C, view_pe=view_pe))
     del scr
-    shapes = [(j[2], j[4]) for j in fused_mlp.wgrad_jobs(C, view_pe)[0]]
+    shapes = [(j[2], j[4]) for j in mlp_kernels.wgrad_jobs(C, view_pe)[0]]
     xs = torch.randn((sum(i for i, _ in shapes), n), device="cuda")
     ds = torch.randn((sum(o for _, o in shapes), n), device="cuda")
     pairs, i0, o0 = [], 0, 0
@@ -737,20 +757,19 @@ def time_wgrad(torch, S, C=3, compute_dtype="float32", view_pe=True):
     return k, times[0], times[1], times[2]
 
 
-def _wgrad_per_n(torch, per, n, C, compute_dtype, view_pe, peak, weights,
-                 scratch_b):
+def _wgrad_per_n(torch, per, n, C, compute_dtype, view_pe, peak, weights):
     """Time the weight-gradient pass at n = RAYS * S into `per` (the
     wgrad_* keys): pass and library times, the operation bound (its matrix
     products at the mode's tensor-core rate) and the byte bound (its
     scratch read once, its gradients written once)."""
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     S = n // RAYS
-    n_pad = -(-n // fused_mlp.TILE) * fused_mlp.TILE
+    n_pad = -(-n // mlp_kernels.TILE) * mlp_kernels.TILE
     kw, lib32, lib_tf32, lib_bf16 = time_wgrad(torch, S, C, compute_dtype, view_pe)
-    products = fused_mlp.wgrad_jobs(C, view_pe)[0]
+    products = mlp_kernels.wgrad_jobs(C, view_pe)[0]
     wflops = 2 * n * sum(j[2] * j[4] for j in products)
-    wbytes = scratch_b * n_pad + weights * 4
+    wbytes = mlp_kernels.scratch_bytes(n_pad, C, view_pe, compute_dtype) + weights * 4
     per.update(wgrad_ms=kw, wgrad_library_fp32_ms=lib32,
                wgrad_library_tf32_ms=lib_tf32,
                wgrad_ops_bound_ms=wflops / peak * 1e3,
@@ -763,18 +782,19 @@ def _wgrad_per_n(torch, per, n, C, compute_dtype, view_pe, peak, weights,
             f"{lib_tf32:.3f}, bf16 operands {lib_bf16:.3f})")
 
 
-def _tile_per_n(torch, per, n, C, compute_dtype, view_pe, peak, flops,
-                scratch_b):
+def _tile_per_n(torch, per, n, C, compute_dtype, view_pe, peak, flops):
     """Time the tile pass (pass (a) of K2 or K4) at n = RAYS * S into `per`
     (the tile_* keys): its time and its bound, the larger of its products
     (twice the forward's: the forward again, then the data gradients) at
     the mode's tensor-core rate and its scratch written once."""
+    from benerf_tpu_torch.ops import mlp_kernels
+
     S = n // RAYS
-    n_pad = -(-n // 64) * 64
+    n_pad = -(-n // mlp_kernels.TILE) * mlp_kernels.TILE
     t = time_tile_pass(torch, S, C, compute_dtype, view_pe)
     per["tile_ms"] = t
     per["tile_bound_ms"], per["tile_bound_by"] = _bound(
-        2 * flops, peak, scratch_b * n_pad)
+        2 * flops, peak, mlp_kernels.scratch_bytes(n_pad, C, view_pe, compute_dtype))
     return (f"tile pass {t:.3f} ms (bound {per['tile_bound_ms']:.3f} "
             f"{per['tile_bound_by']})")
 
@@ -785,12 +805,12 @@ def time_staged_kernels(torch, S, C=3, compute_dtype="float32"):
     version runs in it too. The per-ray view bias is made outside, as on
     the path."""
     from benerf_tpu_torch.models import bridge, nerf
-    from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+    from benerf_tpu_torch.ops import mlp_kernels, staged_mlp
 
     params, pts, vd, _, _ = _inputs(torch, RAYS, S, C, 1, False, views_ch=39)
     n = RAYS * S
     cd = None if compute_dtype == "float32" else torch.bfloat16
-    packed = fused_mlp.pack_params(params, view_pe=False).contiguous()
+    packed = mlp_kernels.pack_params(params, view_pe=False).contiguous()
     with torch.no_grad():
         vb = staged_mlp.view_bias(params, vd, 6, compute_dtype).contiguous()
     x = pts.reshape(n, 3).contiguous()
@@ -807,11 +827,12 @@ def time_staged_kernels(torch, S, C=3, compute_dtype="float32"):
                          compute_dtype=cd).reshape(n, C + 1)
         torch.autograd.grad(out, wrt, g)
 
-    prep = fused_mlp.prep_buffer(False, compute_dtype, "cuda")
-    k3 = time_ms(torch, lambda: staged_mlp.launch_fwd(packed, x, vb, S, C,
-                                                      compute_dtype, prep=prep))
-    k4 = time_ms(torch, lambda: staged_mlp.launch_bwd(
-        packed, x, vb, g, S, C, compute_dtype=compute_dtype, prep=prep))
+    prep = mlp_kernels.prep_buffer(False, compute_dtype, "cuda")
+    staged = mlp_kernels.STAGED
+    k3 = time_ms(torch, lambda: mlp_kernels.launch_fwd(
+        staged, packed, x, vb, None, S, C, compute_dtype, prep=prep))
+    k4 = time_ms(torch, lambda: mlp_kernels.launch_bwd(
+        staged, packed, x, vb, None, g, S, C, compute_dtype, prep=prep))
     p1 = time_ms(torch, plain_fwd)
     p2 = time_ms(torch, plain_fwd_bwd)
     return k3, p1, k4, p2
@@ -819,35 +840,24 @@ def time_staged_kernels(torch, S, C=3, compute_dtype="float32"):
 
 def reset_counts():
     """Every kernel's launch count and the plain route's count to 0."""
-    from benerf_tpu_torch.ops import fused_mlp, mlp, staged_mlp
+    from benerf_tpu_torch.ops import mlp, mlp_kernels
 
-    for d in (fused_mlp.LAUNCHES, staged_mlp.LAUNCHES, mlp.ROUTES,
-              fused_mlp.SCRATCH_BYTES):
+    for d in (mlp_kernels.LAUNCHES, mlp.ROUTES):
         for k in d:
             d[k] = 0
 
 
-def expect_scratch(key, iters, view_pe, compute_dtype, C=3):
-    """fused_mlp.SCRATCH_BYTES[key] since reset_counts: each of `iters`
-    steps allocated the scratch of one coarse and one fine call (RAYS x 64
-    and x 128 points) in the format of compute_dtype -> bytes a point."""
-    from benerf_tpu_torch.ops import fused_mlp
-
-    got = fused_mlp.SCRATCH_BYTES[key]
-    points = iters * RAYS * (64 + 128)
-    want = iters * sum(fused_mlp.scratch_bytes(RAYS * S, C, view_pe, compute_dtype)
-                       for S in (64, 128))
-    if got != want:
-        raise AssertionError(f"{key}: {got} B of scratch, expected {want}")
-    print(f"  {key}: scratch {got / points:,.1f} B a point ({compute_dtype} format)")
-    return got / points
-
-
 def counts():
-    from benerf_tpu_torch.ops import fused_mlp, mlp, staged_mlp
+    from benerf_tpu_torch.ops import mlp, mlp_kernels
 
-    return {**fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES,
-            "plain_route": mlp.ROUTES["plain"]}
+    return {**mlp_kernels.LAUNCHES, "plain_route": mlp.ROUTES["plain"]}
+
+
+def launch_keys(pair, compute_dtype):
+    """The keys of mlp_kernels.LAUNCHES of a pair's two kernels ("fused_mlp"
+    or "staged_mlp") in compute_dtype."""
+    sfx = "" if compute_dtype == "float32" else "_bf16"
+    return (f"{pair}_fwd{sfx}", f"{pair}_bwd{sfx}")
 
 
 def expect_counts(got, iters, kernels):
@@ -875,7 +885,6 @@ def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
     dispatches of LOG_EVERY: one graph captured, iters - 1 replays) with the
     MLPs in `compute_dtype` -> (ms/iter, rays/s, launch counts, wall s)."""
     from benerf_tpu_torch.core.config import load_config
-    from benerf_tpu_torch.ops import fused_mlp
     from benerf_tpu_torch.train import loop
     from benerf_tpu_torch.train import step as step_mod
 
@@ -903,10 +912,7 @@ def run_slice(torch, scene, iters=ITERS, compute_dtype="float32"):
     rates = [r["rays_per_sec"] for r in recs if "rays_per_sec" in r]
     if len(losses) != iters or not all(np.isfinite(losses)):
         raise AssertionError(f"losses not all finite: {losses}")
-    expect_counts(launches, iters, tuple(fused_mlp.launch_key(k, compute_dtype)
-                                         for k in ("fused_mlp_fwd", "fused_mlp_bwd")))
-    expect_scratch(fused_mlp.launch_key("fused_mlp_bwd", compute_dtype), iters, True,
-                   compute_dtype)
+    expect_counts(launches, iters, launch_keys("fused_mlp", compute_dtype))
     steady = rates[-1]  # the last LOG_EVERY iterations
     print(f"  {iters} iterations in {wall:.2f} s; losses {losses[0]:.5f} -> "
           f"{losses[-1]:.5f}; launches {launches}")
@@ -957,7 +963,6 @@ def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32",
     graph of the step captured, replayed), one host read per dispatch, the
     MLPs in `compute_dtype`; the dispatches after the first are timed ->
     (ms/iter, rays/s, launch counts, losses)."""
-    from benerf_tpu_torch.ops import staged_mlp
     from benerf_tpu_torch.train import step as step_mod
 
     if (iters - warmup) % L6_G or (iters - warmup) // L6_G < 2:
@@ -985,10 +990,7 @@ def run_l6_slice(torch, scene, iters=L6_ITERS, compute_dtype="float32",
     launches = counts()
     if len(losses) != iters or not all(np.isfinite(losses)):
         raise AssertionError(f"losses not all finite: {losses}")
-    expect_counts(launches, iters, tuple(staged_mlp.launch_key(k, compute_dtype)
-                                         for k in ("staged_mlp_fwd", "staged_mlp_bwd")))
-    expect_scratch(staged_mlp.launch_key("staged_mlp_bwd", compute_dtype), iters,
-                   False, compute_dtype)
+    expect_counts(launches, iters, launch_keys("staged_mlp", compute_dtype))
     expect_graphs(graphs, 1, iters - warmup - 1)
     print(f"  {iters} iterations ({warmup} single, then dispatches of {L6_G}); "
           f"losses {losses[0]:.5f} -> {losses[-1]:.5f}; launches {launches}")
@@ -1261,12 +1263,12 @@ def run_mesh_rank(rank, port, out_path):
     import torch
     import torch.distributed as dist
 
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
     from benerf_tpu_torch.parallel import mesh as mesh_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    fused_mlp.build()  # the parent built it: loads
+    mlp_kernels.build()  # the parent built it: loads
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank)
     mesh = mesh_mod.mesh_of_group(device=torch.device("cuda", 0))
@@ -1801,7 +1803,6 @@ def run_bench(torch, smi):
     tool in fp32 mode -> ({mode: the bench's line, launches, steps, wall s},
     the breakdown's result)."""
     from benerf_tpu_torch.cli import bench
-    from benerf_tpu_torch.ops import fused_mlp
     from benerf_tpu_torch.train import step as step_mod
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
@@ -1824,9 +1825,7 @@ def run_bench(torch, smi):
             line = bench.main(argv)
             wall = time.perf_counter() - t0
             launches = counts()
-            expect_counts(launches, steps, tuple(
-                fused_mlp.launch_key(k, cd)
-                for k in ("fused_mlp_fwd", "fused_mlp_bwd")))
+            expect_counts(launches, steps, launch_keys("fused_mlp", cd))
             expect_graphs(graphs, 1, steps - 1)
             if (line["model_flops_per_iter"] != BENCH_FLOPS
                     or line["card"] != smi or line["platform"] != "cuda"
@@ -1911,20 +1910,19 @@ def _per_n_fused(torch, compute_dtype, C=3):
     Operations: 1x (K1) and 3x (K2) the forward's FLOP, at the tensor-core
     rate of the mode (TC_PEAK) for the bound and at FP32_PEAK for the
     CUDA-core bound beside it. K2's scratch, written and read back
-    (scratch_point_bytes a point each way), is its design's own floor
+    (mlp_kernels.scratch_bytes each way), is its design's own floor
     (bwd_scratch_floor_ms), not part of the bound. K2's weight-gradient pass
     is timed alone too, beside torch.matmul of its products (its
     `library_ms`); its byte bound counts the scratch, which is its input."""
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     flops_pt = flops_fwd_per_point()
-    weights = fused_mlp._offsets(fused_mlp._layout(C))[-1]
+    weights = mlp_kernels.packed_size(C)
     peak = TC_PEAK[compute_dtype]
-    scratch_b = scratch_point_bytes(C, True, compute_dtype)
     out = {}
     for S in (64, 128):
         n = RAYS * S
-        n_pad = -(-n // fused_mlp.TILE) * fused_mlp.TILE
+        n_pad = -(-n // mlp_kernels.TILE) * mlp_kernels.TILE
         kf, pf, kb, pb = time_kernels(torch, S, C, compute_dtype)
         bytes_f = (n * (3 + C + 1) + RAYS * 3 + weights) * 4
         bytes_b = bytes_f + (n * (C + 1 + 3 + 3) + weights) * 4
@@ -1932,13 +1930,12 @@ def _per_n_fused(torch, compute_dtype, C=3):
         d = dict(fwd_ms=kf, fwd_plain_ms=pf, bwd_ms=kb, bwd_plain_ms=pb,
                  fwd_fp32_core_bound_ms=flops / FP32_PEAK * 1e3,
                  bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3,
-                 bwd_scratch_floor_ms=2 * scratch_b * n_pad / HBM_BYTES_S * 1e3)
+                 bwd_scratch_floor_ms=2 * mlp_kernels.scratch_bytes(
+                     n_pad, C, True, compute_dtype) / HBM_BYTES_S * 1e3)
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
-        wline = _wgrad_per_n(torch, d, n, C, compute_dtype, True, peak, weights,
-                             scratch_b)
-        tline = _tile_per_n(torch, d, n, C, compute_dtype, True, peak, flops,
-                            scratch_b)
+        wline = _wgrad_per_n(torch, d, n, C, compute_dtype, True, peak, weights)
+        tline = _tile_per_n(torch, d, n, C, compute_dtype, True, peak, flops)
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K1 {kf:.3f} ms (plain {pf:.3f}, "
               f"bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
@@ -1956,19 +1953,18 @@ def _per_n_staged(torch, compute_dtype, C=3):
     weights; backward adds the cotangent, d pts, the bias gradient and the
     weight gradients. Operations: 1x (K3) and 3x (K4) the forward's FLOP,
     at the tensor-core rate of the mode, with the fp32 CUDA-core bound
-    beside it. K4's scratch (scratch_point_bytes a point each way) is its
+    beside it. K4's scratch (mlp_kernels.scratch_bytes each way) is its
     design's own floor (bwd_scratch_floor_ms), as K2's; its weight-gradient
     pass (K4's job table) is timed alone as K2's."""
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     flops_pt = flops_fwd_per_point(views_ch=0)
-    weights = fused_mlp._offsets(fused_mlp._layout(C, view_pe=False))[-1]
+    weights = mlp_kernels.packed_size(C, view_pe=False)
     peak = TC_PEAK[compute_dtype]
-    scratch_b = scratch_point_bytes(C, False, compute_dtype)
     out = {}
     for S in (64, 128):
         n = RAYS * S
-        n_pad = -(-n // fused_mlp.TILE) * fused_mlp.TILE
+        n_pad = -(-n // mlp_kernels.TILE) * mlp_kernels.TILE
         kf, pf, kb, pb = time_staged_kernels(torch, S, C, compute_dtype)
         view = RAYS * 128
         bytes_f = (n * (3 + C + 1) + view + weights) * 4
@@ -1977,13 +1973,12 @@ def _per_n_staged(torch, compute_dtype, C=3):
         d = dict(fwd_ms=kf, fwd_plain_ms=pf, bwd_ms=kb, bwd_plain_ms=pb,
                  fwd_fp32_core_bound_ms=flops / FP32_PEAK * 1e3,
                  bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3,
-                 bwd_scratch_floor_ms=2 * scratch_b * n_pad / HBM_BYTES_S * 1e3)
+                 bwd_scratch_floor_ms=2 * mlp_kernels.scratch_bytes(
+                     n_pad, C, False, compute_dtype) / HBM_BYTES_S * 1e3)
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
         d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
-        wline = _wgrad_per_n(torch, d, n, C, compute_dtype, False, peak, weights,
-                             scratch_b)
-        tline = _tile_per_n(torch, d, n, C, compute_dtype, False, peak, flops,
-                            scratch_b)
+        wline = _wgrad_per_n(torch, d, n, C, compute_dtype, False, peak, weights)
+        tline = _tile_per_n(torch, d, n, C, compute_dtype, False, peak, flops)
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K3 {kf:.3f} ms (plain "
               f"{pf:.3f}, bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
@@ -2043,7 +2038,7 @@ def main():
         sys.exit(2)
     from benerf_tpu_torch.core.config import load_config
     from benerf_tpu_torch.data import datasets
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     t_main = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2053,13 +2048,13 @@ def main():
     smi = nvidia_smi_line()
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} | {smi}")
-    build_s = fused_mlp.build()
+    build_s = mlp_kernels.build()
     print(f"    kernel build {build_s:.1f} s")
-    for name, log in fused_mlp.BUILD_LOG.items():
+    for name, log in mlp_kernels.BUILD_LOG.items():
         for line in log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
-    spills = kernel_spills(fused_mlp.BUILD_LOG)
+    spills = kernel_spills(mlp_kernels.BUILD_LOG)
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
 
@@ -2076,7 +2071,7 @@ def main():
                 check_fwd(torch, "K1/K2", R, S, C, barf)
     k2_err, k2_outside = {}, {}
     for S, seed in ((64, 0), (128, 2)):
-        err, rel, k2_outside[RAYS * S], g32 = check_bwd(
+        err, rel, k2_outside[RAYS * S], _ = check_bwd(
             torch, "K1/K2", RAYS, S, 3, False, seed=seed)
         k2_err[RAYS * S] = (err, rel)
     for R, S in ((5, 64), (3, 37)):
@@ -2084,7 +2079,7 @@ def main():
             check_bwd(torch, "K1/K2", R, S, C, True)
     check_bwd(torch, "K1/K2", 3, 37, 3, False)
     # split-count independence on the fine shape: splits 32 (default) vs 7
-    check_splits(torch, "K1/K2", g32, 1e-4)
+    check_splits(torch, "K1/K2", 1e-4)
     print("    K2's weight-gradient pass alone vs float64 of the same scratch")
     wg2 = {n: check_wgrad(torch, True, n) for n in (RAYS * 64, RAYS * 128, 3 * 37)}
     print("    K2's tile pass in bf16 mode: its scratch's fp32 rows and tile sums")
@@ -2124,13 +2119,13 @@ def main():
             check_fwd(torch, "K3/K4", R, S, C, False)
     k4_err, k4_outside = {}, {}
     for S, seed in ((64, 0), (128, 2)):
-        err, rel, k4_outside[RAYS * S], g32 = check_bwd(
+        err, rel, k4_outside[RAYS * S], _ = check_bwd(
             torch, "K3/K4", RAYS, S, 3, False, seed=seed)
         k4_err[RAYS * S] = (err, rel)
     for R, S in ((5, 64), (3, 37)):
         for C in (1, 3, 8, 127):
             check_bwd(torch, "K3/K4", R, S, C, False)
-    check_splits(torch, "K3/K4", g32, 1e-5)
+    check_splits(torch, "K3/K4", 1e-5)
     print("    K4's weight-gradient pass alone vs float64 of the same scratch")
     wg4 = {n: check_wgrad(torch, False, n) for n in (RAYS * 64, RAYS * 128, 3 * 37)}
     print("    K4's tile pass in bf16 mode: its scratch's fp32 rows and tile sums")
@@ -2237,11 +2232,13 @@ def main():
     k3_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf34.items()}
     k4_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf34.items()}
     scratch = {cd: {"scratch_floor_ms": k12[cd][RAYS * 128]["bwd_scratch_floor_ms"],
-                    "scratch_bytes_per_point": scratch_point_bytes(3, True, cd),
+                    "scratch_bytes_per_point": mlp_kernels.scratch_bytes(
+                        mlp_kernels.TILE, 3, True, cd) / mlp_kernels.TILE,
                     "tile_sums": tile_sums[cd]}
                for cd in ("float32", "bfloat16")}
     scratch4 = {cd: {"scratch_floor_ms": k34[cd][RAYS * 128]["bwd_scratch_floor_ms"],
-                     "scratch_bytes_per_point": scratch_point_bytes(3, False, cd),
+                     "scratch_bytes_per_point": mlp_kernels.scratch_bytes(
+                         mlp_kernels.TILE, 3, False, cd) / mlp_kernels.TILE,
                      "tile_sums": tile_sums4[cd]}
                 for cd in ("float32", "bfloat16")}
     fwd_src, bwd_src = ("benerf_tpu_torch/csrc/fused_mlp_fwd.cu",

@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from benerf_tpu_torch.models import bridge, embedder, nerf
-from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
 from benerf_tpu_torch.ops import mlp as mlp_ops
 
 pytestmark = pytest.mark.cuda
@@ -68,11 +68,11 @@ def test_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     params, pts, vd, kw = _inputs(R, S, C, barf)
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
     x, v = pts.requires_grad_(True), vd.requires_grad_(True)
-    before = dict(fused_mlp.LAUNCHES)
+    before = dict(mlp_kernels.LAUNCHES)
     out_k = fused_mlp.fused_nerf_mlp(params, x, v, **kw)
     grads_k = torch.autograd.grad(torch.sin(out_k).sum(), leaves + [x, v])
-    assert fused_mlp.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"] + 1
-    assert fused_mlp.LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 1
+    assert mlp_kernels.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"] + 1
+    assert mlp_kernels.LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 1
     out_p = nerf.apply(params, x, v, **kw)
     grads_p = torch.autograd.grad(torch.sin(out_p).sum(), leaves + [x, v])
     scale = max(out_p.abs().max().item(), 1.0)
@@ -102,24 +102,25 @@ def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     """K1/K2 in bf16 mode: the forward within test_bfloat16_mode's 2e-2 x
     scale of nerf.apply with bf16 operands; gradients finite, and no
     farther from a float64 run than twice the plain bf16 version's
-    distance (chip_smoke.py's BF16_GRAD_FACTOR). The backward's scratch is
-    the bf16 format's bytes (fused_mlp.SCRATCH_BYTES)."""
+    distance (chip_smoke.py's BF16_GRAD_FACTOR). The backward's scratch,
+    sized by the library, is the Python mirror's bytes in either format:
+    19,872 B a point in float32, 11,384 in bf16."""
     params, pts, vd, kw = _inputs(R, S, C, barf)
-    before = dict(fused_mlp.LAUNCHES)
-    scratch = dict(fused_mlp.SCRATCH_BYTES)
+    before = dict(mlp_kernels.LAUNCHES)
     with torch.no_grad():
         out_k = fused_mlp.fused_nerf_mlp(params, pts, vd, compute_dtype="bfloat16", **kw)
         out_p = nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     scale = max(out_p.abs().max().item(), 1.0)
     torch.testing.assert_close(out_k, out_p, rtol=0, atol=2e-2 * scale)
     gk = _grads(fused_mlp.fused_nerf_mlp, params, pts, vd, compute_dtype="bfloat16", **kw)
-    assert fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"] == before["fused_mlp_fwd_bf16"] + 2
-    assert fused_mlp.LAUNCHES["fused_mlp_bwd_bf16"] == before["fused_mlp_bwd_bf16"] + 1
-    assert fused_mlp.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"]
-    n_pad = -(-R * S // fused_mlp.TILE) * fused_mlp.TILE
-    assert (fused_mlp.SCRATCH_BYTES["fused_mlp_bwd_bf16"] - scratch["fused_mlp_bwd_bf16"]
-            == fused_mlp.scratch_bytes(n_pad, C, True, "bfloat16"))
-    assert fused_mlp.SCRATCH_BYTES["fused_mlp_bwd"] == scratch["fused_mlp_bwd"]
+    assert mlp_kernels.LAUNCHES["fused_mlp_fwd_bf16"] == before["fused_mlp_fwd_bf16"] + 2
+    assert mlp_kernels.LAUNCHES["fused_mlp_bwd_bf16"] == before["fused_mlp_bwd_bf16"] + 1
+    assert mlp_kernels.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"]
+    n_pad = -(-R * S // mlp_kernels.TILE) * mlp_kernels.TILE
+    for cd, per_point in (("float32", 19_872), ("bfloat16", 11_384)):
+        scr = mlp_kernels.bwd_scratch(mlp_kernels.FUSED, R * S, C, "cuda", cd)
+        assert scr.nbytes() == mlp_kernels.scratch_bytes(n_pad, C, True, cd)
+        assert scr.nbytes() == per_point * n_pad
     gp = _grads(nerf.apply, params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     g64 = _grads(nerf.apply, bridge.tree_map(lambda t: t.double(), params),
                  pts.double(), vd.double(), **{k: t.double() for k, t in kw.items()})
@@ -130,16 +131,10 @@ def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
 
 @pytest.mark.parametrize("a,b", [(1, 13), (7, 32)])
 def test_weight_gradients_do_not_depend_on_the_split_count(card, a, b):
-    params, pts, vd, _ = _inputs(40, 64, 3, False, seed=1)
-    leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
-
-    def grads(splits):
-        out = fused_mlp.fused_nerf_mlp(params, pts, vd, splits=splits)
-        return torch.autograd.grad(torch.sin(out).sum(), leaves)
-
-    for x, y in zip(grads(a), grads(b)):
-        scale = max(y.abs().max().item(), 1.0)
-        torch.testing.assert_close(x, y, rtol=0, atol=1e-5 * scale)
+    """K2 launched at a and at b splits of its weight-gradient reduction on
+    the same inputs (chip_smoke.check_splits): weight gradients within
+    1e-5 x scale, per-point gradients bitwise equal."""
+    _smoke().check_splits(torch, "K1/K2", 1e-5, R=40, S=64, counts=(b, a), seed=1)
 
 
 @pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
@@ -151,11 +146,11 @@ def test_staged_kernels_match_plain_at_a_ragged_size(card, C, R, S):
     params, pts, vd, _ = _inputs(R, S, C, False, seed=C, views_ch=39)
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
     x, v = pts.requires_grad_(True), vd.requires_grad_(True)
-    before = dict(staged_mlp.LAUNCHES)
+    before = dict(mlp_kernels.LAUNCHES)
     out_k = staged_mlp.staged_nerf_mlp(params, x, v, num_freqs_views=6)
     grads_k = torch.autograd.grad(torch.sin(out_k).sum(), leaves + [x, v])
-    assert staged_mlp.LAUNCHES["staged_mlp_fwd"] == before["staged_mlp_fwd"] + 1
-    assert staged_mlp.LAUNCHES["staged_mlp_bwd"] == before["staged_mlp_bwd"] + 1
+    assert mlp_kernels.LAUNCHES["staged_mlp_fwd"] == before["staged_mlp_fwd"] + 1
+    assert mlp_kernels.LAUNCHES["staged_mlp_bwd"] == before["staged_mlp_bwd"] + 1
     out_p = nerf.apply(params, x, v, num_freqs_views=6)
     grads_p = torch.autograd.grad(torch.sin(out_p).sum(), leaves + [x, v])
     scale = max(out_p.abs().max().item(), 1.0)
@@ -172,23 +167,24 @@ def test_staged_bf16_kernels_match_plain_at_a_ragged_size(card, C, R, S):
     """K3/K4 in bf16 mode, held as K1/K2's bf16 mode is: the forward within
     2e-2 x scale of nerf.apply with bf16 operands; gradients finite and no
     farther from a float64 run than twice the plain bf16 version's
-    distance; its scratch the bf16 format's bytes."""
+    distance; its scratch, sized by the library, the Python mirror's bytes
+    in either format."""
     params, pts, vd, _ = _inputs(R, S, C, False, seed=C, views_ch=39)
     kw = dict(num_freqs_views=6)
-    before = dict(staged_mlp.LAUNCHES)
-    scratch = dict(fused_mlp.SCRATCH_BYTES)
+    before = dict(mlp_kernels.LAUNCHES)
     with torch.no_grad():
         out_k = staged_mlp.staged_nerf_mlp(params, pts, vd, compute_dtype="bfloat16", **kw)
         out_p = nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     scale = max(out_p.abs().max().item(), 1.0)
     torch.testing.assert_close(out_k, out_p, rtol=0, atol=2e-2 * scale)
     gk = _grads(staged_mlp.staged_nerf_mlp, params, pts, vd, compute_dtype="bfloat16", **kw)
-    assert staged_mlp.LAUNCHES["staged_mlp_fwd_bf16"] == before["staged_mlp_fwd_bf16"] + 2
-    assert staged_mlp.LAUNCHES["staged_mlp_bwd_bf16"] == before["staged_mlp_bwd_bf16"] + 1
-    assert staged_mlp.LAUNCHES["staged_mlp_fwd"] == before["staged_mlp_fwd"]
-    n_pad = -(-R * S // fused_mlp.TILE) * fused_mlp.TILE
-    assert (fused_mlp.SCRATCH_BYTES["staged_mlp_bwd_bf16"] - scratch["staged_mlp_bwd_bf16"]
-            == fused_mlp.scratch_bytes(n_pad, C, False, "bfloat16"))
+    assert mlp_kernels.LAUNCHES["staged_mlp_fwd_bf16"] == before["staged_mlp_fwd_bf16"] + 2
+    assert mlp_kernels.LAUNCHES["staged_mlp_bwd_bf16"] == before["staged_mlp_bwd_bf16"] + 1
+    assert mlp_kernels.LAUNCHES["staged_mlp_fwd"] == before["staged_mlp_fwd"]
+    n_pad = -(-R * S // mlp_kernels.TILE) * mlp_kernels.TILE
+    for cd in ("float32", "bfloat16"):
+        scr = mlp_kernels.bwd_scratch(mlp_kernels.STAGED, R * S, C, "cuda", cd)
+        assert scr.nbytes() == mlp_kernels.scratch_bytes(n_pad, C, False, cd)
     gp = _grads(nerf.apply, params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     g64 = _grads(nerf.apply, bridge.tree_map(lambda t: t.double(), params),
                  pts.double(), vd.double(), **kw)
@@ -198,17 +194,8 @@ def test_staged_bf16_kernels_match_plain_at_a_ragged_size(card, C, R, S):
 
 
 def test_staged_weight_gradients_do_not_depend_on_the_split_count(card):
-    params, pts, vd, _ = _inputs(40, 64, 3, False, seed=1, views_ch=39)
-    leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
-
-    def grads(splits):
-        out = staged_mlp.staged_nerf_mlp(params, pts, vd, num_freqs_views=6,
-                                         splits=splits)
-        return torch.autograd.grad(torch.sin(out).sum(), leaves)
-
-    for a, b in zip(grads(1), grads(13)):
-        scale = max(b.abs().max().item(), 1.0)
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+    """K4 at 1 and 13 splits, as K2's test."""
+    _smoke().check_splits(torch, "K3/K4", 1e-5, R=40, S=64, counts=(13, 1), seed=1)
 
 
 def _filled_scratch(view_pe, n, C=3, seed=0):
@@ -223,21 +210,21 @@ def _filled_scratch(view_pe, n, C=3, seed=0):
 def test_weight_gradient_pass_matches_float64(card, n, view_pe, compute_dtype):
     """The TMA + wgmma weight-gradient pass alone, K2's and K4's job tables,
     against the float64 product of the same scratch (bf16 mode: on the bf16
-    format of that scratch, fused_mlp.bf16_scratch_plain, against the
+    format of that scratch, mlp_kernels.bf16_scratch_plain, against the
     float64 product of its bf16-rounded operands and the float64 sums of
     its fp32 D rows), every job within chip_smoke.py's WGRAD_TOL (1e-5) x
     max |ref|, at split counts that leave chunks empty (111 points at 32
     splits), ragged or whole."""
     C = 3
     scr = _filled_scratch(view_pe, n, C)
-    ref = fused_mlp.wgrad_plain(scr, C, view_pe, compute_dtype)
+    ref = mlp_kernels.wgrad_plain(scr, C, view_pe, compute_dtype)
     if compute_dtype == "bfloat16":
-        scr = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
+        scr = mlp_kernels.bf16_scratch_plain(scr, C, view_pe)
     for splits in (1, 7, 32):
-        got = fused_mlp.run_wgrad(scr, C, splits, view_pe)
+        got = mlp_kernels.run_wgrad(scr, C, splits, view_pe)
         torch.cuda.synchronize()
         assert bool(torch.isfinite(got).all())
-        for name, off, size in fused_mlp.wgrad_ranges(C, view_pe):
+        for name, off, size in mlp_kernels.wgrad_ranges(C, view_pe):
             a, b = got[off:off + size].double(), ref[off:off + size]
             assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max()), name
 
@@ -360,18 +347,19 @@ def test_staged_kernels_at_ragged_sizes(card, R, S, C, compute_dtype):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_weight_copies_equal_their_plain_version(card, view_pe, compute_dtype):
     """The weights' wgmma copies (prep_kernel, inside every K1 / K3 launch)
-    bit for bit against fused_mlp.prepare_weights_plain; K1's launch leaves
+    bit for bit against mlp_kernels.prepare_weights_plain; K1's launch leaves
     the same copies in the buffer it is given."""
     params, pts, vd, _ = _inputs(2, 8, 3, False, views_ch=27 if view_pe else 39)
-    packed = fused_mlp.pack_params(params, view_pe=view_pe).contiguous()
-    got = fused_mlp.prepare_weights(packed, 3, view_pe, compute_dtype)
-    want = fused_mlp.prepare_weights_plain(packed, view_pe, compute_dtype)
+    packed = mlp_kernels.pack_params(params, view_pe=view_pe).contiguous()
+    got = mlp_kernels.prepare_weights(packed, 3, view_pe, compute_dtype)
+    want = mlp_kernels.prepare_weights_plain(packed, view_pe, compute_dtype)
     assert got.dtype == want.dtype and torch.equal(got, want)
     if view_pe:
-        prep = fused_mlp.prep_buffer(True, compute_dtype, "cuda")
-        fused_mlp.launch_fwd(packed, pts.reshape(-1, 3).contiguous(), vd,
-                             fused_mlp.band_weights(None, None, "cuda"), 8, 3,
-                             compute_dtype, prep=prep)
+        prep = mlp_kernels.prep_buffer(True, compute_dtype, "cuda")
+        mlp_kernels.launch_fwd(mlp_kernels.FUSED, packed,
+                               pts.reshape(-1, 3).contiguous(), vd,
+                               fused_mlp.band_weights(None, None, "cuda"), 8, 3,
+                               compute_dtype, prep=prep)
         assert torch.equal(prep, want)
 
 
@@ -407,28 +395,28 @@ def test_card_path_raises_where_the_kernel_does_not_apply(card):
     kernel; bf16 runs K1/K2 and K3/K4 in their bf16 mode; an encoding that
     does not match w0 raises."""
     params, pts, vd, _ = _inputs(2, 8, 3, False)
-    before = fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"]
+    before = mlp_kernels.LAUNCHES["fused_mlp_fwd_bf16"]
     out = mlp_ops.mlp_forward(params, pts, vd, compute_dtype="bfloat16")
-    assert fused_mlp.LAUNCHES["fused_mlp_fwd_bf16"] == before + 1
+    assert mlp_kernels.LAUNCHES["fused_mlp_fwd_bf16"] == before + 1
     torch.testing.assert_close(
         out, nerf.apply(params, pts, vd, compute_dtype=torch.bfloat16), rtol=0,
         atol=2e-2 * max(out.abs().max().item(), 1.0))
     l6, _, _, _ = _inputs(2, 8, 3, False, views_ch=39)
-    before = staged_mlp.LAUNCHES["staged_mlp_fwd_bf16"]
+    before = mlp_kernels.LAUNCHES["staged_mlp_fwd_bf16"]
     out = mlp_ops.mlp_forward(l6, pts, vd, num_freqs_views=6, compute_dtype="bfloat16")
-    assert staged_mlp.LAUNCHES["staged_mlp_fwd_bf16"] == before + 1
+    assert mlp_kernels.LAUNCHES["staged_mlp_fwd_bf16"] == before + 1
     torch.testing.assert_close(
         out, nerf.apply(l6, pts, vd, num_freqs_views=6, compute_dtype=torch.bfloat16),
         rtol=0, atol=2e-2 * max(out.abs().max().item(), 1.0))
     with pytest.raises(ValueError):
         mlp_ops.mlp_forward(params, pts, vd, num_freqs=6)
     narrow, pts, vd, _ = _inputs(2, 8, 3, False, width=64)
-    kernels = dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES)
+    kernels = dict(mlp_kernels.LAUNCHES)
     plain = mlp_ops.ROUTES["plain"]
     out = mlp_ops.mlp_forward(narrow, pts, vd)
     assert out.shape == (2, 8, 4)
     assert mlp_ops.ROUTES["plain"] == plain + 1
-    assert dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES) == kernels
+    assert dict(mlp_kernels.LAUNCHES) == kernels
 
 
 def test_use_pallas_off_sends_card_calls_to_the_plain_route(card):
@@ -441,12 +429,12 @@ def test_use_pallas_off_sends_card_calls_to_the_plain_route(card):
     assert not renderer.RenderSettings.from_config(Config(use_pallas=False)).use_pallas
     params, pts, vd, _ = _inputs(2, 8, 3, False)
     l6, _, _, _ = _inputs(2, 8, 3, False, views_ch=39)
-    kernels = dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES)
+    kernels = dict(mlp_kernels.LAUNCHES)
     plain = mlp_ops.ROUTES["plain"]
     out = mlp_ops.mlp_forward(params, pts, vd, use_pallas=False)
     out6 = mlp_ops.mlp_forward(l6, pts, vd, num_freqs_views=6, use_pallas=False)
     assert mlp_ops.ROUTES["plain"] == plain + 2
-    assert dict(fused_mlp.LAUNCHES, **staged_mlp.LAUNCHES) == kernels
+    assert dict(mlp_kernels.LAUNCHES) == kernels
     torch.testing.assert_close(out, nerf.apply(params, pts, vd), rtol=0, atol=0)
     torch.testing.assert_close(out6, nerf.apply(l6, pts, vd, num_freqs_views=6),
                                rtol=0, atol=0)
@@ -547,10 +535,10 @@ def test_launch_counters_count_replays(card):
     before, graphs = mlp_ops.counts(), dict(step_mod.GRAPHS)
     for _ in range(3):
         state, _ = multi_fn(state, batch, cfg.seed)
-    fused, staged, routes, _ = mlp_ops.counts_since(before)
-    assert fused == {"fused_mlp_fwd": 24, "fused_mlp_bwd": 24,
-                     "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
-    assert set(staged.values()) == {0} and routes == {"plain": 0}
+    launches, routes = mlp_ops.counts_since(before)
+    assert launches == dict(dict.fromkeys(launches, 0), fused_mlp_fwd=24,
+                            fused_mlp_bwd=24)
+    assert routes == {"plain": 0}
     assert step_mod.GRAPHS == {"captured": graphs["captured"] + 1,
                                "replayed": graphs["replayed"] + 11}
 
@@ -764,12 +752,12 @@ def test_one_rank_nccl_capture_equals_the_unmeshed_capture(nccl_mesh, views_ch):
     for x, y in zip(_state_tensors(a), _state_tensors(b)):
         assert torch.equal(x, y)
     assert mesh_mod.COLLECTIVES["all_reduce"] - coll["all_reduce"] == 8
-    fused, staged, routes, _ = mlp_ops.counts_since(before)
+    launches, routes = mlp_ops.counts_since(before)
     if views_ch == 27:
-        assert fused["fused_mlp_fwd"] == fused["fused_mlp_bwd"] == 32
+        assert launches["fused_mlp_fwd"] == launches["fused_mlp_bwd"] == 32
         assert routes == {"plain": 0}
     else:
-        assert set(staged.values()) == {0}
+        assert not any(v for k, v in launches.items() if k.startswith("staged"))
         assert routes == {"plain": 32}  # 8 steps x 2 calls, in both runs
 
 
@@ -808,10 +796,10 @@ def test_cli_test_renders_a_card_run_through_k1(card, tmp_path):
                                  "--optimize_trans", "True",
                                  "--extract_poses", "True", "--render_images",
                                  "True", "--render_video", "True"))
-    fused, staged, routes, _ = mlp_ops.counts_since(before)
-    assert fused == {"fused_mlp_fwd": 2 * (19 + 90), "fused_mlp_bwd": 0,
-                     "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
-    assert set(staged.values()) == {0} and routes == {"plain": 0}
+    launches, routes = mlp_ops.counts_since(before)
+    assert launches == dict(dict.fromkeys(launches, 0),
+                            fused_mlp_fwd=2 * (19 + 90))
+    assert routes == {"plain": 0}
     out = tmp_path / "0" / "test_results"
     poses = np.loadtxt(out / "poses_test" / "poses_test_000004.txt")
     assert poses.shape == (19, 12) and np.all(np.isfinite(poses))
@@ -869,8 +857,8 @@ def test_reference_tar_imports_onto_the_card(card, tmp_path):
         on_card, poses, cli_test.intrinsics(cfg)[2], 40, 40,
         renderer.RenderSettings.from_config(cfg), chunk=cfg.chunk,
         device=torch.device("cuda")))
-    fused, _, routes, _ = mlp_ops.counts_since(before)
-    assert fused["fused_mlp_fwd"] == 4 and fused["fused_mlp_bwd"] == 0
+    launches, routes = mlp_ops.counts_since(before)
+    assert launches["fused_mlp_fwd"] == 4 and launches["fused_mlp_bwd"] == 0
     assert routes == {"plain": 0}
     assert all(f["rgb"].shape == (40, 40, 3) for f in fr)
     assert all(bool(torch.isfinite(torch.as_tensor(f["rgb"])).all()) for f in fr)
@@ -924,11 +912,11 @@ def test_bench_runs_on_the_card(card, capsys):
     line = bench.main(["--inner", "2", "--chunks", "1"])
     out = capsys.readouterr().out.strip().splitlines()
     assert len(out) == 1 and json.loads(out[0]) == line
-    launches = mlp_ops.counts_since(before)
+    launches, routes = mlp_ops.counts_since(before)
     # two dispatches of 2 steps: the untimed one and the timed one
-    assert launches[0] == {"fused_mlp_fwd": 8, "fused_mlp_bwd": 8,
-                           "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0}
-    assert not any(launches[1].values()) and launches[2] == {"plain": 0}
+    assert launches == dict(dict.fromkeys(launches, 0), fused_mlp_fwd=8,
+                            fused_mlp_bwd=8)
+    assert routes == {"plain": 0}
     assert line["model_flops_per_iter"] == 2_088_416_378_880
     assert line["platform"] == "cuda" and line["card"]
     assert 0 < line["mfu_vs_bf16_peak"] < 1

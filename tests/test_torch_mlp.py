@@ -20,7 +20,7 @@ from benerf_tpu.models import nerf as jnerf
 from benerf_tpu.ops import pallas_mlp_t
 from benerf_tpu_torch.models import bridge
 from benerf_tpu_torch.models import nerf as tnerf
-from benerf_tpu_torch.ops import fused_mlp
+from benerf_tpu_torch.ops import fused_mlp, mlp_kernels
 from benerf_tpu_torch.ops import mlp as tmlp
 
 
@@ -181,10 +181,10 @@ def test_packed_layouts(C):
     K1/K2's without the view-encoding weights and bias."""
     params, _, _, _, _ = _inputs(1, 1, C, seed=C, barf=False)
     tp = bridge.params_from_numpy(params, device="cpu")
-    packed = fused_mlp.pack_params(tp)
-    v = fused_mlp.unpack(packed, C)
-    assert packed.numel() == fused_mlp._offsets(fused_mlp._layout(C))[-1]
-    assert all(o % 4 == 0 for o in fused_mlp._offsets(fused_mlp._layout(C))[:10])
+    packed = mlp_kernels.pack_params(tp)
+    v = mlp_kernels.unpack(packed, C)
+    assert packed.numel() == mlp_kernels.packed_size(C)
+    assert all(o % 4 == 0 for o in mlp_kernels.offsets(mlp_kernels.layout(C))[:10])
     np.testing.assert_array_equal(v["w0"], tp["pts"][0]["w"])
     np.testing.assert_array_equal(v["wh"][4], tp["pts"][5]["w_h"])
     np.testing.assert_array_equal(v["wh"][5], tp["pts"][6]["w"])
@@ -196,8 +196,8 @@ def test_packed_layouts(C):
     np.testing.assert_array_equal(v["brgb"], tp["rgb"]["b"])
     raw = packed[:63 * 256].view(63, 256)
     np.testing.assert_array_equal(raw[:, 5 + 32 * 3], tp["pts"][0]["w"][:, 5 + 32 * 3])
-    staged = fused_mlp.pack_params(tp, view_pe=False)
-    offs = fused_mlp._offsets(fused_mlp._layout(C))
+    staged = mlp_kernels.pack_params(tp, view_pe=False)
+    offs = mlp_kernels.offsets(mlp_kernels.layout(C))
     cut = torch.cat([packed[:offs[5]], packed[offs[6]:offs[8]], packed[offs[9]:]])
     assert torch.equal(staged, cut)
 

@@ -112,12 +112,12 @@ def test_the_build_is_keyed_by_its_source(fresh_engine):
 def test_one_build_for_the_engine_and_the_kernels(tmp_path):
     """core/libbuild compiles every job at once, moves each good library into
     place and raises naming each failure, for both of its callers: the
-    engine (data/_native) and the kernels (ops/fused_mlp), whose library
+    engine (data/_native) and the kernels (ops/mlp_kernels), whose library
     paths it keys by flags and sources."""
     import shutil
 
     from benerf_tpu_torch.core import libbuild
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import mlp_kernels
 
     good, bad = tmp_path / "good.cpp", tmp_path / "bad.cpp"
     good.write_text('extern "C" int one() { return 1; }\n')
@@ -135,6 +135,6 @@ def test_one_build_for_the_engine_and_the_kernels(tmp_path):
     assert libbuild.library_path(tmp_path, "good", ("-O2",), [good]) \
         != libbuild.library_path(tmp_path, "good", flags, [good])
     assert tnative.build().name.startswith("libbenerf_events-")
-    assert fused_mlp._target("fused_mlp_fwd") == libbuild.library_path(
-        fused_mlp.BUILD_DIR, "fused_mlp_fwd", fused_mlp.NVCC_FLAGS,
-        fused_mlp._source_files("fused_mlp_fwd"))
+    assert mlp_kernels._target("fused_mlp_fwd") == libbuild.library_path(
+        mlp_kernels.BUILD_DIR, "fused_mlp_fwd", mlp_kernels.NVCC_FLAGS,
+        mlp_kernels._source_files("fused_mlp_fwd"))

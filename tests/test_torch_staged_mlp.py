@@ -40,7 +40,7 @@ from benerf_tpu.train import step as jstep
 from benerf_tpu_torch.models import bridge
 from benerf_tpu_torch.models import embedder as temb
 from benerf_tpu_torch.models import nerf as tnerf
-from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
 from benerf_tpu_torch.ops import mlp as tmlp
 from benerf_tpu_torch.train import step as tstep
 
@@ -189,7 +189,7 @@ def _emulated_staged(compute_dtype):
         R, S, _ = x.shape
         C = p["rgb"]["w"].shape[1]
         vb = staged_mlp.view_bias(p, v, num_freqs_views, compute_dtype)
-        w = fused_mlp.unpack(fused_mlp.pack_params(p, view_pe=False), C,
+        w = mlp_kernels.unpack(mlp_kernels.pack_params(p, view_pe=False), C,
                              view_pe=False)
         out = tc.emulated_forward(w, x.reshape(-1, 3), None, torch.ones(14),
                                   tc.MODES[compute_dtype],
@@ -250,10 +250,12 @@ def test_emulated_staged_network_matches_jax(compute_dtype, interpret_mode):
 
 
 def _launch_fwd(seen, preps):
-    def launch(packed, pts, vb, S, C, compute_dtype="float32", *, prep):
+    def launch(pair, packed, pts, vb, band, S, C, compute_dtype="float32", *,
+               prep):
+        assert pair is mlp_kernels.STAGED and band is None
         seen.append(("fwd", compute_dtype))
         preps.append(prep)
-        w = fused_mlp.unpack(packed, C, view_pe=False)
+        w = mlp_kernels.unpack(packed, C, view_pe=False)
         return tc.emulated_forward(w, pts, None, torch.ones(14),
                                    tc.MODES[compute_dtype],
                                    vb.repeat_interleave(S, dim=0))
@@ -262,13 +264,14 @@ def _launch_fwd(seen, preps):
 
 def _launch_bwd(seen, preps):
     """What K4 returns: (d packed, d pts, d vb per ray)."""
-    def launch(packed, pts, vb, g, S, C, splits=32, compute_dtype="float32", *,
+    def launch(pair, packed, pts, vb, band, g, S, C, compute_dtype="float32", *,
                prep):
+        assert pair is mlp_kernels.STAGED and band is None
         seen.append(("bwd", compute_dtype))
         preps.append(prep)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True) for t in (packed, pts, vb)]
-            w = fused_mlp.unpack(ins[0], C, view_pe=False)
+            w = mlp_kernels.unpack(ins[0], C, view_pe=False)
             out = tc.emulated_forward(w, ins[1], None, torch.ones(14),
                                       tc.MODES[compute_dtype],
                                       ins[2].repeat_interleave(S, dim=0))
@@ -286,18 +289,18 @@ def test_staged_card_path_wiring(C, S, compute_dtype, monkeypatch):
     launches; K4 gets the buffer of wgmma weight copies (without the
     view-encoding weights) that K3's launch filled."""
     seen, preps = [], []
-    monkeypatch.setattr(staged_mlp, "launch_fwd", _launch_fwd(seen, preps))
-    monkeypatch.setattr(staged_mlp, "launch_bwd", _launch_bwd(seen, preps))
+    monkeypatch.setattr(mlp_kernels, "launch_fwd", _launch_fwd(seen, preps))
+    monkeypatch.setattr(mlp_kernels, "launch_bwd", _launch_bwd(seen, preps))
     params, pts, vd, Lv = _inputs(3, S, C, 39, seed=C)
 
     def card_path(p, x, v, num_freqs_views):
-        return staged_mlp._staged(p, x, v, num_freqs_views, 1, compute_dtype)
+        return staged_mlp._staged(p, x, v, num_freqs_views, compute_dtype)
 
     got = _port_grads(card_path, params, pts, vd, Lv)
     assert seen == [("fwd", compute_dtype), ("bwd", compute_dtype)]
     assert preps[0] is preps[1]
-    assert preps[0].shape == (fused_mlp.prep_table(False, compute_dtype)[1],
-                              fused_mlp.PREP_KS[compute_dtype])
+    assert preps[0].shape == (mlp_kernels.prep_table(False, compute_dtype)[1],
+                              mlp_kernels.PREP_KS[compute_dtype])
     want = _port_grads(_emulated_staged(compute_dtype), params, pts, vd, Lv)
     for a, b in zip(got, want):
         assert a.shape == b.shape
@@ -312,13 +315,13 @@ def test_staged_packed_layout(C):
     it."""
     params, _, _, _ = _inputs(1, 1, C, 39, seed=C)
     tp = bridge.params_from_numpy(params, device="cpu")
-    packed = fused_mlp.pack_params(tp, view_pe=False)
-    offs = fused_mlp._offsets(fused_mlp._layout(C, view_pe=False))
+    packed = mlp_kernels.pack_params(tp, view_pe=False)
+    offs = mlp_kernels.offsets(mlp_kernels.layout(C, view_pe=False))
     assert packed.numel() == offs[-1]
-    full = fused_mlp._offsets(fused_mlp._layout(C))
+    full = mlp_kernels.offsets(mlp_kernels.layout(C))
     assert offs[-1] == full[-1] - 27 * 128 - 128
     assert all(o % 4 == 0 for o in offs[:10])
-    v = fused_mlp.unpack(packed, C, view_pe=False)
+    v = mlp_kernels.unpack(packed, C, view_pe=False)
     assert v["wvpe"].numel() == v["bv"].numel() == 0
     raw = packed[offs[4]:offs[4] + 256 * 128].view(256, 128)
     np.testing.assert_array_equal(raw, tp["views"]["w_feat"])
@@ -333,7 +336,7 @@ def test_staged_packed_layout(C):
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(tp)]
     flat = torch.arange(packed.numel(), dtype=torch.float32)
     grads = dict(zip(map(id, leaves), torch.autograd.grad(
-        fused_mlp.pack_params(tp, view_pe=False), leaves, flat,
+        mlp_kernels.pack_params(tp, view_pe=False), leaves, flat,
         allow_unused=True)))
     g = grads[id(tp["rgb"]["w"])]
     np.testing.assert_array_equal(g.reshape(-1), flat[offs[11]:offs[12]])

@@ -34,7 +34,7 @@ from benerf_tpu.ops import pallas_mlp_t
 from benerf_tpu_torch.models import bridge
 from benerf_tpu_torch.models import embedder as temb
 from benerf_tpu_torch.models import nerf as tnerf
-from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
 from benerf_tpu_torch.ops import mlp as tmlp
 
 MODES = {"float32": "tf32x3", "bfloat16": "bf16"}
@@ -78,7 +78,7 @@ def mm(a, w, mode):
 
 
 def emulated_forward(w, pts, vd_pt, band, mode, vb_pt=None):
-    """K1 on unpacked weights `w` (fused_mlp.unpack): points (n, 3), per-point
+    """K1 on unpacked weights `w` (mlp_kernels.unpack): points (n, 3), per-point
     viewdirs (n, 3), band (14,); products in `mode`, heads in fp32 as the
     kernels' CUDA-core heads. K3 with `vb_pt`, its per-ray view bias
     repeated per point (n, 128): the views layer adds it in place of the
@@ -176,7 +176,7 @@ def test_emulated_network_matches_jax(compute_dtype):
     kernel's bf16 mode (interpret mode) at test_bfloat16_mode's 2e-2 x
     scale."""
     params, pts, vd, band = _inputs(4, 64, 3, seed=1)
-    w = fused_mlp.unpack(fused_mlp.pack_params(bridge.params_from_numpy(params, device="cpu")), 3)
+    w = mlp_kernels.unpack(mlp_kernels.pack_params(bridge.params_from_numpy(params, device="cpu")), 3)
     x = torch.as_tensor(pts).reshape(-1, 3)
     v = torch.as_tensor(vd).repeat_interleave(64, dim=0)
     got = emulated_forward(w, x, v, torch.as_tensor(band), MODES[compute_dtype])
@@ -240,27 +240,27 @@ def test_natural_layout_round_trip(C):
     unpack inverts pack."""
     params, _, _, _ = _inputs(1, 1, C, seed=C)
     tp = bridge.params_from_numpy(params, device="cpu")
-    packed = fused_mlp.pack_params(tp)
-    offs = fused_mlp._offsets(fused_mlp._layout(C))
+    packed = mlp_kernels.pack_params(tp)
+    offs = mlp_kernels.offsets(mlp_kernels.layout(C))
     assert offs == _c_offsets(C) and packed.numel() == offs[-1]
-    names = [n for n, _ in fused_mlp._layout(C)]
-    for name, shape in fused_mlp._layout(C):
+    names = [n for n, _ in mlp_kernels.layout(C)]
+    for name, shape in mlp_kernels.layout(C):
         if name in _STAGED:
             assert offs[names.index(name)] % 4 == 0 and shape[-1] % 4 == 0
     raw = packed[:63 * 256].view(63, 256)
     assert torch.equal(raw, tp["pts"][0]["w"])
-    v = fused_mlp.unpack(packed, C)
+    v = mlp_kernels.unpack(packed, C)
     assert torch.equal(v["wh"][4], tp["pts"][5]["w_h"])
     assert torch.equal(v["w5pe"], tp["pts"][5]["w_pe"])
     assert torch.equal(v["wfv"], tp["views"]["w_feat"])
     assert torch.equal(v["wvpe"], tp["views"]["w_pe"])
     assert torch.equal(v["bv"], tp["views"]["b"])
     assert torch.equal(v["wrgb"], tp["rgb"]["w"])
-    again = fused_mlp.pack_params(bridge.tree_unflatten(tp, [
+    again = mlp_kernels.pack_params(bridge.tree_unflatten(tp, [
         t for t in bridge.tree_leaves(tp)]))
     assert torch.equal(again, packed)
     # K3/K4's packing is the same vector without the view-encoding entries
-    staged = fused_mlp.unpack(fused_mlp.pack_params(tp, view_pe=False), C,
+    staged = mlp_kernels.unpack(mlp_kernels.pack_params(tp, view_pe=False), C,
                               view_pe=False)
     assert all(torch.equal(staged[k], v[k]) for k in v if k not in ("wvpe", "bv"))
     assert staged["wvpe"].numel() == staged["bv"].numel() == 0
@@ -270,25 +270,29 @@ def test_natural_layout_round_trip(C):
 
 
 def _launch_fwd(seen, preps):
-    def launch(packed, pts, vd, band, S, C, compute_dtype="float32", *, prep):
+    def launch(pair, packed, pts, vd, band, S, C, compute_dtype="float32", *,
+               prep):
+        assert pair is mlp_kernels.FUSED
         seen.append(("fwd", compute_dtype))
         preps.append(prep)
-        w = fused_mlp.unpack(packed, C)
+        w = mlp_kernels.unpack(packed, C)
         return emulated_forward(w, pts, vd.repeat_interleave(S, dim=0), band,
                                 MODES[compute_dtype])
     return launch
 
 
 def _launch_bwd(seen, preps):
-    def launch(packed, pts, vd, band, g, S, C, splits=32,
-               compute_dtype="float32", *, prep):
+    """What K2's launch returns: (d packed, d pts, d viewdirs per ray)."""
+    def launch(pair, packed, pts, vd, band, g, S, C, compute_dtype="float32",
+               *, prep):
+        assert pair is mlp_kernels.FUSED
         seen.append(("bwd", compute_dtype))
         preps.append(prep)
         with torch.enable_grad():
-            ins = [t.detach().requires_grad_(True)
-                   for t in (packed, pts, vd.repeat_interleave(S, dim=0))]
-            w = fused_mlp.unpack(ins[0], C)
-            out = emulated_forward(w, ins[1], ins[2], band, MODES[compute_dtype])
+            ins = [t.detach().requires_grad_(True) for t in (packed, pts, vd)]
+            w = mlp_kernels.unpack(ins[0], C)
+            out = emulated_forward(w, ins[1], ins[2].repeat_interleave(S, dim=0),
+                                   band, MODES[compute_dtype])
             return torch.autograd.grad(out, ins, g)
     return launch
 
@@ -302,8 +306,8 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
     sends it, and pass the mode to both launches; K2 gets the buffer of
     wgmma weight copies that K1's launch filled."""
     seen, preps = [], []
-    monkeypatch.setattr(fused_mlp, "launch_fwd", _launch_fwd(seen, preps))
-    monkeypatch.setattr(fused_mlp, "launch_bwd", _launch_bwd(seen, preps))
+    monkeypatch.setattr(mlp_kernels, "launch_fwd", _launch_fwd(seen, preps))
+    monkeypatch.setattr(mlp_kernels, "launch_bwd", _launch_bwd(seen, preps))
     params, pts, vd, band = _inputs(3, S, C, seed=C + S, barf=barf)
     bw, bwv = ((torch.as_tensor(band[:10]), torch.as_tensor(band[10:]))
                if barf else (None, None))
@@ -318,7 +322,7 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
         return torch.autograd.grad(torch.sin(out).sum(), leaves + [x, v])
 
     def card_path(tp, x, v):
-        return fused_mlp._fused(tp, x, v, bw, bwv, 1, compute_dtype)
+        return fused_mlp._fused(tp, x, v, bw, bwv, compute_dtype)
 
     def direct(tp, x, v):
         w = {"w0": tp["pts"][0]["w"],
@@ -337,8 +341,8 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
     got, want = grads(card_path), grads(direct)
     assert seen == [("fwd", compute_dtype), ("bwd", compute_dtype)]
     assert preps[0] is preps[1]
-    assert preps[0].shape == (fused_mlp.prep_table(True, compute_dtype)[1],
-                              fused_mlp.PREP_KS[compute_dtype])
+    assert preps[0].shape == (mlp_kernels.prep_table(True, compute_dtype)[1],
+                              mlp_kernels.PREP_KS[compute_dtype])
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert _rel(a, b) < 1e-5
@@ -363,8 +367,8 @@ def test_compute_dtype_routes_on_the_card(monkeypatch):
     assert calls == [("fused", "float32"), ("staged", "float32"),
                      ("fused", "bfloat16"), ("staged", "bfloat16")]
     with pytest.raises(ValueError, match="compute_dtype"):
-        fused_mlp.launch_fwd(None, None, None, None, 1, 3, compute_dtype="float16",
-                             prep=None)
+        mlp_kernels.launch_fwd(mlp_kernels.FUSED, None, None, None, None, 1, 3,
+                               compute_dtype="float16", prep=None)
     with pytest.raises(ValueError, match="compute_dtype"):
-        staged_mlp.launch_fwd(None, None, None, 1, 3, compute_dtype="float16",
-                              prep=None)
+        mlp_kernels.launch_fwd(mlp_kernels.STAGED, None, None, None, None, 1, 3,
+                               compute_dtype="float16", prep=None)

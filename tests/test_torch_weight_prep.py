@@ -1,8 +1,8 @@
 """The weights' wgmma copies that K1-K4 read (csrc/wgmma_layer.cuh
-`prep_kernel`), through their plain version `fused_mlp.prepare_weights_plain`,
+`prep_kernel`), through their plain version `mlp_kernels.prepare_weights_plain`,
 on the CPU:
 
-- the layout (`fused_mlp.prep_table`): every matrix of the packed vector
+- the layout (`mlp_kernels.prep_table`): every matrix of the packed vector
   once per orientation, stages of KS rows, no gaps;
 - TF32X3: each stage's big part carries the bits of cvt.rna.tf32.f32
   (checked against an independent nearest-tie-away rounding), big + small
@@ -34,7 +34,7 @@ from benerf_tpu.models import nerf as jnerf
 from benerf_tpu.ops import pallas_mlp_t
 from benerf_tpu_torch.models import bridge
 from benerf_tpu_torch.models import embedder as temb
-from benerf_tpu_torch.ops import fused_mlp, staged_mlp
+from benerf_tpu_torch.ops import mlp_kernels
 
 torch.set_num_threads(1)
 
@@ -44,7 +44,7 @@ VIEW_PE = (True, False)
 
 def _packed(C, view_pe, seed=0):
     rng = np.random.default_rng(seed)
-    n = fused_mlp._offsets(fused_mlp._layout(C, view_pe))[-1]
+    n = mlp_kernels.packed_size(C, view_pe)
     return torch.tensor(rng.normal(size=n) * 0.1, dtype=torch.float32)
 
 
@@ -52,14 +52,14 @@ def _unstage(buf, entry, compute_dtype):
     """B (N, K) of one table entry from the buffer: (big, small) in
     "float32", (bf16 values,) in "bfloat16"."""
     _, _, row0, N, K, _, _, _ = entry
-    ks, parts = fused_mlp.PREP_KS[compute_dtype], fused_mlp.PREP_PARTS[compute_dtype]
+    ks, parts = mlp_kernels.PREP_KS[compute_dtype], mlp_kernels.PREP_PARTS[compute_dtype]
     rows = buf[row0:row0 + K // ks * parts * N].reshape(K // ks, parts, N, ks)
     return tuple(rows[:, q].permute(1, 0, 2).reshape(N, K) for q in range(parts))
 
 
 def _matrices(packed, C, view_pe):
     """name -> W (I, O) from the packed vector, as the table names them."""
-    w = fused_mlp.unpack(packed, C, view_pe)
+    w = mlp_kernels.unpack(packed, C, view_pe)
     out = {"w0": w["w0"], "w5pe": w["w5pe"], "wf": w["wf"], "wfv": w["wfv"]}
     out.update({f"wh{l}": w["wh"][l - 1] for l in range(1, 8)})
     if view_pe:
@@ -86,13 +86,13 @@ def _trunc(x):
 @pytest.mark.parametrize("view_pe", VIEW_PE)
 @pytest.mark.parametrize("compute_dtype", MODES)
 def test_table_covers_every_matrix_once_per_orientation(view_pe, compute_dtype):
-    table, rows = fused_mlp.prep_table(view_pe, compute_dtype)
+    table, rows = mlp_kernels.prep_table(view_pe, compute_dtype)
     names = [e[0] for e in table]
     mats = ["w0"] + [f"wh{l}" for l in range(1, 8)] + ["w5pe", "wf", "wfv"]
     mats += ["wvpe"] if view_pe else []
     assert names == mats + mats
     assert [e[1] for e in table] == ["fwd"] * len(mats) + ["bwd"] * len(mats)
-    ks, parts = fused_mlp.PREP_KS[compute_dtype], fused_mlp.PREP_PARTS[compute_dtype]
+    ks, parts = mlp_kernels.PREP_KS[compute_dtype], mlp_kernels.PREP_PARTS[compute_dtype]
     row = 0
     for name, orient, row0, N, K, src, I, O in table:
         assert row0 == row
@@ -101,9 +101,9 @@ def test_table_covers_every_matrix_once_per_orientation(view_pe, compute_dtype):
         assert K % ks == 0 and N % 32 == 0
         row += K // ks * parts * N
     assert rows == row
-    buf = fused_mlp.prepare_weights_plain(_packed(3, view_pe), view_pe, compute_dtype)
+    buf = mlp_kernels.prepare_weights_plain(_packed(3, view_pe), view_pe, compute_dtype)
     assert buf.shape == (rows, ks) and buf.element_size() * ks == 64
-    assert buf.dtype == fused_mlp.PREP_DTYPE[compute_dtype]
+    assert buf.dtype == mlp_kernels.PREP_DTYPE[compute_dtype]
 
 
 @pytest.mark.parametrize("view_pe", VIEW_PE)
@@ -112,8 +112,8 @@ def test_big_carries_the_cvt_rna_bits(view_pe):
     # ties in both signs and values either side of a TF32 step
     packed[:6] = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12,
                                1 + 3 * 2 ** -12, -7.25, 0.0])
-    buf = fused_mlp.prepare_weights_plain(packed, view_pe, "float32")
-    table, _ = fused_mlp.prep_table(view_pe, "float32")
+    buf = mlp_kernels.prepare_weights_plain(packed, view_pe, "float32")
+    table, _ = mlp_kernels.prep_table(view_pe, "float32")
     mats = _matrices(packed, 3, view_pe)
     for entry in table:
         big, _ = _unstage(buf, entry, "float32")
@@ -130,8 +130,8 @@ def test_big_carries_the_cvt_rna_bits(view_pe):
 @pytest.mark.parametrize("view_pe", VIEW_PE)
 def test_big_plus_small_gives_w_back(view_pe):
     packed = _packed(3, view_pe, seed=2)
-    buf = fused_mlp.prepare_weights_plain(packed, view_pe, "float32")
-    table, _ = fused_mlp.prep_table(view_pe, "float32")
+    buf = mlp_kernels.prepare_weights_plain(packed, view_pe, "float32")
+    table, _ = mlp_kernels.prep_table(view_pe, "float32")
     mats = _matrices(packed, 3, view_pe)
     for entry in table:
         big, small = _unstage(buf, entry, "float32")
@@ -151,8 +151,8 @@ def test_copies_round_trip_to_pack_params(view_pe, compute_dtype):
     """Each fwd entry holds W^T and each bwd entry W, zero past I, so both
     orientations give back the packed vector's matrices."""
     packed = _packed(3, view_pe, seed=3)
-    buf = fused_mlp.prepare_weights_plain(packed, view_pe, compute_dtype)
-    table, _ = fused_mlp.prep_table(view_pe, compute_dtype)
+    buf = mlp_kernels.prepare_weights_plain(packed, view_pe, compute_dtype)
+    table, _ = mlp_kernels.prep_table(view_pe, compute_dtype)
     mats = _matrices(packed, 3, view_pe)
     seen = set()
     for entry in table:
@@ -178,9 +178,8 @@ def test_prepare_weights_needs_the_card(compute_dtype):
     never make them again."""
     packed = _packed(7, True, seed=4)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        fused_mlp.prepare_weights(packed, 7, True, compute_dtype)
-    for fn in (fused_mlp.launch_fwd, fused_mlp.launch_bwd, fused_mlp.run_tile,
-               staged_mlp.launch_fwd, staged_mlp.launch_bwd, staged_mlp.run_tile):
+        mlp_kernels.prepare_weights(packed, 7, True, compute_dtype)
+    for fn in (mlp_kernels.launch_fwd, mlp_kernels.launch_bwd, mlp_kernels.run_tile):
         prep = inspect.signature(fn).parameters["prep"]
         assert prep.default is inspect.Parameter.empty, fn.__qualname__
 
@@ -206,7 +205,7 @@ def _product(a, entry, buf, compute_dtype):
         x = a[:, s:s + ks]
         if compute_dtype == "float32":
             big, small = (p[:, s:s + ks] for p in parts)
-            xb = fused_mlp.tf32_big(x)
+            xb = mlp_kernels.tf32_big(x)
             part = _trunc(x - xb) @ big.t() + xb @ _trunc(small).t() + xb @ big.t()
         else:
             part = (x.to(torch.bfloat16).float()
@@ -216,9 +215,9 @@ def _product(a, entry, buf, compute_dtype):
 
 
 def _staged_forward(packed, buf, pts, vd_pt, band, C, compute_dtype):
-    table, _ = fused_mlp.prep_table(True, compute_dtype)
+    table, _ = mlp_kernels.prep_table(True, compute_dtype)
     fwd = {e[0]: e for e in table if e[1] == "fwd"}
-    w = fused_mlp.unpack(packed, C)
+    w = mlp_kernels.unpack(packed, C)
     mm = lambda a, name: _product(a, fwd[name], buf, compute_dtype)  # noqa: E731
     pe = temb.positional_encoding(pts, 10, include_input=False)
     pe = torch.cat([pts, temb.apply_barf_weights(pe, band[:10], include_input=False)], -1)
@@ -250,8 +249,8 @@ def test_network_through_the_staged_copies_matches_jax(compute_dtype):
     pts = rng.uniform(-1.0, 1.0, (2, 32, 3)).astype(np.float32)
     vd = rng.normal(size=(2, 3))
     vd = (vd / np.linalg.norm(vd, axis=-1, keepdims=True)).astype(np.float32)
-    packed = fused_mlp.pack_params(bridge.params_from_numpy(params, device="cpu"))
-    buf = fused_mlp.prepare_weights_plain(packed, True, compute_dtype)
+    packed = mlp_kernels.pack_params(bridge.params_from_numpy(params, device="cpu"))
+    buf = mlp_kernels.prepare_weights_plain(packed, True, compute_dtype)
     got = _staged_forward(packed, buf, torch.as_tensor(pts).reshape(-1, 3),
                           torch.as_tensor(vd).repeat_interleave(32, dim=0),
                           torch.ones(14), 3, compute_dtype)

@@ -19,13 +19,13 @@ csrc/fused_mlp_bwd_common.cuh), on the CPU.
   operands to the same gate;
 - applied to the scratch of a small NeRF (the activations X and the
   pre-activation gradients D of sum(sin(out)), rows as fmlp::Scratch, by
-  the job table `fused_mlp.wgrad_jobs`), the emulation and the pass's plain
+  the job table `mlp_kernels.wgrad_jobs`), the emulation and the pass's plain
   version (`run_wgrad` on CPU tensors) give the JAX package's weight
   gradients (jax.grad of benerf_tpu nerf.apply), for K2's table and K4's;
 - the job table covers the packed gradient vector once;
 - BF16's scratch format (csrc/fused_mlp_bwd_common.cuh: the products' rows
   as bf16, fp32 side rows, tile sums of D), built from an fp32 scratch by
-  `fused_mlp.bf16_scratch_plain`, gives the pass's plain version the same
+  `mlp_kernels.bf16_scratch_plain`, gives the pass's plain version the same
   float64 products bit for bit as the fp32 scratch with bf16 operands, the
   same heads, and the biases to the rounding of a reordered fp32 sum; its
   sizes are the library's mirror `scratch_sizes`.
@@ -45,7 +45,7 @@ import test_torch_tc_mlp as tc
 from benerf_tpu.models import nerf as jnerf
 from benerf_tpu_torch.models import bridge
 from benerf_tpu_torch.models import embedder as temb
-from benerf_tpu_torch.ops import fused_mlp
+from benerf_tpu_torch.ops import mlp_kernels
 
 KS = 32                # points a stage (wg::KS)
 B_KS = 128             # BF16's points a stage (wg::B_KS)
@@ -100,7 +100,7 @@ def emulate_tile_bias(d, splits):
     """BF16's bias of D rows d (O, n_pad): each 64-point tile's fp32 sum
     (the tile pass), the tiles that start in a chunk added in tile order,
     the chunks in chunk order (reduce_kernel)."""
-    tp = fused_mlp.TILE
+    tp = mlp_kernels.TILE
     tiles = d.reshape(d.shape[0], -1, tp).sum(-1)
     out = torch.zeros(d.shape[0])
     for k0, k1 in _chunks(d.shape[1], splits, B_KS):
@@ -114,8 +114,8 @@ def emulate_tile_bias(d, splits):
 def emulate_pass(X, D, C, view_pe, mode, splits):
     """The packed weight gradient from a scratch X, D ([row][point]) by the
     job table: the matrix products in `mode`, the thin jobs in fp32."""
-    products, thin = fused_mlp.wgrad_jobs(C, view_pe)
-    out = torch.zeros(fused_mlp._offsets(fused_mlp._layout(C, view_pe))[-1])
+    products, thin = mlp_kernels.wgrad_jobs(C, view_pe)
+    out = torch.zeros(mlp_kernels.packed_size(C, view_pe))
     for q, (_, x0, I, d0, O, off, bias) in enumerate(products + thin):
         d = D[d0:d0 + O]
         if bias >= 0 and mode == "bf16":  # the tile pass's sums
@@ -181,7 +181,7 @@ def _scratch(params, pts, vd, view_pe):
     S = pts.shape[1]
     x = torch.as_tensor(pts).reshape(-1, 3)
     n = x.shape[0]
-    n_pad = -(-n // fused_mlp.TILE) * fused_mlp.TILE
+    n_pad = -(-n // mlp_kernels.TILE) * mlp_kernels.TILE
     pe = temb.positional_encoding(x, 10)
     vpe = temb.positional_encoding(torch.as_tensor(vd), 4).repeat_interleave(S, 0)
     h, hs, pres = pe, [], []
@@ -199,18 +199,18 @@ def _scratch(params, pts, vd, view_pe):
     C = out.shape[1] - 1
     inner = pres + [f, pre_v, out]
     grads = torch.autograd.grad(torch.sin(out).sum(), inner)
-    x_rows = [(0, pe)] + [(fused_mlp.X_H + l * 256, hs[l]) for l in range(8)]
-    x_rows += [(fused_mlp.X_F, f)]
-    x_hv = fused_mlp.X_VPE
+    x_rows = [(0, pe)] + [(mlp_kernels.X_H + l * 256, hs[l]) for l in range(8)]
+    x_rows += [(mlp_kernels.X_F, f)]
+    x_hv = mlp_kernels.X_VPE
     if view_pe:
-        x_rows.append((fused_mlp.X_VPE, vpe))
+        x_rows.append((mlp_kernels.X_VPE, vpe))
         x_hv += 32
     x_rows.append((x_hv, hv))
     d_rows = [(l * 256, grads[l]) for l in range(8)]
-    d_rows += [(fused_mlp.D_F, grads[8]), (fused_mlp.D_HV, grads[9]),
-               (fused_mlp.D_G, grads[10])]
+    d_rows += [(mlp_kernels.D_F, grads[8]), (mlp_kernels.D_HV, grads[9]),
+               (mlp_kernels.D_G, grads[10])]
     X = torch.zeros(x_hv + 128, n_pad)
-    D = torch.zeros(fused_mlp.D_G + C + 1, n_pad)
+    D = torch.zeros(mlp_kernels.D_G + C + 1, n_pad)
     for M, rows in ((X, x_rows), (D, d_rows)):
         for r0, t in rows:
             M[r0:r0 + t.shape[1], :n] = t.detach().t()
@@ -240,21 +240,21 @@ NERF_TOL = {"tf32x3": 1e-5, "bf16": 2e-2}
 def test_emulated_pass_gives_the_jax_weight_gradients(small_nerf, mode, view_pe):
     params, pts, vd, jgrads = small_nerf
     X, D, n_pad = _scratch(params, pts, vd, view_pe)
-    want = fused_mlp.pack_params(bridge.params_from_numpy(jgrads, device="cpu"),
+    want = mlp_kernels.pack_params(bridge.params_from_numpy(jgrads, device="cpu"),
                                  view_pe=view_pe)
     got = emulate_pass(X, D, 3, view_pe, mode, splits=3)
-    layout = fused_mlp._layout(3, view_pe)
-    offs = fused_mlp._offsets(layout)
+    layout = mlp_kernels.layout(3, view_pe)
+    offs = mlp_kernels.offsets(layout)
     for q, (name, _) in enumerate(layout):
         a, b = got[offs[q]:offs[q + 1]], want[offs[q]:offs[q + 1]]
         if b.numel():
             assert _rel(a, b) <= NERF_TOL[mode], name
     # the pass's plain version, the CPU path of run_wgrad: on the fp32
     # scratch, and in bf16 on the bf16 format of it
-    scr = fused_mlp.Scratch(n_pad, "float32", X.reshape(-1), D.reshape(-1))
+    scr = mlp_kernels.Scratch(n_pad, "float32", X.reshape(-1), D.reshape(-1))
     if mode == "bf16":
-        scr = fused_mlp.bf16_scratch_plain(scr, 3, view_pe)
-    plain = fused_mlp.run_wgrad(scr, 3, view_pe=view_pe)
+        scr = mlp_kernels.bf16_scratch_plain(scr, 3, view_pe)
+    plain = mlp_kernels.run_wgrad(scr, 3, view_pe=view_pe)
     assert plain.dtype == torch.float32 and plain.shape == want.shape
     for q, (name, _) in enumerate(layout):
         a, b = plain[offs[q]:offs[q + 1]], want[offs[q]:offs[q + 1]]
@@ -268,18 +268,18 @@ def test_job_table_covers_the_packed_vector_once(view_pe, C):
     """Every entry of the packed gradient comes from exactly one job, the
     products' rows lie inside the scratch, and K4's table is K2's without
     wvpe."""
-    products, thin = fused_mlp.wgrad_jobs(C, view_pe)
-    total = fused_mlp._offsets(fused_mlp._layout(C, view_pe))[-1]
+    products, thin = mlp_kernels.wgrad_jobs(C, view_pe)
+    total = mlp_kernels.packed_size(C, view_pe)
     hits = torch.zeros(total, dtype=torch.int64)
-    for _, off, size in fused_mlp.wgrad_ranges(C, view_pe):
+    for _, off, size in mlp_kernels.wgrad_ranges(C, view_pe):
         hits[off:off + size] += 1
     assert bool((hits == 1).all())
-    x_rows = fused_mlp.X_VPE + (32 if view_pe else 0) + 128
+    x_rows = mlp_kernels.X_VPE + (32 if view_pe else 0) + 128
     assert all(x0 >= -1 and d0 >= 0 for _, x0, _, d0, *_ in products + thin)
-    assert all(x0 + I <= x_rows and d0 + O <= fused_mlp.D_G
+    assert all(x0 + I <= x_rows and d0 + O <= mlp_kernels.D_G
                for _, x0, I, d0, O, *_ in products)
     assert len(products) == (12 if view_pe else 11)
-    k2 = [j[:5] for j in fused_mlp.wgrad_jobs(C, True)[0]]
+    k2 = [j[:5] for j in mlp_kernels.wgrad_jobs(C, True)[0]]
     assert [j[:5] for j in products] == k2[:len(products)]
 
 
@@ -288,10 +288,10 @@ def test_job_table_covers_the_packed_vector_once(view_pe, C):
 
 def _random_scratch(view_pe, C, tiles=5, seed=3):
     """An fp32 scratch of normal numbers, K2's rows (view_pe) or K4's."""
-    n_pad = tiles * fused_mlp.TILE
-    sizes = fused_mlp.scratch_sizes(n_pad, C, view_pe)
+    n_pad = tiles * mlp_kernels.TILE
+    sizes = mlp_kernels.scratch_sizes(n_pad, C, view_pe)
     g = torch.Generator().manual_seed(seed)
-    return fused_mlp.Scratch(n_pad, "float32",
+    return mlp_kernels.Scratch(n_pad, "float32",
                              torch.randn(sizes[0], generator=g),
                              torch.randn(sizes[1], generator=g))
 
@@ -309,10 +309,10 @@ def test_bf16_scratch_gives_the_pass_of_the_fp32_scratch_in_bf16(view_pe, C):
     bit in float64, the heads too (their fp32 rows are copies), each bias
     within BIAS_TOL of its range's largest entry."""
     scr = _random_scratch(view_pe, C)
-    ref = fused_mlp.wgrad_plain(scr, C, view_pe, "bfloat16")
-    b16 = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
-    got = fused_mlp.wgrad_plain(b16, C, view_pe)
-    products, thin = fused_mlp.wgrad_jobs(C, view_pe)
+    ref = mlp_kernels.wgrad_plain(scr, C, view_pe, "bfloat16")
+    b16 = mlp_kernels.bf16_scratch_plain(scr, C, view_pe)
+    got = mlp_kernels.wgrad_plain(b16, C, view_pe)
+    products, thin = mlp_kernels.wgrad_jobs(C, view_pe)
     for name, _, I, _, O, off, bias in products + thin:
         assert torch.equal(got[off:off + I * O], ref[off:off + I * O]), name
         if bias >= 0:
@@ -320,7 +320,7 @@ def test_bf16_scratch_gives_the_pass_of_the_fp32_scratch_in_bf16(view_pe, C):
             assert float((a - b).abs().max()) <= BIAS_TOL * float(b.abs().max()), name
     # and the plain version refuses fp32 operands of a bf16 scratch
     with pytest.raises(ValueError):
-        fused_mlp.wgrad_plain(b16, C, view_pe, "float32")
+        mlp_kernels.wgrad_plain(b16, C, view_pe, "float32")
 
 
 @pytest.mark.parametrize("C", [1, 3])
@@ -333,30 +333,30 @@ def test_bf16_scratch_has_the_library_sizes(view_pe, C):
     blocks of a tile's 64 points."""
     scr = _random_scratch(view_pe, C)
     n_pad = scr.n_pad
-    b16 = fused_mlp.bf16_scratch_plain(scr, C, view_pe)
-    sizes = fused_mlp.scratch_sizes(n_pad, C, view_pe, "bfloat16")
+    b16 = mlp_kernels.bf16_scratch_plain(scr, C, view_pe)
+    sizes = mlp_kernels.scratch_sizes(n_pad, C, view_pe, "bfloat16")
     assert (b16.x.numel(), b16.d.numel(), b16.side.numel(), b16.bsum.numel()) == sizes[:4]
     assert b16.x.dtype == b16.d.dtype == torch.bfloat16
     X, D, side = scr.x.view(-1, n_pad), scr.d.view(-1, n_pad), b16.side.view(-1, n_pad)
-    _, thin = fused_mlp.wgrad_jobs(C, view_pe)
-    _, thin_b = fused_mlp.wgrad_jobs(C, view_pe, "bfloat16")
+    _, thin = mlp_kernels.wgrad_jobs(C, view_pe)
+    _, thin_b = mlp_kernels.wgrad_jobs(C, view_pe, "bfloat16")
     for (name, x0, I, d0, O, *_), (_, xb, _, db, *_) in zip(thin, thin_b):
         assert torch.equal(side[db:db + O], D[d0:d0 + O]), name
         if x0 >= 0:
             assert torch.equal(side[xb:xb + I], X[x0:x0 + I]), name
     if not view_pe:
-        assert sizes[4] == fused_mlp.SIDE_DHV
+        assert sizes[4] == mlp_kernels.SIDE_DHV
         assert torch.equal(side[sizes[4]:sizes[4] + 128],
-                           D[fused_mlp.D_HV:fused_mlp.D_G])
-    rows = fused_mlp.x_rows_bf16(view_pe)
+                           D[mlp_kernels.D_HV:mlp_kernels.D_G])
+    rows = mlp_kernels.x_rows_bf16(view_pe)
     assert torch.equal(b16.rows("x"), X[:rows].to(torch.bfloat16))
-    assert torch.equal(b16.rows("d"), D[:fused_mlp.D_G].to(torch.bfloat16))
+    assert torch.equal(b16.rows("d"), D[:mlp_kernels.D_G].to(torch.bfloat16))
     # tile-blocked: a tile's 64 points of a row, then its next row
-    t = fused_mlp.TILE
+    t = mlp_kernels.TILE
     assert torch.equal(b16.x[t:2 * t], X[1, :t].to(torch.bfloat16))
     assert torch.equal(b16.x[rows * t:rows * t + t], X[0, t:2 * t].to(torch.bfloat16))
-    products, _ = fused_mlp.wgrad_jobs(C, view_pe, "bfloat16")
-    assert all(x0 + I <= rows and d0 + O <= fused_mlp.BIAS_ROWS
+    products, _ = mlp_kernels.wgrad_jobs(C, view_pe, "bfloat16")
+    assert all(x0 + I <= rows and d0 + O <= mlp_kernels.BIAS_ROWS
                for _, x0, I, d0, O, *_ in products)
 
 
@@ -366,6 +366,6 @@ def test_bf16_scratch_has_the_library_sizes(view_pe, C):
 def test_bf16_scratch_bytes_a_point(view_pe, fp32, bf16):
     """At C = 3: K2's fp32 scratch 19,872 B a point, its bf16 format 11,384
     (-43%); K4's 19,728 and 11,816."""
-    n_pad = 6110 * fused_mlp.TILE
-    assert fused_mlp.scratch_bytes(n_pad, 3, view_pe) == fp32 * n_pad
-    assert fused_mlp.scratch_bytes(n_pad, 3, view_pe, "bfloat16") == bf16 * n_pad
+    n_pad = 6110 * mlp_kernels.TILE
+    assert mlp_kernels.scratch_bytes(n_pad, 3, view_pe) == fp32 * n_pad
+    assert mlp_kernels.scratch_bytes(n_pad, 3, view_pe, "bfloat16") == bf16 * n_pad

@@ -39,9 +39,9 @@ sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
 from benerf_tpu_torch.models import nerf
-from benerf_tpu_torch.ops import fused_mlp
+from benerf_tpu_torch.ops import mlp_kernels
 torch.backends.cuda.matmul.allow_tf32 = False
-fused_mlp.build()
+mlp_kernels.build()
 seeds, cases, sizes, pooled_seeds, points = json.loads(sys.argv[1])
 
 

@@ -31,9 +31,9 @@ import inspect, json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as cs
-from benerf_tpu_torch.ops import fused_mlp
+from benerf_tpu_torch.ops import mlp_kernels
 torch.backends.cuda.matmul.allow_tf32 = False
-fused_mlp.build()
+mlp_kernels.build()
 modes = "compute_dtype" in inspect.signature(cs.time_kernels).parameters
 staged_modes = "compute_dtype" in inspect.signature(cs.time_staged_kernels).parameters
 res = {}

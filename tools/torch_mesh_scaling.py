@@ -79,8 +79,8 @@ def rank_run(args):
         t0 = time.perf_counter()
         loop.train(cfg, scene, device=device)
         wall = time.perf_counter() - t0
-        fused, _, routes, _, coll = mlp_ops.counts_since(before,
-                                                         step_mod.COUNTERS)
+        launches, routes, coll = mlp_ops.counts_since(before,
+                                                      step_mod.COUNTERS)
         if rank == 0:
             with open(os.path.join(logdir, "0", "metrics.jsonl")) as f:
                 recs = [json.loads(line) for line in f]
@@ -97,7 +97,7 @@ def rank_run(args):
                 ms_per_iter=1e3 * rays / statistics.median(steady),
                 iter1={k: v for k, v in steps[0].items() if k != "step"},
                 losses=[r["train_loss"] for r in steps],
-                launches_rank0={**fused, **routes},
+                launches_rank0={**launches, **routes},
                 collectives_per_iter_rank0={
                     k: v / len(steps) for k, v in coll.items()})
             with open(out, "w") as f:

@@ -16,9 +16,9 @@ each on the port's own function as the step calls it:
   ray_subset_perm  the randperm slices of the config default (comparison)
   mlp_staging      what the step does around K1 at both levels: the two
                    families' points and viewdirs joined, the weights packed
-                   (ops/fused_mlp.pack_params), the band weights, the
+                   (ops/mlp_kernels.pack_params), the band weights, the
                    points flattened; forward and backward
-  mlp_fine         K1 + K2 through ops/fused_mlp._FusedMLP, n = 391,040
+  mlp_fine         K1 + K2 through ops/mlp_kernels.KernelMLP, n = 391,040
   mlp_coarse       the same at n = 195,520
   composite        render/volume.composite of both families at both levels
   z_merge          render/pdf.merge_sorted of both families (no gradient
@@ -79,7 +79,7 @@ def build_rows(cfg, batch, H, W, device, seed=0):
     from benerf_tpu_torch.data import events as events_mod
     from benerf_tpu_torch.geometry import spline as spline_mod
     from benerf_tpu_torch.models.bridge import tree_leaves
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels
     from benerf_tpu_torch.render import pdf as pdf_mod
     from benerf_tpu_torch.render import volume
     from benerf_tpu_torch.train import loss as loss_mod
@@ -133,7 +133,7 @@ def build_rows(cfg, batch, H, W, device, seed=0):
     def staging():
         outs = []
         for S, name in levels:
-            outs += [fused_mlp.pack_params(params[name]),
+            outs += [mlp_kernels.pack_params(params[name]),
                      torch.cat(pts[S], dim=0).reshape(-1, 3).contiguous(),
                      torch.cat(vd, dim=0).contiguous(),
                      fused_mlp.band_weights(None, None, device)]
@@ -248,9 +248,9 @@ def build_rows(cfg, batch, H, W, device, seed=0):
 def _mlp_call(params, pts, vd, compute_dtype):
     """fn() -> [raw]: one MLP call as the step makes it, without the staging
     (the mlp_staging row): K1, and K2 in its backward, through
-    ops/fused_mlp._FusedMLP on the card; on the CPU its plain version,
+    ops/mlp_kernels.KernelMLP on the card; on the CPU its plain version,
     fused_nerf_mlp. pts (R, S, 3), vd (R, 3)."""
-    from benerf_tpu_torch.ops import fused_mlp
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels
 
     pts.requires_grad_(True)
     vd.requires_grad_(True)
@@ -258,12 +258,12 @@ def _mlp_call(params, pts, vd, compute_dtype):
         return lambda: [fused_mlp.fused_nerf_mlp(params, pts, vd,
                                                  compute_dtype=compute_dtype)]
     R, S, _ = pts.shape
-    packed = fused_mlp.pack_params(params).detach().requires_grad_(True)
+    packed = mlp_kernels.pack_params(params).detach().requires_grad_(True)
     band = fused_mlp.band_weights(None, None, pts.device)
     flat = pts.detach().reshape(R * S, 3).contiguous().requires_grad_(True)
     C = params["rgb"]["w"].shape[1]
-    return lambda: [fused_mlp._FusedMLP.apply(
-        packed, flat, vd, band, S, C, fused_mlp.DEFAULT_SPLITS, compute_dtype)]
+    return lambda: [mlp_kernels.KernelMLP.apply(
+        mlp_kernels.FUSED, packed, flat, vd, band, S, C, compute_dtype)]
 
 
 def measure(fn, reps, device):
