@@ -8,14 +8,18 @@
 // The scratch's format follows the operand mode. TF32X3: X and D in fp32,
 // every row of Scratch, [row][point] (19,872 B a point for K2: the split
 // needs the fp32 value). BF16: what each reader consumes, 11,384 B a point
-// for K2 (-43%):
+// for K2 (-43%). K2's X rows, h7 and hv rows and ReLU sign words (272 B a
+// point more) are K1's, which keeps its forward when autograd will need it
+// (10,384 B a point in TF32X3, 6,608 in BF16); the backward writes the
+// rest. The BF16 format:
 //  - X's first X_HV rows and D's first D_G rows (every row a matrix product
 //    reads), as the bf16 (rn) operands the products read; tile-blocked,
 //    [tile][row][64 points]: a tile's 64 points of a row are 128 B, its
 //    rows follow each other, so a TMA box of 128 rows is 16 KB of
 //    contiguous memory;
 //  - fp32 rows for what reads fp32 (Side): h7, hv and the cotangent for the
-//    thin jobs, and K4's d vb per point, which the wrapper sums per ray;
+//    thin jobs (K2: the cotangent in an array of its own), and K4's d vb
+//    per point, which the wrapper sums per ray;
 //  - the biases' sums of D's rows from the fp32 values: one partial a
 //    64-point tile and row, [tile][BIAS_ROWS], read back from the layer's
 //    tile in shared memory after its epilogue (wl::tile_sums: ~1% of the
@@ -28,31 +32,8 @@
 
 namespace fmlp {
 
-// Rows of the scratch, [row][point] with row stride n_pad. VIEW_PE: K2's
-// (the view encoding VPE among the activations), else K4's.
-template <bool VIEW_PE>
-struct Scratch {
-  static constexpr int X_PE = 0;
-  static constexpr int X_H = X_PE + PE_PAD;          // h0..h7
-  static constexpr int X_F = X_H + DEPTH * WIDTH;
-  static constexpr int X_VPE = X_F + WIDTH;          // K2 only
-  static constexpr int X_HV = X_VPE + (VIEW_PE ? VPE_PAD : 0);
-  static constexpr int X_ROWS = X_HV + HEAD;         // 2528 (K2), 2496 (K4)
-  static constexpr int D_PRE = 0;                    // d pre-activation, layers 0..7
-  static constexpr int D_F = D_PRE + DEPTH * WIDTH;
-  static constexpr int D_HV = D_F + WIDTH;           // K4: d vb per point
-  static constexpr int D_G = D_HV + HEAD;            // cotangent rows (rgb..., alpha)
-};
-
-// BF16: the fp32 rows of the scratch (row stride n_pad), and the rows of
-// the per-tile sums of D (D's rows 0..BIAS_ROWS, the products' D rows)
-template <bool VIEW_PE>
-struct Side {
-  static constexpr int H7 = 0;                       // h7 (wa's gradient)
-  static constexpr int HV = H7 + WIDTH;              // hv (wrgb's)
-  static constexpr int DHV = HV + HEAD;              // K4: d vb per point
-  static constexpr int G = DHV + (VIEW_PE ? 0 : HEAD);  // cotangent rows
-};
+// The scratch's rows (Scratch, Side) and the ReLU sign words (MASK_WORDS,
+// SIGN_WORDS) are fused_mlp_wg.cuh's, where K1 keeps K2's X rows and signs.
 constexpr int BIAS_ROWS = Scratch<true>::D_G;        // 2432
 static_assert(BIAS_ROWS == wg::BIAS_ROWS && Scratch<false>::D_G == BIAS_ROWS,
               "the pass reads the tile sums as the tile pass writes them");
@@ -121,47 +102,57 @@ __device__ __forceinline__ void dgrad_out(float (&acc)[N / 4],
 
 // ---- pass (a): the tile pass ----------------------------------------------
 //
-// One block per 64-point tile (one block of two consumer warpgroups and a producer warp per SM)
-// rematerializes the forward on wgmma (fused_mlp_wg.cuh), keeps the ReLU
-// signs of every layer as bits in shared memory, runs the chain rule back
-// through heads, trunk and the sin/cos encodings with the data-gradient
-// products B[i][o] = W[i][o] (the W copies of the prepared buffer, which
-// the forward launch wrote), writes d pts (and K2's per-point d viewdir),
-// and stores every activation (X) and every pre-activation gradient (D) of
-// the tile to the scratch from the accumulators, in the mode's format (see
-// the top). K4's d vb per point is D's rows D_HV (BF16: Side::DHV), which
-// the wrapper sums per ray.
+// One block per 64-point tile (one block of two consumer warpgroups and a
+// producer warp per SM) runs the chain rule back through heads, trunk and
+// the sin/cos encodings with the data-gradient products B[i][o] = W[i][o]
+// (the W copies of the prepared buffer, which the forward launch wrote),
+// masking each layer by the ReLU signs of its forward, writes d pts (and
+// K2's per-point d viewdir), and stores every pre-activation gradient (D)
+// of the tile to the scratch from the accumulators, in the mode's format
+// (see the top). Where the forward comes from:
+//  - K2 (VIEW_PE): K1 kept it (fused_mlp_wg.cuh `kept_tile`): its
+//    activations sit in X for pass (b), its sign words in global memory,
+//    which one bulk copy brings into shared memory; the pass starts at the
+//    backward, its ring streams the data-gradient stages alone;
+//  - K4: the pass runs K3's forward again on wgmma (fused_mlp_wg.cuh)
+//    first, keeping the signs as bits in shared memory and every
+//    activation in X; its ring streams the forward's stages, then the data
+//    gradients'. K4's d vb per point is D's rows D_HV (BF16: Side::DHV),
+//    which the wrapper sums per ray.
 //
 // Shared memory (227 KB a block): the ring (96 KB: three TF32X3 or six
 // BF16 stages), H (64 points, row stride Ld<MODE>::H), PE (Ld::P) and the
-// sign bits (17 words a consumer thread, 17,408 B) are common. K2 adds VPE
-// (Ld::V) and its cotangent tile G (8 rows, C + 1 <= 8, [row][point]):
-// 212,016 B in TF32X3, 215,136 in BF16. K4's C + 1
+// sign bits (17 words a consumer thread, 17,408 B) are common; the backward
+// gathers d pe in PE (and K2's d vpe in VPE). K2 adds VPE (Ld::V), its cotangent tile G (8 rows, C + 1 <= 8,
+// [row][point]) and the sign copy's mbarrier:
+// 212,024 B in TF32X3, 215,144 in BF16. K4's C + 1
 // goes to 128; it loads its cotangent after the forward into H's columns
 // 128..255, which hold nothing once hv sits in columns 0..127 (every
 // consumer has read f), and copies the alpha column, which the backward
 // reads after the feature product has overwritten H, into a row of its own
 // (GA): 201,008 / 203,104 B for any C.
-constexpr int MASK_WORDS = DEPTH * 2 + 1;  // ReLU sign words a consumer thread
-
 template <tc::Mode MODE>
 using TileRing = wl::Ring<MODE, 96 * 1024 / wl::Cfg<MODE>::SLOT_BYTES>;
 
 template <tc::Mode MODE, bool VIEW_PE>
 constexpr size_t TILE_FLOATS =
     TP * (wl::Ld<MODE>::H + wl::Ld<MODE>::P) +
-    (VIEW_PE ? TP * wl::Ld<MODE>::V + G_PAD * TP : TP) + MASK_WORDS * wl::CONSUMERS;
+    (VIEW_PE ? TP * wl::Ld<MODE>::V + G_PAD * TP + 2 : TP) +
+    MASK_WORDS * wl::CONSUMERS;
 template <tc::Mode MODE, bool VIEW_PE>
 constexpr size_t tile_smem_bytes() {
   return wl::smem_bytes<TileRing<MODE>>(TILE_FLOATS<MODE, VIEW_PE>);
 }
 
 // wmap / sched: the prepared weights' map and the tile pass's schedule
-// (wl::make_sched with backward); view: K2's viewdirs vd (n / S, 3) or K4's
-// per-ray bias vb (n / S, 128); band: K2's band weights (14,), null for K4
-// (no BARF); dvd: K2's d viewdir per point (n, 3), null for K4; X, D: the
-// scratch (BF16: bf16 arrays); side, bsum: BF16's fp32 rows and tile sums
-// (unused in TF32X3). smem: tile_smem_bytes<MODE, VIEW_PE>() bytes.
+// (wl::make_sched: K2 the data gradients', K4 the forward's too); view:
+// K2's viewdirs vd (n / S, 3) or K4's per-ray bias vb (n / S, 128); band:
+// K2's band weights (14,), null for K4 (no BARF); dvd: K2's d viewdir per
+// point (n, 3), null for K4; X: K4's X rows of the scratch to write (BF16:
+// the bf16 array), unused by K2; D: the scratch's D rows; side, bsum:
+// BF16's fp32 rows (K2: its cotangent rows alone) and tile sums (unused in
+// TF32X3); signs: K2's, the sign words K1 kept (SIGN_WORDS a tile), null
+// for K4. smem: tile_smem_bytes<MODE, VIEW_PE>() bytes.
 template <tc::Mode MODE, bool VIEW_PE>
 __device__ __forceinline__ void tile_pass(
     const CUtensorMap* wmap, const wl::Sched& sched,
@@ -169,7 +160,8 @@ __device__ __forceinline__ void tile_pass(
     int S, const float* __restrict__ P, const float* __restrict__ band,
     const float* __restrict__ g, int C, int64_t n_pad, float* __restrict__ X,
     float* __restrict__ D, float* __restrict__ dpts, float* __restrict__ dvd,
-    float* __restrict__ side, float* __restrict__ bsum, uint8_t* smem) {
+    float* __restrict__ side, float* __restrict__ bsum,
+    const uint32_t* __restrict__ signs, uint8_t* smem) {
   using R = Scratch<VIEW_PE>;
   using SR = Side<VIEW_PE>;
   constexpr bool B = MODE == tc::BF16;
@@ -183,7 +175,12 @@ __device__ __forceinline__ void tile_pass(
   float* G = VIEW_PE ? VPE + TP * L::V : nullptr;         // K2: [row][point]
   float* GA = VIEW_PE ? G + C * TP : PE + TP * L::P;      // the alpha row
   uint32_t* masks = reinterpret_cast<uint32_t*>(VIEW_PE ? G + G_PAD * TP : GA + TP);
-  if (threadIdx.x == 0) ring.init();
+  // K2: the mbarrier of the sign words' bulk copy, after them
+  const uint32_t sign_bar = tc::smem_addr(masks + MASK_WORDS * wl::CONSUMERS);
+  if (threadIdx.x == 0) {
+    if constexpr (VIEW_PE) wg::mbar_init(sign_bar, 1);
+    ring.init();
+  }
   __syncthreads();
   if (wl::producer(ring, wmap, sched)) return;
   const int w = wl::warpgroup();
@@ -222,32 +219,34 @@ __device__ __forceinline__ void tile_pass(
     return VIEW_PE ? G[k * TP + p] : H[p * L::H + HEAD + k];
   };
 
-  encode_pm(pts, VIEW_PE ? view : nullptr, n, S, band, p0, PE, L::P, VPE, L::V);
-  wg::consumers_sync();
-  if constexpr (B)
-    copy_cols_bf16(PE, L::P, PE_PAD,
-                   reinterpret_cast<__nv_bfloat16*>(Xt) + (int64_t)R::X_PE * TP, TP, 0);
-  else
-    copy_cols(PE, L::P, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
   if constexpr (VIEW_PE) {
-    if constexpr (B)
-      copy_cols_bf16(VPE, L::V, VPE_PAD,
-                     reinterpret_cast<__nv_bfloat16*>(Xt) + (int64_t)R::X_VPE * TP, TP, 0);
-    else
-      copy_cols(VPE, L::V, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
+    // the tile's sign words, as K1 left them, while the cotangent loads
+    constexpr uint32_t bytes = SIGN_WORDS * sizeof(uint32_t);
+    if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(sign_bar, bytes);
+      wg::bulk_load(tc::smem_addr(masks), signs + (int64_t)blockIdx.x * SIGN_WORDS,
+                    bytes, sign_bar);
+    }
     load_g(G_PAD);
-  }
+    wg::mbar_wait(sign_bar, 0);
+    wg::consumers_sync();
+  } else {
+    encode_pm(pts, nullptr, n, S, band, p0, PE, L::P, VPE, L::V);
+    wg::consumers_sync();
+    if constexpr (B)
+      copy_cols_bf16(PE, L::P, PE_PAD,
+                     reinterpret_cast<__nv_bfloat16*>(Xt) + (int64_t)R::X_PE * TP, TP, 0);
+    else
+      copy_cols(PE, L::P, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
 
-  // forward, keeping every activation in X and every ReLU sign in masks
-  const Keep keep{Xt, ldt, colt, R::X_H, R::X_F, R::X_HV, masks,
-                  side, n_pad, p0, SR::H7, SR::HV};
-  if constexpr (VIEW_PE)
-    forward_wg<MODE>(P, o, PE, ViewPE{VPE}, H, ring, &keep, [](const float*) {}, w);
-  else
+    // forward, keeping every activation in X and every ReLU sign in masks
+    const Keep keep{Xt, ldt, colt, R::X_H, R::X_F, R::X_HV, masks,
+                    side, n_pad, p0, SR::H7, SR::HV};
     forward_wg<MODE>(P, o, PE, ViewBias{view, n, p0, S}, H, ring, &keep,
                      [](const float*) {}, w);
-  if constexpr (!VIEW_PE) load_g(C + 1);  // into H columns 128.. (see above)
-  wg::consumers_sync();
+    load_g(C + 1);  // into H columns 128.. (see above)
+    wg::consumers_sync();
+  }
 
   // rgb head on CUDA cores, at the views layer's accumulator positions:
   // dhv = wrgb g_rgb, masked by hv > 0 -> D_HV and H columns 0..127 (hv,
@@ -419,7 +418,7 @@ inline void number_jobs(GemmJobs* g, ThinJobs* t) {
 // which also sum their D rows into the biases b (layer by layer), bf and
 // K2's bv, then the alpha head, its bias, the rgb head and its bias. The
 // thin jobs' rows are the fp32 scratch's (TF32X3) or Side's (BF16: X and D
-// there are both the fp32 rows).
+// there are both fp32 rows; K2's cotangent rows are an array of their own).
 template <bool VIEW_PE>
 inline void make_jobs(int C, GemmJobs* g, ThinJobs* t, int mode) {
   using R = Scratch<VIEW_PE>;
@@ -486,22 +485,23 @@ inline int gemm_tiles(const GemmJobs& g) {
 // scratch (row stride n_pad) through `splits` partials `part`, the matrix
 // products in `mode` (tc::TF32X3 or tc::BF16), the thin jobs fp32: TF32X3
 // X, D fp32; BF16 X, D the tile-blocked bf16 arrays of xr and dr rows a
-// tile, side and bsum as the tile pass wrote them (the thin jobs, by
-// make_jobs's table in that mode, read side). Returns the first launch
-// error.
-inline int weight_gradients(const void* X, const void* D, const float* side,
-                            const float* bsum, int64_t n_pad, int xr, int dr,
-                            int splits, int64_t Ptot, const GemmJobs& gj,
-                            const ThinJobs& tj, float* part, float* dP,
-                            int mode, cudaStream_t stream) {
+// tile, bsum as the tile pass wrote it, and the fp32 rows that the thin
+// jobs read, by make_jobs's table in that mode, as X rows from xside and as
+// D rows from dside (K2: K1's h7 and hv, its backward's cotangent; K4: one
+// array, both). Returns the first launch error.
+inline int weight_gradients(const void* X, const void* D, const float* xside,
+                            const float* dside, const float* bsum, int64_t n_pad,
+                            int xr, int dr, int splits, int64_t Ptot,
+                            const GemmJobs& gj, const ThinJobs& tj, float* part,
+                            float* dP, int mode, cudaStream_t stream) {
   const int ks = mode == tc::BF16 ? wg::B_KS : wg::KS;  // a stage's points
   int64_t chunk = (n_pad + splits - 1) / splits;
   chunk = (chunk + ks - 1) / ks * ks;
   int err = launch_wgmma(X, D, bsum, n_pad, xr, dr, chunk, splits, gj,
                          gemm_tiles(gj), part, Ptot, mode, stream);
   if (err) return err;
-  const float* tx = mode == tc::BF16 ? side : static_cast<const float*>(X);
-  const float* td = mode == tc::BF16 ? side : static_cast<const float*>(D);
+  const float* tx = mode == tc::BF16 ? xside : static_cast<const float*>(X);
+  const float* td = mode == tc::BF16 ? dside : static_cast<const float*>(D);
   const int thin_blocks = (tj.total * 32 + THREADS - 1) / THREADS;
   wgrad_thin_kernel<<<dim3(thin_blocks, splits), THREADS, 0, stream>>>(
       tx, td, n_pad, chunk, part, Ptot, tj);

@@ -119,14 +119,53 @@ __device__ __forceinline__ void ray_bias_relu(float (&acc)[32], const ViewBias& 
   }
 }
 
+// Rows of the backward's scratch, [row][point] with row stride n_pad
+// (fused_mlp_bwd_common.cuh has its formats). VIEW_PE: K2's (the view
+// encoding VPE among the activations), else K4's. The X rows and the ReLU
+// signs are the forward's: K1 writes K2's when autograd will need them
+// (`kept_tile`), K4's tile pass runs K3's forward again to write its own.
+template <bool VIEW_PE>
+struct Scratch {
+  static constexpr int X_PE = 0;
+  static constexpr int X_H = X_PE + PE_PAD;          // h0..h7
+  static constexpr int X_F = X_H + DEPTH * WIDTH;
+  static constexpr int X_VPE = X_F + WIDTH;          // K2 only
+  static constexpr int X_HV = X_VPE + (VIEW_PE ? VPE_PAD : 0);
+  static constexpr int X_ROWS = X_HV + HEAD;         // 2528 (K2), 2496 (K4)
+  static constexpr int D_PRE = 0;                    // d pre-activation, layers 0..7
+  static constexpr int D_F = D_PRE + DEPTH * WIDTH;
+  static constexpr int D_HV = D_F + WIDTH;           // K4: d vb per point
+  static constexpr int D_G = D_HV + HEAD;            // cotangent rows (rgb..., alpha)
+};
+
+// BF16: the fp32 rows (row stride n_pad). h7 and hv are the forward's; K4
+// keeps them, its d vb per point and the cotangent in one array, K2 the
+// cotangent in an array of its backward's own (from row 0) beside the h7
+// and hv rows that K1 kept.
+template <bool VIEW_PE>
+struct Side {
+  static constexpr int H7 = 0;                       // h7 (wa's gradient)
+  static constexpr int HV = H7 + WIDTH;              // hv (wrgb's)
+  static constexpr int KEPT = HV + HEAD;             // K2: K1's rows
+  static constexpr int DHV = KEPT;                   // K4: d vb per point
+  static constexpr int G = VIEW_PE ? 0 : DHV + HEAD;  // cotangent rows
+};
+
+// ReLU sign words of a consumer thread: h0..h7 (two each) and hv. A tile's
+// are word-major, [word][consumer thread] (wl::save_signs): in shared
+// memory where the tile pass keeps them, in global memory, tile after
+// tile, where K1 keeps them for K2 (SIGN_WORDS a tile, 272 B a point).
+constexpr int MASK_WORDS = DEPTH * 2 + 1;
+constexpr int SIGN_WORDS = MASK_WORDS * wl::CONSUMERS;
+
 // Outputs of the forward kept for K2/K4: with X non-null every activation
 // is written to the feature-major scratch X (row stride ldx, column col0)
 // at rows x_h + 256 l (trunk), x_f (feature), x_hv (views), and the ReLU
-// signs of h0..h7 and hv to `masks` (DEPTH * 2 + 1 words a consumer
-// thread). BF16 (fused_mlp_bwd_common.cuh): X is the tile's block of the
-// bf16 scratch (ldx 64, col0 0) and holds the trunk and the feature; h7
-// also goes to the fp32 rows `side` + s_h7 (row stride lds, column cols),
-// hv only to `side` + s_hv.
+// signs of h0..h7 and hv to `masks` (MASK_WORDS words a consumer thread).
+// BF16 (fused_mlp_bwd_common.cuh): X is the tile's block of the bf16
+// scratch (ldx 64, col0 0) and holds the trunk and the feature; h7 also
+// goes to the fp32 rows `side` + s_h7 (row stride lds, column cols), hv
+// only to `side` + s_hv.
 struct Keep {
   float* X;
   int64_t ldx, col0;
@@ -136,6 +175,35 @@ struct Keep {
   int64_t lds, cols;
   int s_h7, s_hv;
 };
+
+// What K1 keeps of tile `tile` (first point p0) for K2, in the mode's
+// scratch format: the encodings PE and VPE (point-major in shared memory,
+// row strides ldp, ldv) to their X rows now, and the Keep that the forward
+// writes the rest through. X: TF32X3 the fp32 rows (row stride n_pad),
+// BF16 the tile-blocked bf16 rows; side: BF16's fp32 rows h7 and hv
+// (Side::KEPT rows); signs: SIGN_WORDS a tile. The consumer threads.
+template <tc::Mode MODE>
+__device__ __forceinline__ Keep kept_tile(const float* PE, int ldp, const float* VPE,
+                                          int ldv, float* X, float* side,
+                                          uint32_t* signs, int64_t n_pad,
+                                          int64_t tile) {
+  using R = Scratch<true>;
+  using SR = Side<true>;
+  const int64_t p0 = tile * TP;
+  uint32_t* masks = signs + tile * SIGN_WORDS;
+  if constexpr (MODE == tc::BF16) {
+    __nv_bfloat16* Xt = reinterpret_cast<__nv_bfloat16*>(X) + tile * R::X_HV * TP;
+    copy_cols_bf16(PE, ldp, PE_PAD, Xt + (int64_t)R::X_PE * TP, TP, 0);
+    copy_cols_bf16(VPE, ldv, VPE_PAD, Xt + (int64_t)R::X_VPE * TP, TP, 0);
+    return Keep{reinterpret_cast<float*>(Xt), TP, 0, R::X_H, R::X_F, R::X_HV,
+                masks, side, n_pad, p0, SR::H7, SR::HV};
+  } else {
+    copy_cols(PE, ldp, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
+    copy_cols(VPE, ldv, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
+    return Keep{X, n_pad, p0, R::X_H, R::X_F, R::X_HV, masks, nullptr, n_pad, p0,
+                SR::H7, SR::HV};
+  }
+}
 
 // The forward on one tile whose point encoding is in PE (the ring's
 // schedule starts with it). Leaves hv in H columns 0..127 (every consumer

@@ -16,7 +16,9 @@
 // fp32 rows, 11,816 B a point at C = 3.
 //
 // Design: K2's two deterministic passes (fused_mlp_bwd.cu), on the same
-// template (fused_mlp_bwd_common.cuh) with the view input swapped:
+// template (fused_mlp_bwd_common.cuh) with the view input swapped and the
+// forward run again where K2 reads the one K1 kept (K3 keeps none; keeping
+// it as K1 does is K4's next step):
 //  (a) `staged_tile_kernel`: `tile_pass<MODE, false>`, one block per
 //      64-point tile on wgmma in the mode of compute_dtype, TF32X3 or BF16
 //      (operands rounded to bf16 at the fragment load, fp32 in shared
@@ -68,7 +70,7 @@ staged_tile_kernel(const __grid_constant__ CUtensorMap wmap,
                    float* __restrict__ side, float* __restrict__ bsum) {
   extern __shared__ uint8_t tsmem[];
   tile_pass<MODE, false>(&wmap, sched, pts, vb, n, S, P, nullptr, g, C, n_pad,
-                         X, D, dpts, nullptr, side, bsum, tsmem);
+                         X, D, dpts, nullptr, side, bsum, nullptr, tsmem);
 }
 
 template <tc::Mode MODE>
@@ -84,7 +86,7 @@ int launch_staged_tile(const float* pts, const float* vb, int64_t n, int S,
   cudaFuncSetAttribute(staged_tile_kernel<MODE>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   staged_tile_kernel<MODE><<<(unsigned)(n_pad / TP), wl::THREADS, smem, stream>>>(
-      map, wl::make_sched<MODE>(o, false, true), pts, vb, n, S, P, g, C, n_pad,
+      map, wl::make_sched<MODE>(o, false, true, true), pts, vb, n, S, P, g, C, n_pad,
       X, D, dpts, side, bsum);
   return (int)cudaGetLastError();
 }
@@ -123,7 +125,7 @@ int staged_mlp_wgrad(const void* X, const void* D, const float* side,
   fmlp::GemmJobs gj;
   fmlp::ThinJobs tj;
   fmlp::make_jobs<false>(C, &gj, &tj, mode);
-  return fmlp::weight_gradients(X, D, side, bsum, n_pad, fmlp::K4Rows::X_HV,
+  return fmlp::weight_gradients(X, D, side, side, bsum, n_pad, fmlp::K4Rows::X_HV,
                                 fmlp::K4Rows::D_G, splits,
                                 fmlp::offsets(C, false).total, gj, tj, part,
                                 dP, mode, stream);

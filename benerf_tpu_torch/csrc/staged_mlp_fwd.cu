@@ -90,7 +90,7 @@ int launch_staged_fwd(const float* pts, const float* vb, int64_t n, int S,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   const unsigned blocks = (unsigned)((n + TP - 1) / TP);
   staged_fwd_kernel<MODE><<<blocks, wl::THREADS, smem, stream>>>(
-      map, wl::make_sched<MODE>(o, false, false), pts, vb, n, S, P, C, out);
+      map, wl::make_sched<MODE>(o, false, true, false), pts, vb, n, S, P, C, out);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 // Hopper layer product for K1-K4 (fused_mlp_{fwd,bwd}.cu,
 // staged_mlp_{fwd,bwd}.cu): wgmma.mma_async on weights that TMA brings into
 // shared memory, with warp specialisation. Used by the NeRF forward
-// (fused_mlp_wg.cuh `forward_wg`, K1 and K3) and by the backward tile pass
-// (fused_mlp_bwd_common.cuh `tile_pass`, K2 and K4).
+// (fused_mlp_wg.cuh `forward_wg`, K1 and K3, and K4's tile pass) and by the
+// backward tile pass (fused_mlp_bwd_common.cuh `tile_pass`, K2 and K4).
 //
 // out[p][m] = sum_k act[p][k] B[m][k] over a block's 64-point tile p:
 //  - A = the activations, fp32 in shared memory, point-major [point][feature]
@@ -154,10 +154,13 @@ struct Sched {
   int row0[MAX_PROD], rows[MAX_PROD], stages[MAX_PROD];
 };
 
-// The forward's products (K1: with view_pe; K3 without), then with
-// `backward` the tile pass's data-gradient products.
+// With `forward` the forward's products (K1: with view_pe; K3 without),
+// then with `backward` the tile pass's data-gradient products: K1 and K3
+// stream the first, K4's tile pass both (it runs K3's forward again), K2's
+// the second alone (K1 kept its forward).
 template <Mode MODE>
-inline Sched make_sched(const fmlp::Offsets& o, bool view_pe, bool backward) {
+inline Sched make_sched(const fmlp::Offsets& o, bool view_pe, bool forward,
+                        bool backward) {
   using C = Cfg<MODE>;
   const PrepTable t = prep_table<MODE>(o, view_pe);
   Sched s;
@@ -171,8 +174,9 @@ inline Sched make_sched(const fmlp::Offsets& o, bool view_pe, bool backward) {
   };
   const int fwd[] = {W0, WH1, WH1 + 1, WH1 + 2, WH1 + 3, WH1 + 4, W5PE,
                      WH1 + 5, WH1 + 6, WF, WFV, WVPE};
-  for (int mat : fwd)
-    if (mat != WVPE || view_pe) add(mat, FWD);
+  if (forward)
+    for (int mat : fwd)
+      if (mat != WVPE || view_pe) add(mat, FWD);
   if (backward) {
     const int bwd[] = {WVPE, WFV, WF, WH1 + 6, WH1 + 5, W5PE, WH1 + 4,
                        WH1 + 3, WH1 + 2, WH1 + 1, WH1, W0};

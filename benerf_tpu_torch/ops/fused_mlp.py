@@ -73,7 +73,7 @@ def _fused(params, pts, viewdirs, barf_weights, barf_weights_views,
     autograd) K2."""
     R, S, _ = pts.shape
     C = params["rgb"]["w"].shape[1]
-    out = mlp_kernels.KernelMLP.apply(
+    out = mlp_kernels.kernel_mlp(
         mlp_kernels.FUSED, mlp_kernels.pack_params(params),
         pts.reshape(R * S, 3).contiguous(), viewdirs.contiguous(),
         band_weights(barf_weights, barf_weights_views, pts.device), S, C,

@@ -20,6 +20,11 @@ stages, split into TF32 big and small parts (TF32X3) or rounded to bf16
 keeps for K2 (K4); `prepare_weights_plain` is their plain version. The
 heads read the packed vector. The BARF band weights get no gradient: they
 are step functions of the iteration counter.
+
+When autograd records a K1 call, K1 also keeps its forward for K2 (every
+activation as a row of K2's scratch, the ReLU sign words: `kept_scratch`),
+so K2's tile pass starts at the backward; under no_grad K1 keeps nothing.
+K3/K4 keep nothing: K4's tile pass runs K3's forward again.
 """
 
 from __future__ import annotations
@@ -56,9 +61,12 @@ PREP_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # launches on the card of the main path (K1-K4), one per wrapper call that
 # launched its kernel(s), under the library's name in "float32" and under
-# name + "_bf16" in "bfloat16"
+# name + "_bf16" in "bfloat16"; "fused_mlp_fwd_kept" (+ "_bf16") counts the K1
+# launches among them that kept their forward for K2 (on the train path as
+# many as K2's launches, none under no_grad)
 LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_bwd": 0,
             "fused_mlp_fwd_bf16": 0, "fused_mlp_bwd_bf16": 0,
+            "fused_mlp_fwd_kept": 0, "fused_mlp_fwd_kept_bf16": 0,
             "staged_mlp_fwd": 0, "staged_mlp_bwd": 0,
             "staged_mlp_fwd_bf16": 0, "staged_mlp_bwd_bf16": 0}
 
@@ -245,7 +253,7 @@ def prepare_weights(packed, C, view_pe=True, compute_dtype="float32"):
 
 
 # rows of the backward scratch (fmlp::Scratch in
-# csrc/fused_mlp_bwd_common.cuh), [row][point] with row stride n_pad
+# csrc/fused_mlp_wg.cuh), [row][point] with row stride n_pad
 X_H = 64                              # after the point encoding (64 rows)
 X_F = X_H + DEPTH * WIDTH
 X_VPE = X_F + WIDTH                   # K2's view encoding (32 rows)
@@ -256,13 +264,18 @@ G_PAD = 8                             # K2's cotangent rows (C + 1 <= 8)
 # "bfloat16": the fp32 rows (fmlp::Side) and the rows with a tile sum
 SIDE_H7 = 0                           # h7
 SIDE_HV = SIDE_H7 + WIDTH             # hv
-SIDE_DHV = SIDE_HV + HEAD             # K4: d vb per point (128 rows)
+SIDE_KEPT = SIDE_HV + HEAD            # K2: the rows K1 keeps
+SIDE_DHV = SIDE_KEPT                  # K4: d vb per point (128 rows)
 BIAS_ROWS = D_G                       # D's rows 0..2432: the products' D rows
+# ReLU sign words of a 64-point tile (fmlp::SIGN_WORDS): h0..h7 two each and
+# hv, a word of each for every consumer thread of the tile's block
+SIGN_WORDS = (2 * DEPTH + 1) * 256
 
 
 def side_g(view_pe=True):
-    """The first cotangent row of the "bfloat16" scratch's side rows."""
-    return SIDE_DHV + (0 if view_pe else HEAD)
+    """The first cotangent row among the "bfloat16" scratch's fp32 rows: of
+    K2's own `gside` (row 0), of K4's `side` (after d vb)."""
+    return 0 if view_pe else SIDE_DHV + HEAD
 
 
 def x_rows_bf16(view_pe=True):
@@ -274,22 +287,29 @@ class Scratch(NamedTuple):
     """The backward scratch of K2 or K4 for n_pad points (a multiple of
     TILE), in the format of compute_dtype (csrc/fused_mlp_bwd_common.cuh),
     row-major [row][point] with row stride n_pad unless named otherwise:
-      - "float32": x, d fp32, every row (X_*, D_*); side and bsum None;
+      - "float32": x, d fp32, every row (X_*, D_*); side, bsum, gside None;
       - "bfloat16": x, d bf16, the rows the matrix products read (X's first
         `x_rows_bf16`, D's first D_G), tile-blocked: [tile][row][TILE
         points] (`rows` gathers them); side fp32, the SIDE_* rows (h7, hv,
-        K4's d vb per point, the cotangent); bsum fp32 (n_pad / TILE,
-        BIAS_ROWS), each D row's sum over each 64-point tile (the biases)."""
+        and K4's d vb per point and cotangent); gside fp32, K2's cotangent
+        rows; bsum fp32 (n_pad / TILE, BIAS_ROWS), each D row's sum over
+        each 64-point tile (the biases).
+    K2's x, side and signs (int32 (n_pad / TILE, SIGN_WORDS), the ReLU sign
+    words of every tile) are what K1 kept (`kept_scratch`: d None); its
+    backward adds d, bsum and gside. K4 keeps its signs in shared memory."""
     n_pad: int
     compute_dtype: str
     x: torch.Tensor
-    d: torch.Tensor
+    d: torch.Tensor | None
     side: torch.Tensor | None = None
     bsum: torch.Tensor | None = None
+    signs: torch.Tensor | None = None
+    gside: torch.Tensor | None = None
 
     def nbytes(self):
         return sum(t.numel() * t.element_size()
-                   for t in (self.x, self.d, self.side, self.bsum) if t is not None)
+                   for t in (self.x, self.d, self.side, self.bsum, self.signs,
+                             self.gside) if t is not None)
 
     def rows(self, name):
         """x or d ("x", "d") as [row][point]: a view of the "float32"
@@ -300,46 +320,90 @@ class Scratch(NamedTuple):
         return t.view(self.n_pad // TILE, -1, TILE).transpose(0, 1).reshape(-1, self.n_pad)
 
 
+class Sizes(NamedTuple):
+    """Elements of each array of a `Scratch` (0 where the format has none),
+    and K4's first row of d vb per point (of d in "float32", of side in
+    "bfloat16"; None for K2)."""
+    x: int
+    d: int
+    side: int
+    bsum: int
+    signs: int = 0
+    gside: int = 0
+    dvb: int | None = None
+
+
+# the arrays of K2's scratch that K1 writes when it keeps its forward
+KEPT = ("x", "side", "signs")
+
+
 def scratch_sizes(n_pad, C, view_pe=True, compute_dtype="float32"):
-    """Elements of (x, d, side, bsum) of the scratch (`Scratch`) for n_pad
-    points, and for K4 (view_pe False) then its first row of d vb per
-    point (of d in "float32", of side in "bfloat16"); mirrors
-    fused_mlp_bwd_scratch / staged_mlp_bwd_scratch, checked at load."""
+    """The `Sizes` of the scratch (`Scratch`) for n_pad points; mirrors
+    fused_mlp_kept (K2's `KEPT` arrays) and fused_mlp_bwd_scratch (the rest),
+    staged_mlp_bwd_scratch (K4's), checked at load."""
     mode_of(compute_dtype)
-    x_hv = X_VPE + (32 if view_pe else 0)
+    x_hv = x_rows_bf16(view_pe)
     g_rows = G_PAD if view_pe else C + 1
+    signs = n_pad // TILE * SIGN_WORDS if view_pe else 0
     if compute_dtype == "float32":
-        sizes = ((x_hv + HEAD) * n_pad, (D_G + g_rows) * n_pad, 0, 0)
-        dvb = D_HV
-    else:
-        sizes = (x_hv * n_pad, D_G * n_pad, (side_g(view_pe) + g_rows) * n_pad,
-                 n_pad // TILE * BIAS_ROWS)
-        dvb = SIDE_DHV
-    return sizes if view_pe else sizes + (dvb,)
+        return Sizes((x_hv + HEAD) * n_pad, (D_G + g_rows) * n_pad, 0, 0, signs,
+                     dvb=None if view_pe else D_HV)
+    bsum = n_pad // TILE * BIAS_ROWS
+    if view_pe:
+        return Sizes(x_hv * n_pad, D_G * n_pad, SIDE_KEPT * n_pad, bsum, signs,
+                     g_rows * n_pad)
+    return Sizes(x_hv * n_pad, D_G * n_pad, (side_g(False) + g_rows) * n_pad,
+                 bsum, dvb=SIDE_DHV)
 
 
-def scratch_bytes(n_pad, C, view_pe=True, compute_dtype="float32"):
+def scratch_bytes(n_pad, C, view_pe=True, compute_dtype="float32", part=None):
     """Bytes of the scratch for n_pad points (`Scratch.nbytes`): K2's
     19,872 B a point in "float32" (fp32 X and D, every row), 11,384 B at
     C = 3 in "bfloat16" (the products' rows as bf16, 392 fp32 side rows, a
-    tile sum of each of D's 2,432 product rows a 64-point tile)."""
-    x, d, side, bsum = scratch_sizes(n_pad, C, view_pe, compute_dtype)[:4]
-    return (x + d) * (4 if compute_dtype == "float32" else 2) + (side + bsum) * 4
+    tile sum of each of D's 2,432 product rows a 64-point tile), and 272 B
+    of sign words besides. part "kept": K2's `KEPT` arrays alone (10,384
+    and 6,608 B a point), "backward": the rest (9,760 and 5,048)."""
+    sizes = scratch_sizes(n_pad, C, view_pe, compute_dtype)._asdict()
+    wide = 4 if compute_dtype == "float32" else 2
+    names = {None: ("x", "d", "side", "bsum", "signs", "gside"), "kept": KEPT,
+             "backward": ("d", "bsum", "gside")}[part]
+    return sum(sizes[k] * (wide if k in ("x", "d") else 4) for k in names)
 
 
-def bwd_scratch(pair, n, C, device, compute_dtype="float32"):
-    """K2's or K4's scratch for n points and C channels in the format of
-    compute_dtype, a `Scratch` sized by the library, uninitialised."""
+def kept_scratch(n, device, compute_dtype="float32"):
+    """What K1 keeps for K2 of n points (`KEPT`: x, side, signs of a
+    `Scratch` whose d is None), uninitialised: the launch fills it."""
     n_pad = -(-n // TILE) * TILE
+    sizes = scratch_sizes(n_pad, 1, True, compute_dtype)
+    dt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    side = (None if compute_dtype == "float32"
+            else torch.empty(sizes.side, device=device))
+    signs = torch.empty((n_pad // TILE, SIGN_WORDS), device=device,
+                        dtype=torch.int32)
+    return Scratch(n_pad, compute_dtype, torch.empty(sizes.x, device=device, dtype=dt),
+                   None, side, signs=signs)
+
+
+def bwd_scratch(pair, n, C, device, compute_dtype="float32", kept=None):
+    """K2's or K4's scratch for n points and C channels in the format of
+    compute_dtype, a `Scratch` sized by the library, uninitialised: K4's
+    whole, K2's on the arrays K1 kept (`kept`, from `kept_scratch`)."""
+    n_pad = -(-n // TILE) * TILE
+    _check_kept(pair, kept, n, compute_dtype)
     fn = getattr(library(f"{pair.name}_bwd"), f"{pair.name}_bwd_scratch")
     sizes = _scratch_report(fn, pair.view_pe, C, compute_dtype, n_pad)
     dt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
-    side = bsum = None
-    if compute_dtype != "float32":
-        side = torch.empty(sizes[2], device=device)
-        bsum = torch.empty((sizes[3] // BIAS_ROWS, BIAS_ROWS), device=device)
-    return Scratch(n_pad, compute_dtype, torch.empty(sizes[0], device=device, dtype=dt),
-                   torch.empty(sizes[1], device=device, dtype=dt), side, bsum)
+    fp32 = compute_dtype == "float32"
+
+    def empty(k, dtype=torch.float32):
+        return None if fp32 and k in ("side", "bsum", "gside") else torch.empty(
+            sizes[k], device=device, dtype=dtype)
+
+    bsum = None if fp32 else empty("bsum").view(-1, BIAS_ROWS)
+    if pair.view_pe:
+        return kept._replace(d=empty("d", dt), bsum=bsum, gside=empty("gside"))
+    return Scratch(n_pad, compute_dtype, empty("x", dt), empty("d", dt),
+                   empty("side"), bsum)
 
 
 def wgrad_jobs(C, view_pe=True, compute_dtype="float32"):
@@ -352,7 +416,7 @@ def wgrad_jobs(C, view_pe=True, compute_dtype="float32"):
     bias_off + O) are the sums of those D rows. view_pe as for `layout`:
     K2's table (12 products), else K4's (11, no wvpe). In "bfloat16" the
     thin jobs' rows are the scratch's side rows (X and D both), the
-    products' the same."""
+    products' the same (K2's cotangent rows: its `gside`)."""
     off = _offset_of(C, view_pe)
     x_hv = X_VPE + (32 if view_pe else 0)
     h7 = X_H + (DEPTH - 1) * WIDTH
@@ -412,7 +476,10 @@ def wgrad_plain(scr, C, view_pe=True, compute_dtype=None):
         if cd == "bfloat16":
             x, d = (t.to(torch.bfloat16) for t in (x, d))
         out[off:off + I * O] = (x.double() @ d.double().t()).reshape(-1)
-    Xt, Dt = (scr.side.view(-1, n_pad),) * 2 if bf16 else (X, D)
+    Xt, Dt = X, D
+    if bf16:
+        Xt = scr.side.view(-1, n_pad)
+        Dt = Xt if scr.gside is None else scr.gside.view(-1, n_pad)
     for _, x0, I, d0, O, off, _ in thin:
         d = Dt[d0:d0 + O].double()
         x = Xt[x0:x0 + I].double() if x0 >= 0 else torch.ones_like(d[:1])
@@ -422,9 +489,10 @@ def wgrad_plain(scr, C, view_pe=True, compute_dtype=None):
 
 def bf16_scratch_plain(scr, C, view_pe=True):
     """The "bfloat16" format of a "float32" `Scratch` (the plain version of
-    what the tile pass writes in BF16 mode): the products' rows rounded to
-    bf16 (rn) and tile-blocked, the side rows copied, each D row's tile
-    sums in float64 rounded to fp32."""
+    what K1 keeps and the tile pass writes in BF16 mode): the products' rows
+    rounded to bf16 (rn) and tile-blocked, the side rows copied (K2: h7 and
+    hv to side, the cotangent to gside), each D row's tile sums in float64
+    rounded to fp32; the sign words as they are."""
     if scr.compute_dtype != "float32":
         raise ValueError("bf16_scratch_plain takes a float32 scratch")
     n_pad = scr.n_pad
@@ -434,7 +502,7 @@ def bf16_scratch_plain(scr, C, view_pe=True):
     side = [X[X_H + (DEPTH - 1) * WIDTH:X_F], X[x_hv:x_hv + HEAD]]
     if not view_pe:
         side.append(D[D_HV:D_G])
-    side.append(D[D_G:D_G + g_rows])
+    g = D[D_G:D_G + g_rows]
     tiles = n_pad // TILE
     bsum = D[:D_G].double().view(D_G, tiles, TILE).sum(-1).float()
 
@@ -442,7 +510,9 @@ def bf16_scratch_plain(scr, C, view_pe=True):
         return rows.to(torch.bfloat16).view(-1, tiles, TILE).transpose(0, 1).reshape(-1)
 
     return Scratch(n_pad, "bfloat16", blocked(X[:x_hv]), blocked(D[:D_G]),
-                   torch.cat(side).reshape(-1), bsum.t().contiguous())
+                   torch.cat(side + ([] if view_pe else [g])).reshape(-1),
+                   bsum.t().contiguous(), scr.signs,
+                   g.reshape(-1).clone() if view_pe else None)
 
 
 def run_wgrad(scr, C, splits=DEFAULT_SPLITS, view_pe=True):
@@ -462,8 +532,9 @@ def run_wgrad(scr, C, splits=DEFAULT_SPLITS, view_pe=True):
     dpacked = torch.empty(part.shape[1], device=scr.x.device)
     name = PAIRS[view_pe].name
     call(f"{name}_bwd", f"{name}_wgrad", _ptr(scr.x), _ptr(scr.d),
-         _ptr(scr.side), _ptr(scr.bsum), scr.n_pad, C, _ptr(part), splits,
-         _ptr(dpacked), mode=mode_of(scr.compute_dtype))
+         _ptr(scr.side), _ptr(scr.bsum), *([_ptr(scr.gside)] if view_pe else []),
+         scr.n_pad, C, _ptr(part), splits, _ptr(dpacked),
+         mode=mode_of(scr.compute_dtype))
     return dpacked
 
 
@@ -517,16 +588,19 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # takes the mode and the stream last and returns a CUDA error code (`call`).
 _API = {
     "fused_mlp_fwd": {
-        "fused_mlp_fwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _P, _I, _P], _I),
+        "fused_mlp_fwd": ([_P, _P, _I64, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                           _I, _P], _I),
+        "fused_mlp_kept": ([_I64, _I, _P], None),
         "fused_mlp_layout": ([_I, _P], None),
         "fused_mlp_prep_table": ([_I, _I, _P, _I], _I),
         "fused_mlp_prep": ([_P, _I, _I, _P, _I, _P], _I)},
     "fused_mlp_bwd": {
         "fused_mlp_bwd": ([_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I64, _P, _P,
-                           _P, _P, _P, _P, _P, _I, _P, _I, _P], _I),
+                           _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P], _I),
         "fused_mlp_tile": ([_P, _P, _I64, _I, _P, _P, _P, _P, _I, _I64, _P, _P,
-                            _P, _P, _P, _P, _I, _P], _I),
-        "fused_mlp_wgrad": ([_P, _P, _P, _P, _I64, _I, _P, _I, _P, _I, _P], _I),
+                            _P, _P, _P, _P, _P, _P, _I, _P], _I),
+        "fused_mlp_wgrad": ([_P, _P, _P, _P, _P, _I64, _I, _P, _I, _P, _I, _P],
+                            _I),
         "fused_mlp_wgrad_jobs": ([_I, _I, _P, _I], _I),
         "fused_mlp_bwd_scratch": ([_I64, _I, _P], None)},
     "staged_mlp_fwd": {
@@ -550,8 +624,9 @@ _LAYOUT_OF = {
     "staged_mlp_fwd": ("staged_mlp_layout", False),
 }
 # the weight-gradient job table and the scratch sizes each backward library
-# reports, checked against `wgrad_jobs` and `scratch_sizes` at load: name ->
-# (jobs C function, view_pe, scratch C function)
+# reports (K2's library the arrays K1 does not keep), checked against
+# `wgrad_jobs` and `scratch_sizes` at load: name -> (jobs C function,
+# view_pe, scratch C function)
 _JOBS_OF = {
     "fused_mlp_bwd": ("fused_mlp_wgrad_jobs", True, "fused_mlp_bwd_scratch"),
     "staged_mlp_bwd": ("staged_mlp_wgrad_jobs", False, "staged_mlp_bwd_scratch"),
@@ -584,10 +659,15 @@ def library(name):
                 want = [list(j[1:]) for j in products + thin]
                 _expect(f"weight-gradient jobs {what}", _table_rows(
                     getattr(lib, fn), C, len(want), MODES[cd]), want)
-                _expect(f"backward scratch {what}", _scratch_report(
-                    getattr(lib, fn_scratch), view_pe, C, cd, 3 * TILE),
-                    scratch_sizes(3 * TILE, C, view_pe, cd))
+                got = _scratch_report(getattr(lib, fn_scratch), view_pe, C,
+                                      cd, 3 * TILE)
+                _expect(f"backward scratch {what}", got, _sizes_of(
+                    got, 3 * TILE, C, view_pe, cd))
     if name == "fused_mlp_fwd":
+        for cd in MODES:
+            got = _kept_report(lib.fused_mlp_kept, cd, 3 * TILE)
+            _expect(f"kept forward ({cd})", got, _sizes_of(got, 3 * TILE, 1,
+                                                           True, cd))
         for view_pe in (True, False):
             for cd in MODES:
                 want = [list(e[2:]) for e in prep_table(view_pe, cd)[0]]
@@ -615,14 +695,28 @@ def _table_rows(fn, arg, n_want, *mode):
 
 
 def _scratch_report(fn, view_pe, C, compute_dtype, n_pad):
-    """The library's scratch sizes: (x, d, side, bsum elements[, K4's first
-    d vb row])."""
+    """A backward library's scratch sizes, by `Sizes` field: K2's arrays
+    that K1 does not keep (d, gside, bsum elements), K4's every array and
+    its first d vb row."""
     got = (ctypes.c_int64 * 5)()
     if view_pe:
         fn(n_pad, MODES[compute_dtype], got)
-        return tuple(got[:4])
+        return dict(zip(("d", "gside", "bsum"), got[:3]))
     fn(n_pad, C, MODES[compute_dtype], got)
-    return tuple(got)
+    return dict(zip(("x", "d", "side", "bsum", "dvb"), got))
+
+
+def _kept_report(fn, compute_dtype, n_pad):
+    """K1's library's sizes of what it keeps, by `Sizes` field (`KEPT`)."""
+    got = (ctypes.c_int64 * 3)()
+    fn(n_pad, MODES[compute_dtype], got)
+    return dict(zip(KEPT, got))
+
+
+def _sizes_of(report, n_pad, C, view_pe, compute_dtype):
+    """The Python mirror's `Sizes` of the fields a library report has."""
+    sizes = scratch_sizes(n_pad, C, view_pe, compute_dtype)
+    return {k: getattr(sizes, k) for k in report}
 
 
 # ---- launches -------------------------------------------------------------
@@ -660,7 +754,13 @@ def call(lib, fn, *args, mode, count=False):
     if rc:
         raise RuntimeError(f"{fn}: CUDA error {rc}")
     if count:
-        LAUNCHES[lib if mode == 0 else f"{lib}_bf16"] += 1
+        LAUNCHES[_key(lib, mode)] += 1
+
+
+def _key(name, mode):
+    """A LAUNCHES key: the name in "float32" (mode 0), name + "_bf16" in
+    "bfloat16"."""
+    return name if mode == 0 else f"{name}_bf16"
 
 
 def _launch_args(pair, packed, pts, ray, band, S, C, compute_dtype, prep,
@@ -693,44 +793,76 @@ def _launch_args(pair, packed, pts, ray, band, S, C, compute_dtype, prep,
     return mode, n, args
 
 
+def _check_kept(pair, kept, n, compute_dtype):
+    """Raise unless `kept` is a kept forward (`kept_scratch`) of n points in
+    compute_dtype where the pair has one (K1/K2), None for K3/K4."""
+    if not pair.view_pe:
+        if kept is not None:
+            raise ValueError(f"{pair.name} keeps no forward")
+        return
+    n_pad = -(-n // TILE) * TILE
+    sizes = scratch_sizes(n_pad, 1, True, compute_dtype)
+    dt = torch.float32 if compute_dtype == "float32" else torch.bfloat16
+    if kept is None or (kept.n_pad, kept.compute_dtype) != (n_pad, compute_dtype):
+        raise ValueError(f"{pair.name}: need the forward kept for {n_pad} points "
+                         f"in {compute_dtype} (kept_scratch)")
+    _check("kept X", kept.x, (sizes.x,), dt)
+    if compute_dtype != "float32":
+        _check("kept side rows", kept.side, (sizes.side,))
+    _check("kept signs", kept.signs, (n_pad // TILE, SIGN_WORDS), torch.int32)
+
+
 def launch_fwd(pair, packed, pts, ray, band, S, C, compute_dtype="float32", *,
-               prep):
+               prep, kept=None):
     """K1 or K3: pts (n, 3), the per-ray input (n / S, pair.ray_width), K1's
     band weights (14,) (K3: None) -> raw (n, C+1). The launch also writes
     the weights' wgmma copies into `prep` (a `prep_buffer`), which K2 / K4
-    read."""
+    read, and with `kept` (K1 only: a `kept_scratch` of n points in
+    compute_dtype) its forward for K2, counted in LAUNCHES
+    "fused_mlp_fwd_kept"."""
     mode, n, args = _launch_args(pair, packed, pts, ray, band, S, C,
                                  compute_dtype, prep)
+    if kept is not None:
+        _check_kept(pair, kept, n, compute_dtype)
     out = torch.empty((n, C + 1), device=pts.device, dtype=torch.float32)
+    keep = ([_ptr(kept.x), _ptr(kept.side), _ptr(kept.signs)] if kept is not None
+            else [_ptr(None)] * 3)
     call(f"{pair.name}_fwd", f"{pair.name}_fwd", *args, C, _ptr(out),
-         mode=mode, count=True)
+         *(keep if pair.view_pe else []), mode=mode, count=True)
+    if kept is not None:
+        LAUNCHES[_key(f"{pair.name}_fwd_kept", mode)] += 1
     return out
 
 
-def _bwd_args(pair, packed, pts, ray, band, g, S, C, compute_dtype, prep):
-    """Check K2's / K4's inputs and allocate their scratch and outputs ->
-    (mode, scratch, d pts, K2's d viewdirs per point (K4: None), the
-    arguments that the tile pass and the whole backward share)."""
+def _bwd_args(pair, packed, pts, ray, band, g, S, C, compute_dtype, prep,
+              kept):
+    """Check K2's / K4's inputs (K2: on the forward K1 kept) and allocate
+    their scratch and outputs -> (mode, scratch, d pts, K2's d viewdirs per
+    point (K4: None), the arguments that the tile pass and the whole
+    backward share)."""
     mode, n, args = _launch_args(pair, packed, pts, ray, band, S, C,
                                  compute_dtype, prep, g)
-    scr = bwd_scratch(pair, n, C, pts.device, compute_dtype)
+    scr = bwd_scratch(pair, n, C, pts.device, compute_dtype, kept)
     dpts = torch.empty((n, 3), device=pts.device)
     dvd = torch.empty((n, 3), device=pts.device) if pair.view_pe else None
-    args += (C, scr.n_pad, _ptr(scr.x), _ptr(scr.d), _ptr(scr.side),
-             _ptr(scr.bsum), *[_ptr(t) for t in (dpts, dvd) if t is not None])
+    k2 = [scr.signs, scr.gside] if pair.view_pe else []
+    args += (C, scr.n_pad, *[_ptr(t) for t in [scr.x, scr.d, scr.side, scr.bsum,
+                                               *k2, dpts]]
+             + ([_ptr(dvd)] if pair.view_pe else []))
     return mode, scr, dpts, dvd, args
 
 
 def launch_bwd(pair, packed, pts, ray, band, g, S, C, compute_dtype="float32",
-               *, prep, splits=DEFAULT_SPLITS):
+               *, prep, kept=None, splits=DEFAULT_SPLITS):
     """K2 or K4: cotangent g (n, C+1) -> (d packed, d pts (n, 3), d of the
     per-ray input (n / S, pair.ray_width)); prep: the weights' wgmma copies
-    K1's / K3's launch wrote. splits: point-axis chunks of the
+    K1's / K3's launch wrote; kept: K2's, the forward K1 kept
+    (`kept_scratch`; K4: None). splits: point-axis chunks of the
     weight-gradient reduction, which its result does not depend on."""
     if splits < 1:
         raise ValueError(f"splits must be >= 1, got {splits}")
     mode, scr, dpts, dvd, args = _bwd_args(pair, packed, pts, ray, band, g, S,
-                                           C, compute_dtype, prep)
+                                           C, compute_dtype, prep, kept)
     part = torch.empty((splits, packed.numel()), device=pts.device)
     dpacked = torch.empty_like(packed)
     call(f"{pair.name}_bwd", f"{pair.name}_bwd", *args, _ptr(part), splits,
@@ -743,44 +875,65 @@ def launch_bwd(pair, packed, pts, ray, band, g, S, C, compute_dtype="float32",
     if pair.view_pe:
         return dpacked, dpts, dvd.view(R, S, 3).sum(dim=1)
     rows = (scr.d if scr.side is None else scr.side).view(-1, scr.n_pad)
-    row0 = scratch_sizes(scr.n_pad, C, False, compute_dtype)[4]
+    row0 = scratch_sizes(scr.n_pad, C, False, compute_dtype).dvb
     dvb_pt = rows[row0:row0 + HEAD, :n]
     return dpacked, dpts, dvb_pt.unflatten(1, (R, S)).sum(dim=2).t()
 
 
 def run_tile(pair, packed, pts, ray, band, g, S, C, compute_dtype="float32", *,
-             prep):
+             prep, kept=None):
     """K2's or K4's tile pass alone (pass (a), for timing it apart; not
-    counted: the main path runs it inside K2 / K4) -> (its `Scratch`, d
-    pts)."""
+    counted: the main path runs it inside K2 / K4; K2's on the forward K1
+    kept, `kept`) -> (its `Scratch`, d pts)."""
     mode, scr, dpts, _, args = _bwd_args(pair, packed, pts, ray, band, g, S, C,
-                                         compute_dtype, prep)
+                                         compute_dtype, prep, kept)
     call(f"{pair.name}_bwd", f"{pair.name}_tile", *args, mode=mode)
     return scr, dpts
 
 
 class KernelMLP(torch.autograd.Function):
     """A kernel pair's MLP through autograd, `KernelMLP.apply(pair, packed,
-    pts, ray, band, S, C, compute_dtype)`: K1 (K3) forward, K2 (K4) in the
+    pts, ray, band, S, C, compute_dtype, recorded)` (`kernel_mlp` passes the
+    caller's grad mode as `recorded`): K1 (K3) forward, K2 (K4) in the
     backward on the weights' wgmma copies the forward's launch wrote.
     packed: `pack_params(params, pair.view_pe)`; pts (n, 3); the per-ray
     input (n / S, pair.ray_width); K1/K2's band weights (K3/K4: None) ->
-    raw (n, C+1)."""
+    raw (n, C+1). Where autograd records the call (`recorded` and an input
+    that needs a gradient), K1 keeps its forward for K2 (`kept_scratch`),
+    saved until the backward has run; otherwise it keeps nothing."""
 
     @staticmethod
-    def forward(ctx, pair, packed, pts, ray, band, S, C, compute_dtype):
+    def forward(ctx, pair, packed, pts, ray, band, S, C, compute_dtype,
+                recorded):
         prep = prep_buffer(pair.view_pe, compute_dtype, pts.device)
+        kept = (kept_scratch(pts.shape[0], pts.device, compute_dtype)
+                if pair.view_pe and recorded and any(ctx.needs_input_grad)
+                else None)
         out = launch_fwd(pair, packed, pts, ray, band, S, C, compute_dtype,
-                         prep=prep)
-        ctx.save_for_backward(packed, pts, ray, band, prep)
+                         prep=prep, kept=kept)
+        ctx.save_for_backward(packed, pts, ray, band, prep,
+                              *([kept.x, kept.side, kept.signs] if kept else []))
         ctx.pair, ctx.S, ctx.C, ctx.cd = pair, S, C, compute_dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
-        packed, pts, ray, band, prep = ctx.saved_tensors
+        packed, pts, ray, band, prep, *saved = ctx.saved_tensors
+        kept = None
+        if saved:
+            x, side, signs = saved
+            kept = Scratch(signs.shape[0] * TILE, ctx.cd, x, None, side,
+                           signs=signs)
         with profiling.span("mlp.bwd"):
             dpacked, dpts, dray = launch_bwd(ctx.pair, packed, pts, ray, band,
                                              g.contiguous(), ctx.S, ctx.C,
-                                             ctx.cd, prep=prep)
-        return None, dpacked, dpts, dray, None, None, None, None
+                                             ctx.cd, prep=prep, kept=kept)
+        return None, dpacked, dpts, dray, None, None, None, None, None
+
+
+def kernel_mlp(pair, packed, pts, ray, band, S, C, compute_dtype):
+    """`KernelMLP` under the caller's grad mode: K1 keeps its forward for K2
+    only where autograd records the call, so no_grad (eval chunks,
+    cli.test, renders) launches the forward that keeps nothing."""
+    return KernelMLP.apply(pair, packed, pts, ray, band, S, C, compute_dtype,
+                           torch.is_grad_enabled())

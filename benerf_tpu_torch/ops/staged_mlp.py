@@ -91,7 +91,7 @@ def _staged(params, pts, viewdirs, num_freqs_views, compute_dtype):
     R, S, _ = pts.shape
     C = params["rgb"]["w"].shape[1]
     vb = view_bias(params, viewdirs, num_freqs_views, compute_dtype)
-    out = mlp_kernels.KernelMLP.apply(
+    out = mlp_kernels.kernel_mlp(
         mlp_kernels.STAGED, mlp_kernels.pack_params(params, view_pe=False),
         pts.reshape(R * S, 3).contiguous(), vb.contiguous(), None, S, C,
         compute_dtype)

@@ -17,7 +17,10 @@ an exception):
      n = 3,055 x 128 = 391,040) and at a ragged n with BARF on and off,
      C in {1, 3, 7} (C + 1 = 8 fills every head row): in fp32 mode (TF32X3) against fp32 nerf.apply, in bf16
      mode against nerf.apply with bf16 operands and float64 (check_*_bf16);
-     K2 also rerun with another split count; K2's weight-gradient pass
+     K1 as the train path launches it, keeping its forward for K2, at both
+     training n and in both modes: its output against nerf.apply, its X
+     rows against the plain activations, its sign words against its
+     activations (check_kept); K2 also rerun with another split count; K2's weight-gradient pass
      alone (csrc/wgrad_wgmma.cuh) against the float64 product of the same
      scratch, both modes, splits 32 and 7, at both training n and 3 x 37;
      CUDA-event times of kernel, plain version, both bounds, of the
@@ -316,6 +319,147 @@ def check_fwd(torch, which, R, S, C, barf, seed=0):
     return err, scale
 
 
+def plain_activations(torch, params, pts, vd, compute_dtype):
+    """The forward's activations as K2's scratch holds them, float64
+    [row][point] in the rows of mlp_kernels (X_PE: pe and a zero row, X_H +
+    256 l: h_l, X_F: f, X_VPE: vpe and zero rows, then hv); bfloat16: every
+    product on bf16-rounded operands, as the kernels' bf16 mode."""
+    from benerf_tpu_torch.models import embedder
+
+    S = pts.shape[1]
+    x = pts.reshape(-1, 3).double()
+    v = vd.double().repeat_interleave(S, dim=0)
+
+    def mm(a, w):
+        if compute_dtype == "bfloat16":
+            a, w = (t.to(torch.bfloat16) for t in (a, w))
+        return a.double() @ w.double()
+
+    pe = embedder.positional_encoding(x, 10)
+    vpe = embedder.positional_encoding(v, 4)
+    h, hs = pe, []
+    for layer in params["pts"]:
+        if "w_pe" in layer:
+            h = mm(pe, layer["w_pe"]) + mm(h, layer["w_h"]) + layer["b"].double()
+        else:
+            h = mm(h, layer["w"]) + layer["b"].double()
+        h = torch.relu(h)
+        hs.append(h)
+    f = mm(h, params["feature"]["w"]) + params["feature"]["b"].double()
+    hv = torch.relu(mm(f, params["views"]["w_feat"]) + mm(vpe, params["views"]["w_pe"])
+                    + params["views"]["b"].double())
+    pad = torch.nn.functional.pad
+    return torch.cat([pad(pe, (0, 1)), *hs, f, pad(vpe, (0, 5)), hv], 1).t()
+
+
+def kept_signs(torch, kept):
+    """The kept ReLU sign words as activations > 0: (h_0..h_7 (8, n_pad,
+    256), hv (n_pad, 128)) bool, decoded by the accumulator layout of
+    csrc/wgmma_layer.cuh (thread t's accumulator i of an N-wide layer sits
+    at point (t % 128) / 32 * 16 + (t % 32) / 4 + 8 ((i >> 1) & 1), feature
+    (t / 128) N / 2 + 8 (i >> 2) + 2 (t % 4) + (i & 1); its bit i % 32 of
+    word i / 32 of the layer's)."""
+    from benerf_tpu_torch.ops import mlp_kernels
+
+    tiles = kept.signs.shape[0]
+    words = kept.signs.view(tiles, 2 * mlp_kernels.DEPTH + 1, 256).long() & 0xffffffff
+    t = torch.arange(256, device=words.device)[:, None]
+
+    def layer(first, N):
+        tt, i = torch.broadcast_tensors(t, torch.arange(N // 4, device=words.device))
+        point = (tt % 128) // 32 * 16 + (tt % 32) // 4 + 8 * ((i >> 1) & 1)
+        feat = (tt // 128) * (N // 2) + 8 * (i >> 2) + 2 * (tt % 4) + (i & 1)
+        bit = ((words[:, first + i // 32, tt] >> (i % 32)) & 1).bool()
+        out = torch.zeros((tiles, mlp_kernels.TILE, N), dtype=torch.bool,
+                          device=words.device)
+        out[:, point, feat] = bit
+        return out.reshape(tiles * mlp_kernels.TILE, N)
+
+    return (torch.stack([layer(2 * l, 256) for l in range(mlp_kernels.DEPTH)]),
+            layer(2 * mlp_kernels.DEPTH, 128))
+
+
+def check_kept(torch, R, S, C, compute_dtype, seed=0):
+    """K1 as the train path launches it, keeping its forward for K2. The
+    recorded call (grad on, every input needing a gradient) moves the kept
+    counter once and matches nerf.apply within FWD_TOL x scale (bfloat16:
+    BF16_FWD_TOL of the plain version on bf16 operands); the keeping launch
+    and the one that keeps nothing give its result bit for bit; the kept X
+    rows are the plain forward's activations within the same tolerance x
+    max(|activation|, 1) (bfloat16: the fp32 h7 rows round to the bf16
+    ones); the sign words are the kept activations > 0, bit for bit, over
+    every point of every tile. -> dict of the errors."""
+    from benerf_tpu_torch.models import bridge, nerf
+    from benerf_tpu_torch.ops import fused_mlp, mlp_kernels as mk
+
+    bf = compute_dtype == "bfloat16"
+    tol = BF16_FWD_TOL if bf else FWD_TOL
+    plain_kw = {"compute_dtype": torch.bfloat16} if bf else {}
+    key = "fused_mlp_fwd_kept" + ("_bf16" if bf else "")
+    params, pts, vd, _, _ = _inputs(torch, R, S, C, seed, False)
+    n = R * S
+    leaves = [t.detach().requires_grad_(True) for t in bridge.tree_leaves(params)]
+    before = mk.LAUNCHES[key]
+    out_r = fused_mlp.fused_nerf_mlp(
+        bridge.tree_unflatten(params, leaves), pts.requires_grad_(True),
+        vd.requires_grad_(True), compute_dtype=compute_dtype)
+    if mk.LAUNCHES[key] != before + 1:
+        raise AssertionError(f"the recorded call moved {key} by "
+                             f"{mk.LAUNCHES[key] - before}, not 1")
+    out_r = out_r.detach().reshape(n, C + 1)
+    pts, vd = pts.detach(), vd.detach()
+    with torch.no_grad():
+        out_p = nerf.apply(params, pts, vd, **plain_kw).reshape(n, C + 1)
+        packed = mk.pack_params(params).contiguous()
+        band = fused_mlp.band_weights(None, None, "cuda")
+        x = pts.reshape(n, 3).contiguous()
+        prep = mk.prep_buffer(True, compute_dtype, "cuda")
+        kept = mk.kept_scratch(n, "cuda", compute_dtype)
+        out_k = mk.launch_fwd(mk.FUSED, packed, x, vd, band, S, C, compute_dtype,
+                              prep=prep, kept=kept)
+        out_0 = mk.launch_fwd(mk.FUSED, packed, x, vd, band, S, C, compute_dtype,
+                              prep=prep)
+        want = plain_activations(torch, params, pts, vd, compute_dtype)
+    torch.cuda.synchronize()
+    err, scale = _max_err(out_r, out_p)
+    if not err <= tol * scale:
+        raise AssertionError(f"K1 keeping its forward ({compute_dtype}) "
+                             f"disagrees with the plain version: {err}")
+    if not (torch.equal(out_k, out_r) and torch.equal(out_0, out_r)):
+        raise AssertionError("K1's keeping launch, the one that keeps nothing "
+                             "and the recorded call differ")
+    X = kept.rows("x")
+    rows = X.shape[0]
+    wscale = max(float(want.abs().max()), 1.0)
+    x_err = max(float((X[r:r + 256, :n].double() - want[r:min(r + 256, rows)])
+                      .abs().max()) for r in range(0, rows, 256))
+    h7 = mk.X_H + (mk.DEPTH - 1) * mk.WIDTH
+    if bf:
+        side = kept.side.view(-1, kept.n_pad)
+        if not torch.equal(side[:mk.SIDE_HV].to(torch.bfloat16), X[h7:mk.X_F]):
+            raise AssertionError("K1's fp32 h7 rows do not round to its bf16 ones")
+        hv = side[mk.SIDE_HV:mk.SIDE_KEPT]
+        x_err = max(x_err, float((hv[:, :n].double() - want[rows:]).abs().max()))
+    else:
+        hv = X[mk.X_VPE + 32:]
+    del want
+    if not x_err <= tol * wscale:
+        raise AssertionError(f"K1's kept X rows ({compute_dtype}) disagree with "
+                             f"the plain activations: {x_err} (scale {wscale})")
+    sh, shv = kept_signs(torch, kept)
+    h = X[mk.X_H:mk.X_F].view(mk.DEPTH, mk.WIDTH, -1)
+    if not (torch.equal(sh, h.transpose(1, 2) > 0) and torch.equal(shv, hv.t() > 0)):
+        raise AssertionError(f"K1's sign words ({compute_dtype}) are not its "
+                             "kept activations > 0")
+    print(f"  K1 keeping {MODE_NAME[compute_dtype]} R={R} S={S} C={C}: recorded "
+          f"call max abs err {err:.3e} (tol {tol * scale:.3e}); kept X rows "
+          f"{x_err:.3e} (tol {tol * wscale:.3e}); sign words = kept "
+          "activations > 0")
+    return dict(max_abs_err=err, max_err_over_scale=err / scale,
+                x_rows_max_abs_err=x_err, x_rows_err_over_scale=x_err / wscale,
+                signs_equal=True)
+
+
 def _grads(torch, fn, params, pts, vd, **kw):
     from benerf_tpu_torch.models import bridge
 
@@ -457,10 +601,11 @@ def check_splits(torch, which, tol, R=RAYS, S=128, counts=(32, 7), seed=2):
         with torch.no_grad():
             ray, band = staged_mlp.view_bias(params, vd, 6).contiguous(), None
     prep = mlp_kernels.prep_buffer(pair.view_pe, "float32", "cuda")
+    kept = mlp_kernels.kept_scratch(R * S, "cuda") if pair.view_pe else None
     g = torch.cos(mlp_kernels.launch_fwd(pair, packed, x, ray, band, S, 3,
-                                         prep=prep))
+                                         prep=prep, kept=kept))
     runs = [mlp_kernels.launch_bwd(pair, packed, x, ray, band, g, S, 3,
-                                   prep=prep, splits=n) for n in counts]
+                                   prep=prep, kept=kept, splits=n) for n in counts]
 
     def leaves(dpacked):
         """The weight gradient by parameter leaf (wh and b stack a layer
@@ -498,8 +643,10 @@ def time_ms(torch, fn, iters=12, warmup=2):
 
 
 def time_kernels(torch, S, C=3, compute_dtype="float32"):
-    """(K1 ms, plain fwd ms, K2 ms, plain fwd+bwd ms) at n = RAYS * S in the
-    kernels' mode for `compute_dtype`; the plain version runs in it too."""
+    """(K1 ms, plain fwd ms, K2 ms, plain fwd+bwd ms, K1 keeping ms) at n =
+    RAYS * S in the kernels' mode for `compute_dtype`; the plain version
+    runs in it too. K1 keeps nothing (no_grad's launch); K1 keeping writes
+    its forward for K2 (a recorded call's launch), and K2 runs on it."""
     from benerf_tpu_torch.models import bridge, nerf
     from benerf_tpu_torch.ops import fused_mlp, mlp_kernels
 
@@ -528,11 +675,14 @@ def time_kernels(torch, S, C=3, compute_dtype="float32"):
     fused = mlp_kernels.FUSED
     k1 = time_ms(torch, lambda: mlp_kernels.launch_fwd(
         fused, packed, x, vd, band, S, C, compute_dtype, prep=prep))
+    kept = mlp_kernels.kept_scratch(n, "cuda", compute_dtype)
+    kk = time_ms(torch, lambda: mlp_kernels.launch_fwd(
+        fused, packed, x, vd, band, S, C, compute_dtype, prep=prep, kept=kept))
     k2 = time_ms(torch, lambda: mlp_kernels.launch_bwd(
-        fused, packed, x, vd, band, g, S, C, compute_dtype, prep=prep))
+        fused, packed, x, vd, band, g, S, C, compute_dtype, prep=prep, kept=kept))
     p1 = time_ms(torch, plain_fwd)
     p2 = time_ms(torch, plain_fwd_bwd)
-    return k1, p1, k2, p2
+    return k1, p1, k2, p2, kk
 
 
 def time_eval_k1(torch, C=3):
@@ -572,8 +722,8 @@ def time_eval_k1(torch, C=3):
 def time_tile_pass(torch, S, C=3, compute_dtype="float32", view_pe=True):
     """The tile pass (pass (a) of K2, with view_pe, else of K4) alone at n =
     RAYS * S, ms: its C entry (fused_mlp_tile / staged_mlp_tile) on the
-    weights' wgmma copies a forward launch wrote. K4 runs with a view
-    encoding of L = 6, as on its path."""
+    weights' wgmma copies a forward launch wrote (K2's: on the forward that
+    launch kept). K4 runs with a view encoding of L = 6, as on its path."""
     from benerf_tpu_torch.ops import fused_mlp, mlp_kernels, staged_mlp
 
     params, pts, vd, _, _ = _inputs(torch, RAYS, S, C, 1, False,
@@ -585,9 +735,12 @@ def time_tile_pass(torch, S, C=3, compute_dtype="float32", view_pe=True):
     prep = mlp_kernels.prepare_weights(packed, C, view_pe, compute_dtype)
     if view_pe:
         band = fused_mlp.band_weights(None, None, "cuda")
+        kept = mlp_kernels.kept_scratch(n, "cuda", compute_dtype)
+        mlp_kernels.launch_fwd(mlp_kernels.FUSED, packed, x, vd, band, S, C,
+                               compute_dtype, prep=prep, kept=kept)
         return time_ms(torch, lambda: mlp_kernels.run_tile(
             mlp_kernels.FUSED, packed, x, vd, band, g, S, C, compute_dtype,
-            prep=prep))
+            prep=prep, kept=kept))
     with torch.no_grad():
         vb = staged_mlp.view_bias(params, vd, 6, compute_dtype).contiguous()
     return time_ms(torch, lambda: mlp_kernels.run_tile(
@@ -601,7 +754,9 @@ def wgrad_scratch(torch, view_pe, n, C=3, seed=3):
     work does not depend on the values."""
     from benerf_tpu_torch.ops import mlp_kernels
 
-    scr = mlp_kernels.bwd_scratch(mlp_kernels.PAIRS[view_pe], n, C, "cuda")
+    kept = mlp_kernels.kept_scratch(n, "cuda") if view_pe else None
+    scr = mlp_kernels.bwd_scratch(mlp_kernels.PAIRS[view_pe], n, C, "cuda",
+                                  kept=kept)
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     scr.x.normal_(generator=g)
@@ -661,9 +816,10 @@ def check_wgrad(torch, view_pe, n, C=3):
 
 
 def check_tile_sums(torch, view_pe, R, S, C=3):
-    """K2's (view_pe) or K4's tile pass in bf16 mode at R x S points: the
-    scratch beside its bf16 rows (csrc/fused_mlp_bwd_common.cuh). Its fp32
-    rows are what the bf16 rows round: h7 (and K4's d vb per point) to the
+    """K2's (view_pe; on the forward K1 kept) or K4's tile pass in bf16 mode
+    at R x S points: the scratch beside its bf16 rows
+    (csrc/fused_mlp_bwd_common.cuh). Its fp32 rows are what the bf16 rows
+    round: h7 (and K4's d vb per point) to the
     bit, the cotangent equal to the input, zero past n; each tile sum of a
     D row (a bias's partial, summed from the fp32 values) is within
     (2^-8 + 2^-18) x sum |d| of the float64 sum of that tile's bf16 row:
@@ -682,8 +838,11 @@ def check_tile_sums(torch, view_pe, R, S, C=3):
     prep = mlp_kernels.prepare_weights(packed, C, view_pe, "bfloat16")
     if view_pe:
         band = fused_mlp.band_weights(None, None, "cuda")
+        kept = mlp_kernels.kept_scratch(n, "cuda", "bfloat16")
+        mlp_kernels.launch_fwd(mlp_kernels.FUSED, packed, x, vd, band, S, C,
+                               "bfloat16", prep=prep, kept=kept)
         scr = mlp_kernels.run_tile(mlp_kernels.FUSED, packed, x, vd, band, g, S,
-                                   C, "bfloat16", prep=prep)[0]
+                                   C, "bfloat16", prep=prep, kept=kept)[0]
     else:
         with torch.no_grad():
             vb = staged_mlp.view_bias(params, vd, 6, "bfloat16").contiguous()
@@ -705,7 +864,8 @@ def check_tile_sums(torch, view_pe, R, S, C=3):
     g0 = mlp_kernels.side_g(view_pe)
     want_g = torch.zeros((C + 1, n_pad), device="cuda")
     want_g[:, :n] = g.t()
-    if not torch.equal(side[g0:g0 + C + 1], want_g):
+    gside = scr.gside.view(-1, n_pad) if view_pe else side
+    if not torch.equal(gside[g0:g0 + C + 1], want_g):
         raise AssertionError("bf16 scratch: the cotangent rows differ from the input")
     rows = D.double().view(mlp_kernels.BIAS_ROWS, n_pad // mlp_kernels.TILE, mlp_kernels.TILE)
     ref, bound = rows.sum(-1).t(), (2.0 ** -8 + 2.0 ** -18) * rows.abs().sum(-1).t()
@@ -784,17 +944,25 @@ def _wgrad_per_n(torch, per, n, C, compute_dtype, view_pe, peak, weights):
 
 def _tile_per_n(torch, per, n, C, compute_dtype, view_pe, peak, flops):
     """Time the tile pass (pass (a) of K2 or K4) at n = RAYS * S into `per`
-    (the tile_* keys): its time and its bound, the larger of its products
-    (twice the forward's: the forward again, then the data gradients) at
-    the mode's tensor-core rate and its scratch written once."""
+    (the tile_* keys): its time and its bound, the larger of its products at
+    the mode's tensor-core rate and its bytes. K2's: the data gradients
+    (1x the forward's products), the backward's part of the scratch
+    written once and the sign words read once (K1 kept the forward); K4's:
+    the forward again, then the data gradients (2x), the scratch written
+    once."""
     from benerf_tpu_torch.ops import mlp_kernels
 
     S = n // RAYS
     n_pad = -(-n // mlp_kernels.TILE) * mlp_kernels.TILE
     t = time_tile_pass(torch, S, C, compute_dtype, view_pe)
     per["tile_ms"] = t
+    if view_pe:
+        nbytes = (mlp_kernels.scratch_bytes(n_pad, C, True, compute_dtype, "backward")
+                  + mlp_kernels.scratch_sizes(n_pad, C, True, compute_dtype).signs * 4)
+    else:
+        nbytes = mlp_kernels.scratch_bytes(n_pad, C, False, compute_dtype)
     per["tile_bound_ms"], per["tile_bound_by"] = _bound(
-        2 * flops, peak, mlp_kernels.scratch_bytes(n_pad, C, view_pe, compute_dtype))
+        (1 if view_pe else 2) * flops, peak, nbytes)
     return (f"tile pass {t:.3f} ms (bound {per['tile_bound_ms']:.3f} "
             f"{per['tile_bound_by']})")
 
@@ -855,9 +1023,11 @@ def counts():
 
 def launch_keys(pair, compute_dtype):
     """The keys of mlp_kernels.LAUNCHES of a pair's two kernels ("fused_mlp"
-    or "staged_mlp") in compute_dtype."""
+    or "staged_mlp") in compute_dtype, on the train path: with K1/K2 the
+    count of K1 launches that kept their forward for K2."""
     sfx = "" if compute_dtype == "float32" else "_bf16"
-    return (f"{pair}_fwd{sfx}", f"{pair}_bwd{sfx}")
+    kept = (f"{pair}_fwd_kept{sfx}",) if pair == "fused_mlp" else ()
+    return (f"{pair}_fwd{sfx}", f"{pair}_bwd{sfx}", *kept)
 
 
 def expect_counts(got, iters, kernels):
@@ -1160,7 +1330,7 @@ def check_nccl_one_rank(torch, scene, smi, phase10_ms):
           f"launches {a['launches']}; ms/iter in turns meshed {a['ms']}, "
           f"unmeshed {b['ms']} (phase 10 {phase10_ms:.2f}) on {smi}")
     expect_counts(a["launches"], CMP_G * CMP_DISPATCHES,
-                  ("fused_mlp_fwd", "fused_mlp_bwd"))
+                  launch_keys("fused_mlp", "float32"))
     if not (same_metrics and same_state
             and a["collectives_per_step"]["all_reduce"] == 1):
         raise AssertionError(f"the one-rank NCCL mesh differs from the "
@@ -1433,7 +1603,7 @@ def check_two_ranks_gloo(torch, smi):
               f"{ref['ms_per_step']:.1f} on {smi}")
         for launches in (a["launches"], b["launches"],
                          witness[name]["launches"]):
-            expect_counts(launches, MESH_STEPS, ("fused_mlp_fwd", "fused_mlp_bwd"))
+            expect_counts(launches, MESH_STEPS, launch_keys("fused_mlp", "float32"))
         if not (bit_equal and _step1_ok(d) and _later_ok(d) and _step1_ok(w)
                 and _later_ok(w)
                 and all(v["caught"] for v in r["faults"].values())):
@@ -1513,7 +1683,7 @@ def run_demo(torch, smi, root, device=None):
     from benerf_tpu_torch.train import checkpoint, loop
     from benerf_tpu_torch.train import step as step_mod
 
-    fwd, bwd = "fused_mlp_fwd", "fused_mlp_bwd"
+    fwd, bwd, kept = launch_keys("fused_mlp", "float32")
     scene_dir = f"{root}/demo"
     write_s = write_demo_scene(scene_dir)
     print(f"  scene written by the port's writer in {write_s:.1f} s")
@@ -1538,7 +1708,7 @@ def run_demo(torch, smi, root, device=None):
     expect_graphs(graphs, 1, DEMO_ITERS - 1)
     want = {k: 0 for k in run_counts}
     want[fwd] = 2 * DEMO_ITERS + 2 * eval_k1 + video_k1
-    want[bwd] = 2 * DEMO_ITERS
+    want[bwd] = want[kept] = 2 * DEMO_ITERS
     if run_counts != want:
         raise AssertionError(f"demo run: counts {run_counts}, expected {want}")
 
@@ -1549,7 +1719,8 @@ def run_demo(torch, smi, root, device=None):
     torch.cuda.synchronize()
     resume_counts = counts()
     expect_graphs(graphs, 0, 0)  # 20 < 50 steps left: single steps
-    want = {k: 2 * DEMO_RESUME if k in (fwd, bwd) else 0 for k in resume_counts}
+    want = {k: 2 * DEMO_RESUME if k in (fwd, bwd, kept) else 0
+            for k in resume_counts}
     if resume_counts != want or resumed.step != DEMO_ITERS + DEMO_RESUME:
         raise AssertionError(f"resume: counts {resume_counts}, expected "
                              f"{want}; step {resumed.step}")
@@ -1738,7 +1909,7 @@ def run_quality_gates(torch, smi):
             evals_k1 = small["evals"] * small["num_interpolated_pose"] * 2
             want = {k: 0 for k in got}
             want["fused_mlp_fwd"] = 2 * iters + evals_k1
-            want["fused_mlp_bwd"] = 2 * iters
+            want["fused_mlp_bwd"] = want["fused_mlp_fwd_kept"] = 2 * iters
             if got != want:
                 raise AssertionError(f"quality {name}: counts {got}, expected {want}")
             first, final = art["checkpoints"][0], art["checkpoints"][-1]
@@ -1907,13 +2078,16 @@ def _per_n_fused(torch, compute_dtype, C=3):
     """K1/K2 in one mode at both training n: times, plain times, bounds.
     Forward bytes: pts, viewdirs, outputs, weights; backward adds the
     cotangent, d pts, d viewdir per point and the weight gradients.
-    Operations: 1x (K1) and 3x (K2) the forward's FLOP, at the tensor-core
-    rate of the mode (TC_PEAK) for the bound and at FP32_PEAK for the
-    CUDA-core bound beside it. K2's scratch, written and read back
-    (mlp_kernels.scratch_bytes each way), is its design's own floor
-    (bwd_scratch_floor_ms), not part of the bound. K2's weight-gradient pass
-    is timed alone too, beside torch.matmul of its products (its
-    `library_ms`); its byte bound counts the scratch, which is its input."""
+    Operations: 1x (K1) and 2x (K2: the data and the weight gradients, on
+    the forward K1 kept) the forward's FLOP, at the tensor-core rate of the
+    mode (TC_PEAK) for the bound and at FP32_PEAK for the CUDA-core bound
+    beside it. K1 keeping its forward (fwd_kept_*, the train path's launch)
+    writes the kept part of K2's scratch besides. K2's scratch, its own part
+    written and read back and K1's read (mlp_kernels.scratch_bytes), is its
+    design's own floor (bwd_scratch_floor_ms), not part of the bound. K2's
+    weight-gradient pass is timed alone too, beside torch.matmul of its
+    products (its `library_ms`); its byte bound counts the scratch, which is
+    its input."""
     from benerf_tpu_torch.ops import mlp_kernels
 
     flops_pt = flops_fwd_per_point()
@@ -1923,23 +2097,29 @@ def _per_n_fused(torch, compute_dtype, C=3):
     for S in (64, 128):
         n = RAYS * S
         n_pad = -(-n // mlp_kernels.TILE) * mlp_kernels.TILE
-        kf, pf, kb, pb = time_kernels(torch, S, C, compute_dtype)
+        kf, pf, kb, pb, kk = time_kernels(torch, S, C, compute_dtype)
         bytes_f = (n * (3 + C + 1) + RAYS * 3 + weights) * 4
         bytes_b = bytes_f + (n * (C + 1 + 3 + 3) + weights) * 4
+        kept = mlp_kernels.scratch_bytes(n_pad, C, True, compute_dtype, "kept")
+        own = mlp_kernels.scratch_bytes(n_pad, C, True, compute_dtype, "backward")
         flops = flops_pt * n
         d = dict(fwd_ms=kf, fwd_plain_ms=pf, bwd_ms=kb, bwd_plain_ms=pb,
+                 fwd_kept_ms=kk,
                  fwd_fp32_core_bound_ms=flops / FP32_PEAK * 1e3,
-                 bwd_fp32_core_bound_ms=3 * flops / FP32_PEAK * 1e3,
-                 bwd_scratch_floor_ms=2 * mlp_kernels.scratch_bytes(
-                     n_pad, C, True, compute_dtype) / HBM_BYTES_S * 1e3)
+                 bwd_fp32_core_bound_ms=2 * flops / FP32_PEAK * 1e3,
+                 bwd_scratch_floor_ms=(2 * own + kept) / HBM_BYTES_S * 1e3)
         d["fwd_bound_ms"], d["fwd_bound_by"] = _bound(flops, peak, bytes_f)
-        d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(3 * flops, peak, bytes_b)
+        d["fwd_kept_bound_ms"], d["fwd_kept_bound_by"] = _bound(
+            flops, peak, bytes_f + kept)
+        d["bwd_bound_ms"], d["bwd_bound_by"] = _bound(2 * flops, peak, bytes_b)
         wline = _wgrad_per_n(torch, d, n, C, compute_dtype, True, peak, weights)
         tline = _tile_per_n(torch, d, n, C, compute_dtype, True, peak, flops)
         out[n] = d
         print(f"  {MODE_NAME[compute_dtype]} n={n}: K1 {kf:.3f} ms (plain {pf:.3f}, "
               f"bound {d['fwd_bound_ms']:.3f}, fp32-core bound "
-              f"{d['fwd_fp32_core_bound_ms']:.3f}); K2 {kb:.3f} ms (plain "
+              f"{d['fwd_fp32_core_bound_ms']:.3f}), keeping its forward "
+              f"{kk:.3f} (bound {d['fwd_kept_bound_ms']:.3f} "
+              f"{d['fwd_kept_bound_by']}); K2 on it {kb:.3f} ms (plain "
               f"fwd+bwd {pb:.3f}, bound {d['bwd_bound_ms']:.3f} "
               f"{d['bwd_bound_by']}, fp32-core {d['bwd_fp32_core_bound_ms']:.3f}, "
               f"scratch floor {d['bwd_scratch_floor_ms']:.3f}); its {tline}; its "
@@ -2091,6 +2271,10 @@ def main():
     for R, S in ((5, 64), (3, 37)):
         for C in (1, 3, 7):
             check_bf16(torch, "K1/K2", R, S, C, True)
+    print("    K1 keeping its forward (the train path's launch) vs nerf.apply, "
+          "its X rows and sign words vs the plain activations")
+    k1_kept = {cd: {RAYS * S: check_kept(torch, RAYS, S, 3, cd, seed=S)
+                    for S in (64, 128)} for cd in ("float32", "bfloat16")}
     k12 = {cd: _per_n_fused(torch, cd) for cd in ("float32", "bfloat16")}
 
     # 3. the tanabata slice, fp32 mode
@@ -2228,6 +2412,10 @@ def main():
     k2_outside = {**k2_outside, **k2_q_outside}
     k3_err = {n: (e, e / s) for n, (e, s) in k3_err.items()}
     k1_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf.items()}
+    # the keeping launch's errors count in its mode's K1 line too
+    for cd, errs in (("float32", k1_err), ("bfloat16", k1_bf)):
+        errs.update({f"kept {n}": (d["max_abs_err"], d["max_err_over_scale"])
+                     for n, d in k1_kept[cd].items()})
     k2_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf.items()}
     k3_bf = {n: (d["fwd_err"], d["fwd_rel"]) for n, d in bf34.items()}
     k4_bf = {n: (d["wgrad_abs_vs_f64"], d["wgrad_vs_f64"]) for n, d in bf34.items()}
@@ -2261,12 +2449,19 @@ def main():
                 "cli_test": test_k1}
     k2_paths = {"tanabata": launches["fused_mlp_bwd"],
                 **{k: v["fused_mlp_bwd"] for k, v in path_launches.items()}}
+    # K1 launches that kept their forward: K2's count on every train path,
+    # none in cli.test (run_inference holds every other count at 0)
+    kept_paths = {"tanabata": launches["fused_mlp_fwd_kept"],
+                  **{k: v["fused_mlp_fwd_kept"] for k, v in path_launches.items()},
+                  "cli_test": 0}
     bf_paths = {"tanabata_bf16": bf_launches,
                 "bench_bf16": bench_lines["bfloat16"]["launches"]}
     kernels = [
         _kernel_line("K1 fused_mlp_fwd", fwd_src, k1_rep, "tf32x3",
                      sum(k1_paths.values()), k1_err, fwd_tol, k12["float32"],
                      "fwd", launches_by_path=k1_paths,
+                     kept_launches_by_path=kept_paths,
+                     kept_forward={str(n): d for n, d in k1_kept["float32"].items()},
                      eval_chunk={str(n): {
                          **k1_eval.get(n, {}), "max_abs_err": e,
                          "max_err_over_scale": r}
@@ -2279,6 +2474,9 @@ def main():
                      k1_bf, bf_fwd_tol, k12["bfloat16"], "fwd",
                      launches_by_path={k: v["fused_mlp_fwd_bf16"]
                                        for k, v in bf_paths.items()},
+                     kept_launches_by_path={k: v["fused_mlp_fwd_kept_bf16"]
+                                            for k, v in bf_paths.items()},
+                     kept_forward={str(n): d for n, d in k1_kept["bfloat16"].items()},
                      weight_copies=prep["K1/K2 bf16"]),
         _kernel_line("K2 fused_mlp_bwd", bwd_src, k2_rep, "tf32x3",
                      sum(k2_paths.values()), k2_err, bwd_tol, k12["float32"],

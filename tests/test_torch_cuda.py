@@ -73,6 +73,8 @@ def test_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     grads_k = torch.autograd.grad(torch.sin(out_k).sum(), leaves + [x, v])
     assert mlp_kernels.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"] + 1
     assert mlp_kernels.LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 1
+    assert (mlp_kernels.LAUNCHES["fused_mlp_fwd_kept"]
+            == before["fused_mlp_fwd_kept"] + 1)
     out_p = nerf.apply(params, x, v, **kw)
     grads_p = torch.autograd.grad(torch.sin(out_p).sum(), leaves + [x, v])
     scale = max(out_p.abs().max().item(), 1.0)
@@ -103,8 +105,9 @@ def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     scale of nerf.apply with bf16 operands; gradients finite, and no
     farther from a float64 run than twice the plain bf16 version's
     distance (chip_smoke.py's BF16_GRAD_FACTOR). The backward's scratch,
-    sized by the library, is the Python mirror's bytes in either format:
-    19,872 B a point in float32, 11,384 in bf16."""
+    sized by the library on what K1 keeps, is the Python mirror's bytes in
+    either format: 19,872 B a point in float32, 11,384 in bf16, and 272 B
+    of sign words."""
     params, pts, vd, kw = _inputs(R, S, C, barf)
     before = dict(mlp_kernels.LAUNCHES)
     with torch.no_grad():
@@ -115,18 +118,59 @@ def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     gk = _grads(fused_mlp.fused_nerf_mlp, params, pts, vd, compute_dtype="bfloat16", **kw)
     assert mlp_kernels.LAUNCHES["fused_mlp_fwd_bf16"] == before["fused_mlp_fwd_bf16"] + 2
     assert mlp_kernels.LAUNCHES["fused_mlp_bwd_bf16"] == before["fused_mlp_bwd_bf16"] + 1
+    assert (mlp_kernels.LAUNCHES["fused_mlp_fwd_kept_bf16"]
+            == before["fused_mlp_fwd_kept_bf16"] + 1)
     assert mlp_kernels.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"]
     n_pad = -(-R * S // mlp_kernels.TILE) * mlp_kernels.TILE
     for cd, per_point in (("float32", 19_872), ("bfloat16", 11_384)):
-        scr = mlp_kernels.bwd_scratch(mlp_kernels.FUSED, R * S, C, "cuda", cd)
+        kept = mlp_kernels.kept_scratch(R * S, "cuda", cd)
+        scr = mlp_kernels.bwd_scratch(mlp_kernels.FUSED, R * S, C, "cuda", cd,
+                                      kept=kept)
         assert scr.nbytes() == mlp_kernels.scratch_bytes(n_pad, C, True, cd)
-        assert scr.nbytes() == per_point * n_pad
+        assert scr.nbytes() == (per_point + 272) * n_pad
     gp = _grads(nerf.apply, params, pts, vd, compute_dtype=torch.bfloat16, **kw)
     g64 = _grads(nerf.apply, bridge.tree_map(lambda t: t.double(), params),
                  pts.double(), vd.double(), **{k: t.double() for k, t in kw.items()})
     assert all(bool(torch.isfinite(g).all()) for g in gk)
     assert _dist(gk[:-2], g64[:-2]) <= 2.0 * _dist(gp[:-2], g64[:-2])
     assert gk[-2][-1].abs().sum() > 0  # the last tile's points
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
+@pytest.mark.parametrize("C", [1, 3, 7])
+def test_k1_keeps_its_forward_for_k2(card, C, R, S, compute_dtype):
+    """K1 launched with a kept forward, as where autograd records the call
+    (chip_smoke.check_kept, which holds the training shapes the same way):
+    the recorded call counts once in the kept counter and matches the plain
+    version; the launch with `kept_scratch` and the one that keeps nothing
+    give its result bit for bit; its X rows are the plain forward's
+    activations, within 2e-4 x scale in float32 (TF32X3's forward
+    tolerance) and, in bfloat16, within 2e-2 x scale of the plain version
+    on bf16 operands (bf16's) with the fp32 h7 rows rounding to the bf16
+    ones; its sign words are the kept activations > 0, bit for bit, over
+    every point of every tile. 3 x 37 points leave a ragged last tile."""
+    d = _smoke().check_kept(torch, R, S, C, compute_dtype, seed=C)
+    assert d["signs_equal"]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_k1_keeps_nothing_under_no_grad(card, compute_dtype):
+    """Under no_grad (eval chunks, cli.test, renders) K1 keeps nothing, even
+    where the parameters need gradients: the kept counter does not move, K1
+    counts once, and its result is the recorded call's bit for bit."""
+    params, pts, vd, _ = _inputs(5, 13, 3, False)
+    leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
+    key = "" if compute_dtype == "float32" else "_bf16"
+    before = dict(mlp_kernels.LAUNCHES)
+    with torch.no_grad():
+        out = fused_mlp.fused_nerf_mlp(params, pts, vd, compute_dtype=compute_dtype)
+    assert mlp_kernels.LAUNCHES["fused_mlp_fwd_kept" + key] == before["fused_mlp_fwd_kept" + key]
+    assert mlp_kernels.LAUNCHES["fused_mlp_fwd" + key] == before["fused_mlp_fwd" + key] + 1
+    recorded = fused_mlp.fused_nerf_mlp(params, pts, vd, compute_dtype=compute_dtype)
+    assert recorded.requires_grad and leaves[0].requires_grad
+    assert mlp_kernels.LAUNCHES["fused_mlp_fwd_kept" + key] == before["fused_mlp_fwd_kept" + key] + 1
+    assert torch.equal(out, recorded.detach())
 
 
 @pytest.mark.parametrize("a,b", [(1, 13), (7, 32)])
@@ -526,7 +570,8 @@ def test_captured_dispatch_equals_uncaptured_steps(card, fast, views_ch):
 
 def test_launch_counters_count_replays(card):
     """2 launches of K1 and of K2 per iteration whether the step ran
-    eagerly or as a replay of its graph; the capture itself counts none."""
+    eagerly or as a replay of its graph, every K1 launch keeping its
+    forward for K2; the capture itself counts none."""
     from benerf_tpu_torch.train import step as step_mod
 
     cfg, batch, make_state = _small_run()
@@ -537,7 +582,7 @@ def test_launch_counters_count_replays(card):
         state, _ = multi_fn(state, batch, cfg.seed)
     launches, routes = mlp_ops.counts_since(before)
     assert launches == dict(dict.fromkeys(launches, 0), fused_mlp_fwd=24,
-                            fused_mlp_bwd=24)
+                            fused_mlp_bwd=24, fused_mlp_fwd_kept=24)
     assert routes == {"plain": 0}
     assert step_mod.GRAPHS == {"captured": graphs["captured"] + 1,
                                "replayed": graphs["replayed"] + 11}
@@ -902,8 +947,9 @@ def test_evaluate_runs_lpips_on_the_card(card, tmp_path, monkeypatch):
 def test_bench_runs_on_the_card(card, capsys):
     """cli.bench at its full workload, 2 steps a dispatch, 1 dispatch timed:
     one JSON line, K1/K2 twice a step in every step run (the warm-up step
-    and the captured step's replays), no K3/K4 and no plain route,
-    bench.py's FLOP count and the share of the bf16 peak."""
+    and the captured step's replays), each K1 launch keeping its forward
+    for K2, no K3/K4 and no plain route, bench.py's FLOP count and the
+    share of the bf16 peak."""
     import json
 
     from benerf_tpu_torch.cli import bench
@@ -915,7 +961,7 @@ def test_bench_runs_on_the_card(card, capsys):
     launches, routes = mlp_ops.counts_since(before)
     # two dispatches of 2 steps: the untimed one and the timed one
     assert launches == dict(dict.fromkeys(launches, 0), fused_mlp_fwd=8,
-                            fused_mlp_bwd=8)
+                            fused_mlp_bwd=8, fused_mlp_fwd_kept=8)
     assert routes == {"plain": 0}
     assert line["model_flops_per_iter"] == 2_088_416_378_880
     assert line["platform"] == "cuda" and line["card"]

@@ -251,8 +251,8 @@ def test_emulated_staged_network_matches_jax(compute_dtype, interpret_mode):
 
 def _launch_fwd(seen, preps):
     def launch(pair, packed, pts, vb, band, S, C, compute_dtype="float32", *,
-               prep):
-        assert pair is mlp_kernels.STAGED and band is None
+               prep, kept=None):
+        assert pair is mlp_kernels.STAGED and band is None and kept is None
         seen.append(("fwd", compute_dtype))
         preps.append(prep)
         w = mlp_kernels.unpack(packed, C, view_pe=False)
@@ -265,8 +265,8 @@ def _launch_fwd(seen, preps):
 def _launch_bwd(seen, preps):
     """What K4 returns: (d packed, d pts, d vb per ray)."""
     def launch(pair, packed, pts, vb, band, g, S, C, compute_dtype="float32", *,
-               prep):
-        assert pair is mlp_kernels.STAGED and band is None
+               prep, kept=None):
+        assert pair is mlp_kernels.STAGED and band is None and kept is None
         seen.append(("bwd", compute_dtype))
         preps.append(prep)
         with torch.enable_grad():

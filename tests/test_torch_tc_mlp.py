@@ -269,25 +269,29 @@ def test_natural_layout_round_trip(C):
 # ---- the card path's Python -----------------------------------------------------
 
 
-def _launch_fwd(seen, preps):
+def _launch_fwd(seen, preps, kepts=None):
     def launch(pair, packed, pts, vd, band, S, C, compute_dtype="float32", *,
-               prep):
+               prep, kept=None):
         assert pair is mlp_kernels.FUSED
         seen.append(("fwd", compute_dtype))
         preps.append(prep)
+        if kepts is not None:
+            kepts.append(kept)
         w = mlp_kernels.unpack(packed, C)
         return emulated_forward(w, pts, vd.repeat_interleave(S, dim=0), band,
                                 MODES[compute_dtype])
     return launch
 
 
-def _launch_bwd(seen, preps):
+def _launch_bwd(seen, preps, kepts=None):
     """What K2's launch returns: (d packed, d pts, d viewdirs per ray)."""
     def launch(pair, packed, pts, vd, band, g, S, C, compute_dtype="float32",
-               *, prep):
+               *, prep, kept=None):
         assert pair is mlp_kernels.FUSED
         seen.append(("bwd", compute_dtype))
         preps.append(prep)
+        if kepts is not None:
+            kepts.append(kept)
         with torch.enable_grad():
             ins = [t.detach().requires_grad_(True) for t in (packed, pts, vd)]
             w = mlp_kernels.unpack(ins[0], C)
@@ -304,10 +308,10 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
     Function route every gradient (each parameter, the points, the per-ray
     viewdirs) where autograd through the same arithmetic on the parameters
     sends it, and pass the mode to both launches; K2 gets the buffer of
-    wgmma weight copies that K1's launch filled."""
-    seen, preps = [], []
-    monkeypatch.setattr(mlp_kernels, "launch_fwd", _launch_fwd(seen, preps))
-    monkeypatch.setattr(mlp_kernels, "launch_bwd", _launch_bwd(seen, preps))
+    wgmma weight copies that K1's launch filled, and the forward it kept."""
+    seen, preps, kepts = [], [], []
+    monkeypatch.setattr(mlp_kernels, "launch_fwd", _launch_fwd(seen, preps, kepts))
+    monkeypatch.setattr(mlp_kernels, "launch_bwd", _launch_bwd(seen, preps, kepts))
     params, pts, vd, band = _inputs(3, S, C, seed=C + S, barf=barf)
     bw, bwv = ((torch.as_tensor(band[:10]), torch.as_tensor(band[10:]))
                if barf else (None, None))
@@ -343,9 +347,62 @@ def test_fused_card_path_wiring(compute_dtype, C, S, barf, monkeypatch):
     assert preps[0] is preps[1]
     assert preps[0].shape == (mlp_kernels.prep_table(True, compute_dtype)[1],
                               mlp_kernels.PREP_KS[compute_dtype])
+    assert kepts[0] is not None
+    assert all(a is b for a, b in zip(kepts[0], kepts[1]) if isinstance(a, torch.Tensor))
     for a, b in zip(got, want):
         assert a.shape == b.shape
         assert _rel(a, b) < 1e-5
+
+
+@pytest.mark.parametrize("compute_dtype", list(MODES))
+@pytest.mark.parametrize("case", ["recorded", "no_grad", "no_input_needs_grad",
+                                  "staged"])
+def test_k1_keeps_its_forward_only_where_autograd_records_the_call(
+        case, compute_dtype, monkeypatch):
+    """KernelMLP through `kernel_mlp`, its launches replaced: K1 is handed a
+    kept forward (`kept_scratch` of the call's points in the mode's format)
+    only where autograd records the call, grad on and an input that needs a
+    gradient; K3 never. K2's launch gets the very tensors K1 filled."""
+    calls = []
+
+    def fwd(pair, packed, pts, ray, band, S, C, compute_dtype="float32", *,
+            prep, kept=None):
+        calls.append(("fwd", kept))
+        return torch.zeros((pts.shape[0], C + 1))
+
+    def bwd(pair, packed, pts, ray, band, g, S, C, compute_dtype="float32", *,
+            prep, kept=None):
+        calls.append(("bwd", kept))
+        return torch.zeros_like(packed), torch.zeros_like(pts), torch.zeros_like(ray)
+
+    monkeypatch.setattr(mlp_kernels, "launch_fwd", fwd)
+    monkeypatch.setattr(mlp_kernels, "launch_bwd", bwd)
+    pair = mlp_kernels.STAGED if case == "staged" else mlp_kernels.FUSED
+    n, S, C = 111, 37, 3
+    packed = torch.zeros(mlp_kernels.packed_size(C, pair.view_pe),
+                         requires_grad=case != "no_input_needs_grad")
+    pts, ray = torch.zeros(n, 3), torch.zeros(n // S, pair.ray_width)
+    band = torch.ones(14) if pair.view_pe else None
+    with torch.set_grad_enabled(case != "no_grad"):
+        out = mlp_kernels.kernel_mlp(pair, packed, pts, ray, band, S, C,
+                                     compute_dtype)
+    kept = calls[0][1]
+    if case != "recorded":
+        assert kept is None
+        if out.requires_grad:
+            out.sum().backward()
+            assert calls[1] == ("bwd", None)
+        return
+    n_pad = 2 * mlp_kernels.TILE
+    sizes = mlp_kernels.scratch_sizes(n_pad, C, True, compute_dtype)
+    assert (kept.n_pad, kept.compute_dtype, kept.d) == (n_pad, compute_dtype, None)
+    assert kept.x.numel() == sizes.x
+    assert kept.signs.shape == (2, mlp_kernels.SIGN_WORDS)
+    assert kept.side is None if compute_dtype == "float32" else kept.side.numel() == sizes.side
+    out.sum().backward()
+    got = calls[1][1]
+    assert calls[1][0] == "bwd" and got.x is kept.x and got.signs is kept.signs
+    assert got.side is kept.side and got.n_pad == n_pad
 
 
 def test_compute_dtype_routes_on_the_card(monkeypatch):

@@ -328,9 +328,9 @@ def test_bf16_scratch_gives_the_pass_of_the_fp32_scratch_in_bf16(view_pe, C):
 def test_bf16_scratch_has_the_library_sizes(view_pe, C):
     """The plain bf16 format fills the sizes of `scratch_sizes` (the
     library's, checked at load) with the row map its job table reads: the
-    thin jobs' side rows hold h7, hv and the cotangent of the fp32 scratch,
-    K4's d vb rows its D_HV rows; bf16 rows are the fp32 ones rounded, in
-    blocks of a tile's 64 points."""
+    thin jobs' side rows hold h7, hv and the cotangent of the fp32 scratch
+    (K2's cotangent in its own gside rows), K4's d vb rows its D_HV rows;
+    bf16 rows are the fp32 ones rounded, in blocks of a tile's 64 points."""
     scr = _random_scratch(view_pe, C)
     n_pad = scr.n_pad
     b16 = mlp_kernels.bf16_scratch_plain(scr, C, view_pe)
@@ -338,15 +338,19 @@ def test_bf16_scratch_has_the_library_sizes(view_pe, C):
     assert (b16.x.numel(), b16.d.numel(), b16.side.numel(), b16.bsum.numel()) == sizes[:4]
     assert b16.x.dtype == b16.d.dtype == torch.bfloat16
     X, D, side = scr.x.view(-1, n_pad), scr.d.view(-1, n_pad), b16.side.view(-1, n_pad)
+    dside = side
+    if view_pe:
+        assert b16.gside.numel() == sizes.gside
+        dside = b16.gside.view(-1, n_pad)
     _, thin = mlp_kernels.wgrad_jobs(C, view_pe)
     _, thin_b = mlp_kernels.wgrad_jobs(C, view_pe, "bfloat16")
     for (name, x0, I, d0, O, *_), (_, xb, _, db, *_) in zip(thin, thin_b):
-        assert torch.equal(side[db:db + O], D[d0:d0 + O]), name
+        assert torch.equal(dside[db:db + O], D[d0:d0 + O]), name
         if x0 >= 0:
             assert torch.equal(side[xb:xb + I], X[x0:x0 + I]), name
     if not view_pe:
-        assert sizes[4] == mlp_kernels.SIDE_DHV
-        assert torch.equal(side[sizes[4]:sizes[4] + 128],
+        assert sizes.dvb == mlp_kernels.SIDE_DHV
+        assert torch.equal(side[sizes.dvb:sizes.dvb + 128],
                            D[mlp_kernels.D_HV:mlp_kernels.D_G])
     rows = mlp_kernels.x_rows_bf16(view_pe)
     assert torch.equal(b16.rows("x"), X[:rows].to(torch.bfloat16))
@@ -360,12 +364,42 @@ def test_bf16_scratch_has_the_library_sizes(view_pe, C):
                for _, x0, I, d0, O, *_ in products)
 
 
-@pytest.mark.parametrize("view_pe,fp32,bf16", [(True, 19_872, 11_384),
+@pytest.mark.parametrize("view_pe,fp32,bf16", [(True, 19_872 + 272, 11_384 + 272),
                                                (False, 19_728, 11_816)],
                          ids=["K2", "K4"])
 def test_bf16_scratch_bytes_a_point(view_pe, fp32, bf16):
     """At C = 3: K2's fp32 scratch 19,872 B a point, its bf16 format 11,384
-    (-43%); K4's 19,728 and 11,816."""
+    (-43%), each with the 272 B of sign words K1 keeps for it; K4's 19,728
+    and 11,816 (its signs stay in shared memory)."""
     n_pad = 6110 * mlp_kernels.TILE
     assert mlp_kernels.scratch_bytes(n_pad, 3, view_pe) == fp32 * n_pad
     assert mlp_kernels.scratch_bytes(n_pad, 3, view_pe, "bfloat16") == bf16 * n_pad
+
+
+@pytest.mark.parametrize("compute_dtype,whole,kept",
+                         [("float32", 19_872, 10_384), ("bfloat16", 11_384, 6_608)])
+@pytest.mark.parametrize("C", [1, 3, 7])
+def test_k2_scratch_splits_into_what_k1_keeps_and_the_backward_part(
+        compute_dtype, whole, kept, C):
+    """K2's scratch in two parts: what K1 keeps when autograd records its
+    call (`mlp_kernels.KEPT`: X's rows, bf16's h7 and hv rows, 272 B of
+    ReLU sign words a point) and what the backward allocates (D, bf16's
+    cotangent rows and tile sums). Together they are the bytes the backward
+    alone held before K1 kept its forward, 19,872 / 11,384 B a point at
+    C = 3, and the sign words; the kept part does not depend on C."""
+    n_pad = 6110 * mlp_kernels.TILE
+    sizes = mlp_kernels.scratch_sizes(n_pad, C, True, compute_dtype)
+    assert sizes.signs * 4 == 272 * n_pad == mlp_kernels.SIGN_WORDS * 4 * n_pad // 64
+    k = mlp_kernels.scratch_bytes(n_pad, C, True, compute_dtype, "kept")
+    b = mlp_kernels.scratch_bytes(n_pad, C, True, compute_dtype, "backward")
+    assert k == kept * n_pad
+    assert k + b == mlp_kernels.scratch_bytes(n_pad, C, True, compute_dtype)
+    assert k + b == (whole + 272) * n_pad
+    small = 3 * mlp_kernels.TILE
+    kept_part = mlp_kernels.kept_scratch(small - 5, "cpu", compute_dtype)
+    assert kept_part.n_pad == small and kept_part.d is None
+    assert kept_part.nbytes() == mlp_kernels.scratch_bytes(small, C, True,
+                                                         compute_dtype, "kept")
+    assert kept_part.x.dtype == (torch.float32 if compute_dtype == "float32"
+                                 else torch.bfloat16)
+    assert (kept_part.side is None) == (compute_dtype == "float32")

@@ -18,7 +18,7 @@ each on the port's own function as the step calls it:
                    families' points and viewdirs joined, the weights packed
                    (ops/mlp_kernels.pack_params), the band weights, the
                    points flattened; forward and backward
-  mlp_fine         K1 + K2 through ops/mlp_kernels.KernelMLP, n = 391,040
+  mlp_fine         K1 + K2 through ops/mlp_kernels.kernel_mlp, n = 391,040
   mlp_coarse       the same at n = 195,520
   composite        render/volume.composite of both families at both levels
   z_merge          render/pdf.merge_sorted of both families (no gradient
@@ -248,7 +248,7 @@ def build_rows(cfg, batch, H, W, device, seed=0):
 def _mlp_call(params, pts, vd, compute_dtype):
     """fn() -> [raw]: one MLP call as the step makes it, without the staging
     (the mlp_staging row): K1, and K2 in its backward, through
-    ops/mlp_kernels.KernelMLP on the card; on the CPU its plain version,
+    ops/mlp_kernels.kernel_mlp on the card; on the CPU its plain version,
     fused_nerf_mlp. pts (R, S, 3), vd (R, 3)."""
     from benerf_tpu_torch.ops import fused_mlp, mlp_kernels
 
@@ -262,7 +262,7 @@ def _mlp_call(params, pts, vd, compute_dtype):
     band = fused_mlp.band_weights(None, None, pts.device)
     flat = pts.detach().reshape(R * S, 3).contiguous().requires_grad_(True)
     C = params["rgb"]["w"].shape[1]
-    return lambda: [mlp_kernels.KernelMLP.apply(
+    return lambda: [mlp_kernels.kernel_mlp(
         mlp_kernels.FUSED, packed, flat, vd, band, S, C, compute_dtype)]
 
 

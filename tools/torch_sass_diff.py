@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Diff the SASS of the backward kernels' fp32 (TF32X3) instantiations
-between two trees of this repository.
+"""Diff the SASS of the MLP kernels between two trees of this repository.
 
     python3 tools/torch_sass_diff.py PARENT_DIR [CHANGE_DIR]
 
-Each tree's benerf_tpu_torch/csrc/fused_mlp_bwd.cu (K2) and
-staged_mlp_bwd.cu (K4) are compiled with the port's nvcc flags to a cubin
-for sm_90a, `cuobjdump -sass` lists every function, and the functions whose
-mangled name carries tc::Mode 0 (tile_kernel, staged_tile_kernel,
-wgrad_wgmma_kernel) are paired by kernel name and template argument (a
-parameter appended changes the rest of the mangled name) and compared
-instruction by instruction, with the addresses and encodings dropped.
-Prints one JSON line per kernel: identical or not, instruction counts and
-the first differing lines. Needs
-nvcc and cuobjdump (the CUDA toolkit); imports nothing of JAX.
+Each tree's benerf_tpu_torch/csrc/fused_mlp_{fwd,bwd}.cu (K1, K2) and
+staged_mlp_{fwd,bwd}.cu (K3, K4) are compiled with the port's nvcc flags to
+a cubin for sm_90a, `cuobjdump -sass` lists every function, and every
+function of the parent's cubin is paired with the change's by kernel name
+and template arguments (a parameter appended changes the rest of the
+mangled name, so the pair is made on the name up to its parameter list)
+and compared instruction by instruction, with the addresses and encodings
+dropped. K1's `fwd_kernel<Mode, false>` (the launch that keeps nothing) is
+paired with a parent's `fwd_kernel<Mode>` where the parent has no keeping
+instantiation. Prints one JSON line per kernel: identical or not,
+instruction counts and the first differing lines, then the functions only
+the change has. Needs nvcc and cuobjdump (the CUDA toolkit); imports
+nothing of JAX.
 """
 
 import json
@@ -25,17 +27,18 @@ import sys
 import tempfile
 from pathlib import Path
 
-SOURCES = ("fused_mlp_bwd", "staged_mlp_bwd")
+SOURCES = ("fused_mlp_fwd", "fused_mlp_bwd", "staged_mlp_fwd", "staged_mlp_bwd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-cubin")
-MODE0 = "ILN2tc4ModeE0E"  # the mangled template argument tc::Mode 0
-
-
 def key(mangled):
-    """The kernel's name and template argument: the mangled name up to its
-    parameter list."""
-    m = re.match(r"(_ZN.*?ILN2tc4ModeE\dEEE)", mangled)
-    return m.group(1) if m else mangled
+    """The kernel's name and template arguments: the mangled name up to its
+    parameter list (tc::Mode m: `ILN2tc4ModeEmE`), a bool argument false
+    (`Lb0E`, K1's launch that keeps nothing) dropped, so that it pairs with
+    the parent's kernel of the Mode alone."""
+    m = re.match(r"(_ZN.*?ILN2tc4ModeE\dE)(Lb[01]E)?EE", mangled)
+    if not m:
+        return mangled
+    return m.group(1) + ("" if m.group(2) in (None, "Lb0E") else m.group(2)) + "EE"
 
 
 def _tool(name):
@@ -77,7 +80,7 @@ def main():
                 d = Path(tmp) / side
                 d.mkdir(exist_ok=True)
                 sides[side] = sass(tree, source, d)
-            for name in sorted(n for n in sides["parent"] if MODE0 in n):
+            for name in sorted(sides["parent"]):
                 a, b = sides["parent"][name], sides["change"].get(name)
                 diff = None if b is None else [
                     (i, x, y) for i, (x, y) in enumerate(zip(a, b)) if x != y]
@@ -88,9 +91,9 @@ def main():
                     "instructions": [len(a), None if b is None else len(b)],
                     "differing": None if diff is None else len(diff) + abs(len(a) - len(b)),
                     "first_differences": None if diff is None else diff[:12]}))
-            new = sorted(n for n in sides["change"] if MODE0 in n and n not in sides["parent"])
+            new = sorted(n for n in sides["change"] if n not in sides["parent"])
             if new:
-                print(json.dumps({"source": source, "mode0_only_in_change": new}))
+                print(json.dumps({"source": source, "only_in_change": new}))
 
 
 if __name__ == "__main__":
