@@ -18,9 +18,11 @@ an exception):
      C in {1, 3, 7} (C + 1 = 8 fills every head row): in fp32 mode (TF32X3) against fp32 nerf.apply, in bf16
      mode against nerf.apply with bf16 operands and float64 (check_*_bf16);
      K1 as the train path launches it, keeping its forward for K2, at both
-     training n and in both modes: its output against nerf.apply, its X
-     rows against the plain activations, its sign words against its
-     activations (check_kept); K2 also rerun with another split count; K2's weight-gradient pass
+     training n, C = 3 and C = 1 (the gray configs' head), and in both
+     modes: its output against nerf.apply, its X rows against the plain
+     activations, its sign words against its activations (check_kept); K2
+     (both modes) also at C = 1 with BARF off, at a ragged and both training
+     n, and rerun with another split count; K2's weight-gradient pass
      alone (csrc/wgrad_wgmma.cuh) against the float64 product of the same
      scratch, both modes, splits 32 and 7, at both training n and 3 x 37;
      CUDA-event times of kernel, plain version, both bounds, of the
@@ -2257,7 +2259,10 @@ def main():
     for R, S in ((5, 64), (3, 37)):
         for C in (1, 3, 7):
             check_bwd(torch, "K1/K2", R, S, C, True)
-    check_bwd(torch, "K1/K2", 3, 37, 3, False)
+    for C in (1, 3):  # BARF off, as the shipped configs train (gray: C = 1)
+        check_bwd(torch, "K1/K2", 3, 37, C, False)
+    for S in (64, 128):  # the gray configs' head at the training shapes
+        check_bwd(torch, "K1/K2", RAYS, S, 1, False, seed=S)
     # split-count independence on the fine shape: splits 32 (default) vs 7
     check_splits(torch, "K1/K2", 1e-4)
     print("    K2's weight-gradient pass alone vs float64 of the same scratch")
@@ -2271,10 +2276,13 @@ def main():
     for R, S in ((5, 64), (3, 37)):
         for C in (1, 3, 7):
             check_bf16(torch, "K1/K2", R, S, C, True)
+    for R, S in ((3, 37), (RAYS, 64), (RAYS, 128)):
+        check_bf16(torch, "K1/K2", R, S, 1, False)
     print("    K1 keeping its forward (the train path's launch) vs nerf.apply, "
           "its X rows and sign words vs the plain activations")
-    k1_kept = {cd: {RAYS * S: check_kept(torch, RAYS, S, 3, cd, seed=S)
-                    for S in (64, 128)} for cd in ("float32", "bfloat16")}
+    k1_kept = {cd: {f"{RAYS * S} C={C}": check_kept(torch, RAYS, S, C, cd, seed=S)
+                    for C in (3, 1) for S in (64, 128)}
+               for cd in ("float32", "bfloat16")}
     k12 = {cd: _per_n_fused(torch, cd) for cd in ("float32", "bfloat16")}
 
     # 3. the tanabata slice, fp32 mode

@@ -60,11 +60,12 @@ def _inputs(R, S, C, barf, seed=0, width=256, views_ch=27):
 
 
 @pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
-@pytest.mark.parametrize("C,barf", [(1, True), (3, False), (7, True)])
+@pytest.mark.parametrize("C,barf", [(1, True), (1, False), (3, False), (7, True)])
 def test_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     """K1/K2 in fp32 mode (TF32X3). 3 x 37 = 111 points leave a ragged last
     tile: its outputs and its gradients must not be dropped; 5 x 64 fills
-    five tiles. C = 7 is the widest K1/K2 take (C + 1 <= 8)."""
+    five tiles. C = 7 is the widest K1/K2 take (C + 1 <= 8); C = 1 with
+    BARF off is the shipped gray configs' head."""
     params, pts, vd, kw = _inputs(R, S, C, barf)
     leaves = [t.requires_grad_(True) for t in bridge.tree_leaves(params)]
     x, v = pts.requires_grad_(True), vd.requires_grad_(True)
@@ -99,7 +100,7 @@ def _dist(got, want):
 
 
 @pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
-@pytest.mark.parametrize("C,barf", [(1, True), (3, False), (7, True)])
+@pytest.mark.parametrize("C,barf", [(1, True), (1, False), (3, False), (7, True)])
 def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
     """K1/K2 in bf16 mode: the forward within test_bfloat16_mode's 2e-2 x
     scale of nerf.apply with bf16 operands; gradients finite, and no
@@ -152,6 +153,23 @@ def test_k1_keeps_its_forward_for_k2(card, C, R, S, compute_dtype):
     every point of every tile. 3 x 37 points leave a ragged last tile."""
     d = _smoke().check_kept(torch, R, S, C, compute_dtype, seed=C)
     assert d["signs_equal"]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [64, 128])
+def test_gray_head_at_the_training_shapes(card, S, compute_dtype):
+    """The shipped gray configs' MLP call (C = 1, BARF off) at the train
+    path's 3,055 rays x S points: K1 keeping its forward as in
+    test_k1_keeps_its_forward_for_k2, and K2's gradients against the plain
+    version's, at chip_smoke.py's tolerances (float32: GRAD_TOL x scale;
+    bfloat16: the band around the plain bf16 version's distance to
+    float64)."""
+    cs = _smoke()
+    assert cs.check_kept(torch, cs.RAYS, S, 1, compute_dtype, seed=S)["signs_equal"]
+    if compute_dtype == "float32":
+        cs.check_bwd(torch, "K1/K2", cs.RAYS, S, 1, False, seed=S)
+    else:
+        cs.check_bf16(torch, "K1/K2", cs.RAYS, S, 1, False, seed=S)
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
