@@ -110,7 +110,7 @@ __device__ __forceinline__ void dgrad_out(float (&acc)[N / 4],
 // K2's per-point d viewdir), and stores every pre-activation gradient (D)
 // of the tile to the scratch from the accumulators, in the mode's format
 // (see the top). Where the forward comes from:
-//  - K2 (VIEW_PE): K1 kept it (fused_mlp_wg.cuh `kept_tile`): its
+//  - K2 (VIEW_PE): K1 kept it (fused_mlp_wg.cuh `store_kept`): its
 //    activations sit in X for pass (b), its sign words in global memory,
 //    which one bulk copy brings into shared memory; the pass starts at the
 //    backward, its ring streams the data-gradient stages alone;

@@ -28,11 +28,20 @@
 // instantiation also writes what K2's tile pass would otherwise compute
 // again, every activation as a row of K2's scratch X in the mode's format
 // (TF32X3: fp32, row stride n_pad; BF16: tile-blocked bf16 rows and the
-// fp32 rows h7 and hv) and the ReLU sign words of every layer
-// (fused_mlp_wg.cuh `kept_tile`): 10,384 B a point in TF32X3 (1.2 ms of
-// HBM time at 391,040 points), 6,608 in BF16 (0.8 ms). Those stores do not
-// all hide behind the products: a keeping launch takes ~1.3 ms (TF32X3)
-// and ~1.1 ms (BF16) longer at that size (PERF.md). The
+// fp32 rows h7 and hv) and the ReLU sign words of every layer: 10,384 B
+// a point in TF32X3 (1.2 ms of HBM time at 391,040 points), 6,608 in BF16
+// (0.8 ms). The consumers store only the sign words (in their fragment
+// order, 2 KB a layer); the activations go out through the storer, the
+// producer warpgroup's three idle warps (fused_mlp_wg.cuh `store_kept`):
+// once the consumers have written a layer into H it copies the tile to X
+// in coalesced streaming stores while they run the next layer's products,
+// on two named barriers, and they overwrite H only once it is copied.
+// Stored from the consumers' epilogues, where all SMs reached each layer
+// boundary together, the rows took a keeping launch ~1.3 ms (TF32X3) and
+// ~1.2 ms (BF16) past K1 alone at that size; through the storer ~0.7 ms
+// and ~0.66 ms, which the consumers hardly spend waiting for it: their
+// sign words and the stores' drag on the products they overlap (PERF.md
+// §6). The
 // 1- and C-column heads are fp32 on CUDA cores. Points past n (the ragged
 // last tile) are encoded as zeros and not written to the result; KEEP
 // writes their rows too (K2's cotangent is zero there).
@@ -65,23 +74,29 @@ fwd_kernel(const __grid_constant__ CUtensorMap wmap, const wl::Sched sched,
   float* VPE = PE + TP * L::P;
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
-  if (wl::producer(ring, &wmap, sched)) return;
+  if constexpr (KEEP) {
+    if (wl::producer(ring, &wmap, sched, [&] {
+          store_kept<MODE>(PE, VPE, H, X, side, (int64_t)gridDim.x * TP, blockIdx.x);
+        }))
+      return;
+  } else if (wl::producer(ring, &wmap, sched)) {
+    return;
+  }
   const int w = wl::warpgroup();
   const Offsets o = offsets(C);
   const int64_t p0 = (int64_t)blockIdx.x * TP;
   encode_pm(pts, vd, n, S, band, p0, PE, L::P, VPE, L::V);
-  wg::consumers_sync();
+  tile_written<KEEP>();  // KEEP: PE and VPE handed to the storer
   auto alpha = [&](const float* h7) {
     head_pm(P + o.wa, 1, 0, WIDTH, h7, L::H, __ldg(P + o.ba), out, n, p0, C, C);
   };
   if constexpr (KEEP) {
-    const Keep keep = kept_tile<MODE>(PE, L::P, VPE, L::V, X, side, signs,
-                                      (int64_t)gridDim.x * TP, blockIdx.x);
-    forward_wg<MODE>(P, o, PE, ViewPE{VPE}, H, ring, &keep, alpha, w);
+    const KeptSigns keep{signs + (int64_t)blockIdx.x * SIGN_WORDS};
+    forward_wg<MODE, KeptSigns>(P, o, PE, ViewPE{VPE}, H, ring, &keep, alpha, w);
   } else {
     forward_wg<MODE>(P, o, PE, ViewPE{VPE}, H, ring, nullptr, alpha, w);
   }
-  wg::consumers_sync();  // hv in H columns 0..127
+  tile_written<KEEP>();  // hv in H columns 0..127
   for (int c = 0; c < C; ++c)
     head_pm(P + o.wrgb, C, c, HEAD, H, L::H, __ldg(P + o.brgb + c), out, n, p0,
             C, c);

@@ -123,7 +123,7 @@ __device__ __forceinline__ void ray_bias_relu(float (&acc)[32], const ViewBias& 
 // (fused_mlp_bwd_common.cuh has its formats). VIEW_PE: K2's (the view
 // encoding VPE among the activations), else K4's. The X rows and the ReLU
 // signs are the forward's: K1 writes K2's when autograd will need them
-// (`kept_tile`), K4's tile pass runs K3's forward again to write its own.
+// (`store_kept`), K4's tile pass runs K3's forward again to write its own.
 template <bool VIEW_PE>
 struct Scratch {
   static constexpr int X_PE = 0;
@@ -158,15 +158,25 @@ struct Side {
 constexpr int MASK_WORDS = DEPTH * 2 + 1;
 constexpr int SIGN_WORDS = MASK_WORDS * wl::CONSUMERS;
 
-// Outputs of the forward kept for K2/K4: with X non-null every activation
-// is written to the feature-major scratch X (row stride ldx, column col0)
-// at rows x_h + 256 l (trunk), x_f (feature), x_hv (views), and the ReLU
-// signs of h0..h7 and hv to `masks` (MASK_WORDS words a consumer thread).
-// BF16 (fused_mlp_bwd_common.cuh): X is the tile's block of the bf16
-// scratch (ldx 64, col0 0) and holds the trunk and the feature; h7 also
-// goes to the fp32 rows `side` + s_h7 (row stride lds, column cols), hv
-// only to `side` + s_hv.
+// How forward_wg keeps its forward, a compile-time choice by the type of
+// its `keep`:
+//  - Keep (K4's tile pass, which keeps K3's forward for its own backward):
+//    the consumers store every activation from their accumulators, in the
+//    epilogue of its layer;
+//  - KeptSigns (K1 keeping its forward for K2, fwd_kernel<MODE, true>): the
+//    consumers store only the ReLU sign words; the storer copies each
+//    activation out of H while the consumers run the next layer's products
+//    (store_kept);
+//  - nullptr (K1 without grad, K3): nothing is kept.
+// Keep: every activation is written to the feature-major scratch X (row
+// stride ldx, column col0) at rows x_h + 256 l (trunk), x_f (feature),
+// x_hv (views), and the ReLU signs of h0..h7 and hv to `masks`
+// (MASK_WORDS words a consumer thread). BF16 (fused_mlp_bwd_common.cuh): X
+// is the tile's block of the bf16 scratch (ldx 64, col0 0) and holds the
+// trunk and the feature; h7 also goes to the fp32 rows `side` + s_h7 (row
+// stride lds, column cols), hv only to `side` + s_hv.
 struct Keep {
+  static constexpr bool kStorer = false;
   float* X;
   int64_t ldx, col0;
   int x_h, x_f, x_hv;
@@ -176,47 +186,156 @@ struct Keep {
   int s_h7, s_hv;
 };
 
-// What K1 keeps of tile `tile` (first point p0) for K2, in the mode's
-// scratch format: the encodings PE and VPE (point-major in shared memory,
-// row strides ldp, ldv) to their X rows now, and the Keep that the forward
-// writes the rest through. X: TF32X3 the fp32 rows (row stride n_pad),
-// BF16 the tile-blocked bf16 rows; side: BF16's fp32 rows h7 and hv
-// (Side::KEPT rows); signs: SIGN_WORDS a tile. The consumer threads.
+// K1's: the tile's sign words (SIGN_WORDS, as Keep's masks)
+struct KeptSigns {
+  static constexpr bool kStorer = true;
+  uint32_t* masks;
+};
+
+// ---- K1's storer ---------------------------------------------------------------
+//
+// Warps 1-3 of the producer warpgroup (96 threads; warp 0's first thread
+// streams the ring, wl::producer). The consumers hand it each activation
+// tile once H holds it (barrier HANDED: the consumers sync, the storer
+// waits), and before they overwrite H they wait until the storer has
+// copied the last one (barrier COPIED: the storer arrives, the consumers
+// sync). A tile's hand-overs: PE and VPE, h0..h7, f, hv; the consumers'
+// HANDED and COPIED take the places of the two consumers_sync around each
+// store_act, so the copies cost the products nothing while one takes less
+// time than the next layer's products.
+constexpr int STORER = 96;
+constexpr int STORER0 = wl::CONSUMERS + 32;  // the storer's first thread
+constexpr int HANDED = 2, COPIED = 3;         // bar 1: wg::consumers_sync
+
+__device__ __forceinline__ void storer_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(wl::CONSUMERS + STORER) : "memory");
+}
+__device__ __forceinline__ void storer_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(wl::CONSUMERS + STORER) : "memory");
+}
+
+// The barriers around a store_act of forward_wg: before it every consumer
+// has read H (with the storer: and the storer has copied it), after it H
+// holds the new tile (with the storer: handed to it).
+template <bool STORE>
+__device__ __forceinline__ void tile_read() {
+  if constexpr (STORE)
+    storer_sync(COPIED);
+  else
+    wg::consumers_sync();
+}
+template <bool STORE>
+__device__ __forceinline__ void tile_written() {
+  if constexpr (STORE)
+    storer_sync(HANDED);
+  else
+    wg::consumers_sync();
+}
+
+// rows [0, rows) (a multiple of 4) of a point-major tile in shared memory
+// (row stride ld, 16-byte aligned) to the fp32 rows G (row stride ldg) at
+// column col0, by the storer: a warp takes 32 points of 4 rows a step, a
+// thread one 16-byte load of its point (no bank conflict where ld is 4
+// mod 32: TF32X3) and 4 stores, each of the warp's a whole 128-byte line.
+__device__ __forceinline__ void store_rows(const float* src, int ld, int rows,
+                                          float* G, int64_t ldg, int64_t col0) {
+  const int t = threadIdx.x - STORER0, c0 = t % 32;
+#pragma unroll 1
+  for (int s = t / 32; s < rows / 2; s += STORER / 32) {
+    const int r = 4 * (s >> 1), c = 32 * (s & 1) + c0;
+    const float4 v = *reinterpret_cast<const float4*>(src + c * ld + r);
+    float* g = G + (int64_t)r * ldg + col0 + c;
+    __stcs(g, v.x);
+    __stcs(g + ldg, v.y);
+    __stcs(g + 2 * ldg, v.z);
+    __stcs(g + 3 * ldg, v.w);
+  }
+}
+
+// The same to the tile-blocked bf16 rows G (64 points a row), rounded as
+// copy_cols_bf16 and wl::store_global_bf16 round: a warp takes 16 points of
+// 16 rows a step, a thread the 16-byte loads of two neighbouring points
+// (no bank conflict where ld is 8 mod 32: BF16) and 4 stores of a 32-bit
+// word (the two points), each of the warp's four full 32-byte sectors.
+__device__ __forceinline__ void store_rows_bf16(const float* src, int ld, int rows,
+                                               __nv_bfloat16* G) {
+  const int t = threadIdx.x - STORER0, lane = t % 32;
+  const int r0 = 4 * (lane & 3), c0 = 2 * ((lane >> 2) & 1) + 4 * (lane >> 3);
+#pragma unroll 1
+  for (int s = t / 32; s < rows / 4; s += STORER / 32) {
+    const int r = 16 * (s >> 2) + r0, c = 16 * (s & 3) + c0;
+    const float4 a = *reinterpret_cast<const float4*>(src + c * ld + r);
+    const float4 b = *reinterpret_cast<const float4*>(src + (c + 1) * ld + r);
+    uint32_t* g = reinterpret_cast<uint32_t*>(G + r * TP + c);
+    __stcs(g, tc::bf16x2(a.x, b.x));
+    __stcs(g + TP / 2, tc::bf16x2(a.y, b.y));
+    __stcs(g + TP, tc::bf16x2(a.z, b.z));
+    __stcs(g + 3 * TP / 2, tc::bf16x2(a.w, b.w));
+  }
+}
+
+// The storer's part of K1 keeping tile `tile` for K2: every hand-over of
+// the consumers' forward_wg copied to K2's rows in the mode's format. PE,
+// VPE, H: the block's tiles (row strides Ld<MODE>); X: TF32X3 the fp32
+// rows (row stride n_pad), BF16 the tile-blocked bf16 rows; side: BF16's
+// fp32 rows h7 and hv (Side::KEPT rows). Returns once hv is copied.
 template <tc::Mode MODE>
-__device__ __forceinline__ Keep kept_tile(const float* PE, int ldp, const float* VPE,
-                                          int ldv, float* X, float* side,
-                                          uint32_t* signs, int64_t n_pad,
-                                          int64_t tile) {
+__device__ __forceinline__ void store_kept(const float* PE, const float* VPE,
+                                           const float* H, float* X, float* side,
+                                           int64_t n_pad, int64_t tile) {
+  using L = wl::Ld<MODE>;
   using R = Scratch<true>;
   using SR = Side<true>;
+  constexpr bool B = MODE == tc::BF16;
   const int64_t p0 = tile * TP;
-  uint32_t* masks = signs + tile * SIGN_WORDS;
-  if constexpr (MODE == tc::BF16) {
-    __nv_bfloat16* Xt = reinterpret_cast<__nv_bfloat16*>(X) + tile * R::X_HV * TP;
-    copy_cols_bf16(PE, ldp, PE_PAD, Xt + (int64_t)R::X_PE * TP, TP, 0);
-    copy_cols_bf16(VPE, ldv, VPE_PAD, Xt + (int64_t)R::X_VPE * TP, TP, 0);
-    return Keep{reinterpret_cast<float*>(Xt), TP, 0, R::X_H, R::X_F, R::X_HV,
-                masks, side, n_pad, p0, SR::H7, SR::HV};
-  } else {
-    copy_cols(PE, ldp, PE_PAD, X + (int64_t)R::X_PE * n_pad, n_pad, p0);
-    copy_cols(VPE, ldv, VPE_PAD, X + (int64_t)R::X_VPE * n_pad, n_pad, p0);
-    return Keep{X, n_pad, p0, R::X_H, R::X_F, R::X_HV, masks, nullptr, n_pad, p0,
-                SR::H7, SR::HV};
+  __nv_bfloat16* Xt = reinterpret_cast<__nv_bfloat16*>(X) + tile * R::X_HV * TP;
+  auto put = [&](const float* src, int ld, int rows, int row) {
+    if constexpr (B)
+      store_rows_bf16(src, ld, rows, Xt + row * TP);
+    else
+      store_rows(src, ld, rows, X + row * n_pad, n_pad, p0);
+  };
+  storer_sync(HANDED);
+  put(PE, L::P, PE_PAD, R::X_PE);
+  put(VPE, L::V, VPE_PAD, R::X_VPE);
+#pragma unroll 1
+  for (int l = 0; l <= DEPTH; ++l) {  // h0..h7, then f (X_F = X_H + 8 x 256)
+    storer_arrive(COPIED);
+    storer_sync(HANDED);
+    put(H, L::H, WIDTH, R::X_H + l * WIDTH);
+    if (B && l == DEPTH - 1) store_rows(H, L::H, WIDTH, side + SR::H7 * n_pad, n_pad, p0);
   }
+  storer_arrive(COPIED);
+  storer_sync(HANDED);
+  if constexpr (B)
+    store_rows(H, L::H, HEAD, side + SR::HV * n_pad, n_pad, p0);
+  else
+    put(H, L::H, HEAD, R::X_HV);
 }
 
 // The forward on one tile whose point encoding is in PE (the ring's
 // schedule starts with it). Leaves hv in H columns 0..127 (every consumer
-// has written its part; the caller syncs before reading). Calls alpha(H)
-// on h7 before f overwrites it (the alpha head of K1/K3). w: this
-// thread's consumer warpgroup.
-template <tc::Mode MODE, typename View, typename Alpha, typename RingT>
+// has written its part; the caller syncs, tile_written<STORE>, before
+// reading). Calls alpha(H) on h7 before f overwrites it (the alpha head of
+// K1/K3). w: this thread's consumer warpgroup. keep: what the forward
+// keeps and who stores it, by caller (`Keep` above): K4's tile pass a Keep,
+// stored from the accumulators in each layer's epilogue; K1 keeping its
+// forward a KeptSigns (named as KeepT), each activation tile handed to the
+// storer; K1 without grad and K3 nullptr.
+template <typename T>
+struct NoDeduce {  // keeps a parameter's type out of template deduction
+  using type = T;
+};
+template <tc::Mode MODE, typename KeepT = Keep, typename View, typename Alpha,
+          typename RingT>
 __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
                                            const Offsets& o, const float* PE,
                                            const View& view, float* H,
-                                           RingT& ring, const Keep* keep,
+                                           RingT& ring,
+                                           const typename NoDeduce<KeepT>::type* keep,
                                            Alpha alpha, int w) {
   using L = wl::Ld<MODE>;
+  constexpr bool STORE = KeepT::kStorer;
   {
     float acc[64];
     for (int l = 0; l < DEPTH; ++l) {
@@ -227,7 +346,9 @@ __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
         wl::product<MODE, WIDTH>(acc, H, L::H, WIDTH, ring, w);
       if (l == SKIP) wl::product<MODE, WIDTH>(acc, PE, L::P, PE_PAD, ring, w);
       wl::bias_act<WIDTH>(acc, P + o.b + l * WIDTH, true);
-      if (keep) {
+      if constexpr (STORE) {
+        wl::save_signs(keep->masks + l * 2 * wl::CONSUMERS, acc);
+      } else if (keep) {
         if constexpr (MODE == tc::BF16) {
           wl::store_global_bf16<WIDTH>(
               reinterpret_cast<__nv_bfloat16*>(keep->X) +
@@ -242,27 +363,29 @@ __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
         }
         wl::save_signs(keep->masks + l * 2 * wl::CONSUMERS, acc);
       }
-      wg::consumers_sync();  // every consumer has read h_{l-1}
+      tile_read<STORE>();  // every consumer has read h_{l-1}
       wl::store_act<WIDTH>(H, L::H, acc);
-      wg::consumers_sync();  // h_l is written
+      tile_written<STORE>();  // h_l is written
     }
     alpha(H);  // reads h7; the feature product's barrier orders it before f
     // f = wf^T h7 + bf
     wl::zero(acc);
     wl::product<MODE, WIDTH>(acc, H, L::H, WIDTH, ring, w);
     wl::bias_act<WIDTH>(acc, P + o.bf, false);
-    if (keep) {
-      if constexpr (MODE == tc::BF16)
-        wl::store_global_bf16<WIDTH>(
-            reinterpret_cast<__nv_bfloat16*>(keep->X) + (int64_t)keep->x_f * keep->ldx,
-            keep->ldx, keep->col0, acc);
-      else
-        wl::store_global<WIDTH>(keep->X + (int64_t)keep->x_f * keep->ldx,
-                                keep->ldx, keep->col0, acc);
+    if constexpr (!STORE) {
+      if (keep) {
+        if constexpr (MODE == tc::BF16)
+          wl::store_global_bf16<WIDTH>(
+              reinterpret_cast<__nv_bfloat16*>(keep->X) + (int64_t)keep->x_f * keep->ldx,
+              keep->ldx, keep->col0, acc);
+        else
+          wl::store_global<WIDTH>(keep->X + (int64_t)keep->x_f * keep->ldx,
+                                  keep->ldx, keep->col0, acc);
+      }
     }
-    wg::consumers_sync();
+    tile_read<STORE>();
     wl::store_act<WIDTH>(H, L::H, acc);
-    wg::consumers_sync();
+    tile_written<STORE>();
   }
   // hv = relu(wfv^T f + the view input)
   float acc[32];
@@ -274,7 +397,9 @@ __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
   } else {
     ray_bias_relu(acc, view);
   }
-  if (keep) {
+  if constexpr (STORE) {
+    wl::save_signs(keep->masks + DEPTH * 2 * wl::CONSUMERS, acc);
+  } else if (keep) {
     if constexpr (MODE == tc::BF16)
       wl::store_global<HEAD>(keep->side + (int64_t)keep->s_hv * keep->lds,
                              keep->lds, keep->cols, acc);
@@ -283,7 +408,7 @@ __device__ __forceinline__ void forward_wg(const float* __restrict__ P,
                              keep->ldx, keep->col0, acc);
     wl::save_signs(keep->masks + DEPTH * 2 * wl::CONSUMERS, acc);
   }
-  wg::consumers_sync();  // every consumer has read f
+  tile_read<STORE>();  // every consumer has read f
   wl::store_act<HEAD>(H, L::H, acc);
 }
 

@@ -664,19 +664,28 @@ __device__ __forceinline__ int warpgroup() {
 }
 
 // The producer warpgroup's part of a kernel: gives up its registers, one
-// thread streams the schedule. Returns true in the producer warpgroup (the
-// caller returns), false in the consumers, which take the registers
-// (168 x 384 at launch; 128 x 128 given up = 256 x 64 taken).
-template <typename RingT>
+// thread streams the schedule, warps 1-3 run `idle` (K1 keeping its
+// forward: its storer; else nothing). Returns true in the producer
+// warpgroup (the caller returns), false in the consumers, which take the
+// registers (168 x 384 at launch; 128 x 128 given up = 256 x 64 taken).
+template <typename RingT, typename Idle>
 __device__ __forceinline__ bool producer(const RingT& ring, const CUtensorMap* map,
-                                         const Sched& sc) {
+                                         const Sched& sc, Idle idle) {
   if (warpgroup() == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == CONSUMERS) ring.produce(map, sc);
+    if (threadIdx.x == CONSUMERS)
+      ring.produce(map, sc);
+    else if (threadIdx.x >= CONSUMERS + 32)
+      idle();
     return true;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   return false;
+}
+template <typename RingT>
+__device__ __forceinline__ bool producer(const RingT& ring, const CUtensorMap* map,
+                                         const Sched& sc) {
+  return producer(ring, map, sc, [] {});
 }
 
 }  // namespace wl

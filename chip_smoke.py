@@ -390,7 +390,10 @@ def check_kept(torch, R, S, C, compute_dtype, seed=0):
     rows are the plain forward's activations within the same tolerance x
     max(|activation|, 1) (bfloat16: the fp32 h7 rows round to the bf16
     ones); the sign words are the kept activations > 0, bit for bit, over
-    every point of every tile. -> dict of the errors."""
+    every point of every tile; the keeping launch writes every X row, side
+    row and sign word of all n_pad points (NaN and all-ones sentinels
+    before it; a second keeping launch over zeroed sign words writes the
+    same words and the same result). -> dict of the errors."""
     from benerf_tpu_torch.models import bridge, nerf
     from benerf_tpu_torch.ops import fused_mlp, mlp_kernels as mk
 
@@ -417,17 +420,34 @@ def check_kept(torch, R, S, C, compute_dtype, seed=0):
         x = pts.reshape(n, 3).contiguous()
         prep = mk.prep_buffer(True, compute_dtype, "cuda")
         kept = mk.kept_scratch(n, "cuda", compute_dtype)
+        # sentinels: NaN rows, all-ones sign words; a second keeping launch
+        # over zeroed sign words must write the same words
+        for t in (kept.x, kept.side):
+            if t is not None:
+                t.fill_(float("nan"))
+        kept.signs.fill_(-1)
         out_k = mk.launch_fwd(mk.FUSED, packed, x, vd, band, S, C, compute_dtype,
                               prep=prep, kept=kept)
+        signs_k = kept.signs.clone()
+        kept.signs.zero_()
+        out_k2 = mk.launch_fwd(mk.FUSED, packed, x, vd, band, S, C, compute_dtype,
+                               prep=prep, kept=kept)
         out_0 = mk.launch_fwd(mk.FUSED, packed, x, vd, band, S, C, compute_dtype,
                               prep=prep)
         want = plain_activations(torch, params, pts, vd, compute_dtype)
     torch.cuda.synchronize()
+    left = {k: int(torch.isnan(t).sum()) for k, t in (("x", kept.x), ("side", kept.side))
+            if t is not None}
+    if any(left.values()) or not torch.equal(kept.signs, signs_k):
+        raise AssertionError(f"K1 keeping ({compute_dtype}, {kept.n_pad // mk.TILE} "
+                             f"tiles) left sentinels: NaN {left}, sign words "
+                             f"{int((kept.signs != signs_k).sum())}")
     err, scale = _max_err(out_r, out_p)
     if not err <= tol * scale:
         raise AssertionError(f"K1 keeping its forward ({compute_dtype}) "
                              f"disagrees with the plain version: {err}")
-    if not (torch.equal(out_k, out_r) and torch.equal(out_0, out_r)):
+    if not (torch.equal(out_k, out_r) and torch.equal(out_k2, out_r)
+            and torch.equal(out_0, out_r)):
         raise AssertionError("K1's keeping launch, the one that keeps nothing "
                              "and the recorded call differ")
     X = kept.rows("x")

@@ -138,7 +138,7 @@ def test_bf16_kernels_match_plain_at_a_ragged_size(card, C, barf, R, S):
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("R,S", [(3, 37), (5, 64)])
+@pytest.mark.parametrize("R,S", [(3, 37), (5, 64), (101, 61)])
 @pytest.mark.parametrize("C", [1, 3, 7])
 def test_k1_keeps_its_forward_for_k2(card, C, R, S, compute_dtype):
     """K1 launched with a kept forward, as where autograd records the call
@@ -150,7 +150,10 @@ def test_k1_keeps_its_forward_for_k2(card, C, R, S, compute_dtype):
     tolerance) and, in bfloat16, within 2e-2 x scale of the plain version
     on bf16 operands (bf16's) with the fp32 h7 rows rounding to the bf16
     ones; its sign words are the kept activations > 0, bit for bit, over
-    every point of every tile. 3 x 37 points leave a ragged last tile."""
+    every point of every tile; no NaN or all-ones sentinel filled before
+    the launch is left over the whole n_pad. 3 x 37 points leave a ragged
+    last tile; 101 x 61 are 97 tiles, one partial wave of the card's 132
+    SMs, with a ragged last tile."""
     d = _smoke().check_kept(torch, R, S, C, compute_dtype, seed=C)
     assert d["signs_equal"]
 
